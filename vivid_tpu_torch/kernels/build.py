@@ -1,0 +1,88 @@
+"""Builds the CUDA kernels of `vivid_tpu_torch/csrc` at first use.
+
+`nvcc` compiles every source into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers: a build takes seconds).
+The library lands in `build/kernels/<hash>/` at the repository root, keyed
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the cached library. A missing `nvcc` or a failed build
+raises; nothing falls back.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = ("flash_packed.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libvivid_kernels.so"
+
+
+def find_nvcc() -> str:
+    """`nvcc` on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(path) and os.access(path, os.X_OK):
+        return path
+    raise RuntimeError(
+        "nvcc not found (not on PATH, nor under $CUDA_HOME/bin): the CUDA "
+        "kernels of vivid_tpu_torch build only where the CUDA toolkit is "
+        "installed. CPU tensors take the plain PyTorch versions instead.")
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> dict:
+    """Compile (or find cached) and return dict(path, seconds, log, cached)."""
+    sources = [CSRC / s for s in SOURCES]
+    nvcc = find_nvcc()
+    out_dir = BUILD_DIR / _digest(sources)
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib.is_file():
+        log = log_path.read_text() if log_path.is_file() else ""
+        return dict(path=str(lib), seconds=0.0, log=log, cached=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return dict(path=str(lib), seconds=seconds, log=log, cached=False)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's signature set."""
+    lib = ctypes.CDLL(build()["path"])
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.vivid_flash_packed_fwd.argtypes = [
+        ptr, ptr, i32, i32, i32, i32, i32,      # qkv, out, B, S, H, d, n_src
+        ptr, i32, ptr, ptr, i32, ptr,           # feats/len/bias for 2 sources
+        f32, f32, ptr]                          # eps, zero_sink, stream
+    lib.vivid_flash_packed_fwd.restype = i32
+    return lib

@@ -1,0 +1,154 @@
+"""Packed-layout fused attention: the CUDA kernel's wrappers and their plain
+PyTorch versions.
+
+Counterparts of `flash_fused_packed` (self-attention, optional zero sink)
+and `flash_fused_packed_xattn` (self segment plus cross sources, one joint
+softmax, optional per-source logit bias) in vivid_tpu/kernels/flash.py.
+Both wrappers launch the one kernel in csrc/flash_packed.cu.
+
+Layouts: qkv [B, S, 3*H*D] part-major (part, head, d); feats [B, Sf, 2*H*D]
+(k, v part-major); biases [B, H, S, Sf] unscaled fp32; output [B, S, H*D]
+in (head, d) order. q, k and v rows are pixel-normalised inside, so callers
+pass the raw projection outputs.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Each wrapper adds one to its entry of `launches` where it launches
+its kernel, and nowhere else.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from vivid_tpu_torch.kernels import build
+
+NORM_EPS = 1e-4  # the pixel norm's eps, as in the TPU kernels
+launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0}
+
+
+def _rms_norm(x):
+    """Pixel norm of the last axis in fp32, result in x's dtype."""
+    x32 = x.float()
+    den = NORM_EPS + torch.sqrt(x32.square().sum(-1, keepdim=True)) / math.sqrt(x.shape[-1])
+    return (x32 / den).to(x.dtype)
+
+
+def _attention_ref(qkv, feats, num_heads, biases, zero_sink):
+    b, s, c3 = qkv.shape
+    h = num_heads
+    d = c3 // (3 * h)
+    y = qkv.view(b, s, 3, h, d)
+    q = y[:, :, 0]
+    ks, vs = [y[:, :, 1]], [y[:, :, 2]]
+    for f in feats:
+        z = f.view(b, f.shape[1], 2, h, d)
+        ks.append(z[:, :, 0])
+        vs.append(z[:, :, 1])
+    q = _rms_norm(q).transpose(1, 2).float()                  # [B,H,S,D]
+    k = _rms_norm(torch.cat(ks, 1)).transpose(1, 2).float()   # [B,H,Sk,D]
+    v = _rms_norm(torch.cat(vs, 1)).transpose(1, 2).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
+    if biases:
+        zero = torch.zeros(b, h, s, s, dtype=torch.float32, device=qkv.device)
+        logits = logits + torch.cat([zero] + [bi.float() for bi in biases], -1)
+    m = logits.amax(-1, keepdim=True)
+    if zero_sink:
+        m = m.clamp(min=0.0)
+    e = torch.exp(logits - m)
+    den = e.sum(-1, keepdim=True)
+    if zero_sink:
+        den = den + zero_sink * torch.exp(-m)
+    out = torch.einsum("bhqk,bhkd->bhqd", e / den, v)
+    return out.transpose(1, 2).reshape(b, s, h * d).to(qkv.dtype)
+
+
+def flash_fused_packed_ref(qkv, num_heads: int, zero_sink: int = 0):
+    """Plain version of K1: normalise in fp32, fp32 softmax with the sink's
+    mass zero_sink * exp(-max(m, 0)) in the denominator."""
+    return _attention_ref(qkv, (), num_heads, (), zero_sink)
+
+
+def flash_fused_packed_xattn_ref(qkv, feats, num_heads: int, biases=()):
+    """Plain version of K2: concatenate the self and cross KV segments and
+    run one fp32 softmax (the self segment carries no bias)."""
+    return _attention_ref(qkv, tuple(feats), num_heads, tuple(biases), 0)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _check(t, name, dtype, shape, device):
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _launch(qkv, feats, biases, num_heads, zero_sink):
+    if qkv.dim() != 3:
+        raise ValueError(f"qkv must be [B, S, 3*H*D], got {tuple(qkv.shape)}")
+    b, s, c3 = qkv.shape
+    h = num_heads
+    d = c3 // (3 * h) if h > 0 else 0
+    if h < 1 or c3 != 3 * h * d or d not in (32, 64):
+        raise ValueError(f"packed width {c3} with {h} heads: head dim must be 32 or 64")
+    if s < 1 or b < 1:
+        raise ValueError(f"empty qkv {tuple(qkv.shape)}")
+    if len(feats) > 2:
+        raise ValueError(f"at most 2 cross sources, got {len(feats)}")
+    if biases and len(biases) != len(feats):
+        raise ValueError("give one bias per cross source, or none")
+    if zero_sink < 0:
+        raise ValueError(f"zero_sink must be >= 0, got {zero_sink}")
+    dev = qkv.device
+    _check(qkv, "qkv", torch.bfloat16, (b, s, c3), dev)
+    srcs = []
+    for i, f in enumerate(feats):
+        if f.dim() != 3 or f.shape[1] < 1:
+            raise ValueError(f"feats[{i}] must be [B, Sf >= 1, 2*H*D], got {tuple(f.shape)}")
+        sf = f.shape[1]
+        _check(f, f"feats[{i}]", torch.bfloat16, (b, sf, 2 * h * d), dev)
+        bias = biases[i] if biases else None
+        if bias is not None:
+            _check(bias, f"biases[{i}]", torch.float32, (b, h, s, sf), dev)
+        srcs.append((f, sf, bias))
+    srcs += [(None, 0, None)] * (2 - len(srcs))
+    out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vivid_flash_packed_fwd(
+            _ptr(qkv), _ptr(out), b, s, h, d, len(feats),
+            _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[0][2]),
+            _ptr(srcs[1][0]), srcs[1][1], _ptr(srcs[1][2]),
+            ctypes.c_float(NORM_EPS), ctypes.c_float(zero_sink),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_packed kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def flash_fused_packed(qkv, num_heads: int, zero_sink: int = 0):
+    """K1: qkv [B, S, 3*H*D] -> [B, S, H*D], with `zero_sink` all-zero KV
+    columns in closed form (the unconditional model's cross features)."""
+    if qkv.device.type == "cpu":
+        return flash_fused_packed_ref(qkv, num_heads, zero_sink)
+    out = _launch(qkv, (), (), num_heads, zero_sink)
+    launches["flash_fused_packed"] += 1
+    return out
+
+
+def flash_fused_packed_xattn(qkv, feats, num_heads: int, biases=()):
+    """K2: qkv [B, S, 3*H*D] plus cross sources feats [B, Sf, 2*H*D] ->
+    [B, S, H*D]; optional unscaled per-source biases [B, H, S, Sf]."""
+    if qkv.device.type == "cpu":
+        return flash_fused_packed_xattn_ref(qkv, feats, num_heads, biases)
+    out = _launch(qkv, tuple(feats), tuple(biases), num_heads, 0)
+    launches["flash_fused_packed_xattn"] += 1
+    return out

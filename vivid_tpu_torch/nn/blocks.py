@@ -1,0 +1,118 @@
+"""EDM2 U-Net block with optional self- or cross-attention, forward only.
+
+Counterpart of the packed path of vivid_tpu/nn/blocks.py `block_apply`
+(the default `_attn_dot` form): the 1x1 attention projections run as
+linears over the flattened [B, S, C] tokens, and attention reads q/k/v
+straight from the packed projection outputs (kernels/attention.py).
+
+Weight storage keeps the reference order: attn_qkv output channels are
+(head, d, {q,k,v}) innermost-last and x_attn_kv (head, d, {k,v}). The
+forward permutes the normalised weight's output channels to the kernels'
+part-major (part, head, d) order (`_qkv_perm`) — a relabelling, so imported
+weights drop in unchanged.
+"""
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from vivid_tpu_torch.kernels import attention
+from vivid_tpu_torch.nn.mp import MPConv, mp_silu, mp_sum, normalize, resample
+
+RES_BALANCE = 0.3      # mp_sum weight of the residual branch
+ATTN_BALANCE = 0.3     # mp_sum weight of the attention branch
+CLIP_ACT = 256.0       # activations are clipped to +-CLIP_ACT after each block
+
+
+@dataclass(frozen=True)
+class BlockConfig:
+    in_channels: int
+    out_channels: int
+    emb_channels: int
+    flavor: str = "enc"              # 'enc' | 'dec'
+    resample_mode: str = "keep"      # 'keep' | 'up' | 'down'
+    attention: bool = False
+    xattn: bool = False              # cross-attention variant
+    num_cross_sources: int = 2
+    channels_per_head: int = 64
+    epipolar_attention_bias: bool = False
+
+    @property
+    def num_heads(self) -> int:
+        return self.out_channels // self.channels_per_head if self.attention else 0
+
+
+def _packed_linear(conv: MPConv, x, num_heads: int, parts: int):
+    """The 1x1 projection as a linear on [B, S, C], its output channels
+    permuted from the reference packing c = head*(D*parts) + d*parts + part
+    to the part-major c = part*(heads*D) + head*D + d (`_qkv_perm`)."""
+    w = conv.normalized_weight(x.dtype).flatten(1)          # [out, in]
+    w = w.view(num_heads, -1, parts, w.shape[1]).permute(2, 0, 1, 3)
+    return F.linear(x, w.reshape(-1, w.shape[-1]))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: BlockConfig, device=None):
+        super().__init__()
+        if cfg.epipolar_attention_bias:
+            raise NotImplementedError(
+                "epipolar_attention_bias: the epipolar geometry is not ported yet")
+        self.cfg = cfg
+        cin, cout = cfg.in_channels, cfg.out_channels
+        self.emb_gain = nn.Parameter(torch.empty((), device=device))
+        self.conv_res0 = MPConv(cout if cfg.flavor == "enc" else cin, cout, (3, 3), device)
+        self.emb_linear = MPConv(cfg.emb_channels, cout, (), device)
+        self.conv_res1 = MPConv(cout, cout, (3, 3), device)
+        self.conv_skip = MPConv(cin, cout, (1, 1), device) if cin != cout else None
+        if cfg.num_heads:
+            self.attn_qkv = MPConv(cout, cout * 3, (1, 1), device)
+            self.attn_proj = MPConv(cout, cout, (1, 1), device)
+            if cfg.xattn:
+                self.x_attn_kv = MPConv(cout, cout * 2, (1, 1), device)
+
+    def reset_parameters(self, gen: torch.Generator):
+        nn.init.zeros_(self.emb_gain)
+        for conv in self.children():
+            conv.reset_parameters(gen)
+
+    def forward(self, x, emb, features=None):
+        """x [B, H, W, Cin]; emb [B, Cemb]; features (xattn blocks): the
+        string "zeros" (unconditional model) or a list of cross sources
+        [B, h, w, Cout]."""
+        cfg = self.cfg
+        x = resample(x, cfg.resample_mode)
+        if cfg.flavor == "enc":
+            if self.conv_skip is not None:
+                x = self.conv_skip(x)
+            x = normalize(x, dim=-1)
+
+        y = self.conv_res0(mp_silu(x))
+        c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
+        y = mp_silu(y * c[:, None, None, :].to(y.dtype))
+        y = self.conv_res1(y)
+        if cfg.flavor == "dec" and self.conv_skip is not None:
+            x = self.conv_skip(x)
+        x = mp_sum(x, y, t=RES_BALANCE)
+
+        heads = cfg.num_heads
+        if heads:
+            b, h, w, ch = x.shape
+            qkv = _packed_linear(self.attn_qkv, x.reshape(b, h * w, ch), heads, 3)
+            if not cfg.xattn or features == "zeros":
+                sink = cfg.num_cross_sources * h * w if cfg.xattn else 0
+                y = attention.self_attention_from_packed(qkv, heads, zero_sink=sink)
+            else:
+                if features is None or len(features) != cfg.num_cross_sources:
+                    raise ValueError(f"xattn block needs {cfg.num_cross_sources} "
+                                     "cross sources")
+                kvs = [_packed_linear(self.x_attn_kv,
+                                      f.to(x.dtype).reshape(b, f.shape[1] * f.shape[2], -1),
+                                      heads, 2)
+                       for f in features]
+                y = attention.xattn_from_packed(qkv, kvs, heads)
+            w_proj = self.attn_proj.normalized_weight(y.dtype).flatten(1)
+            y = F.linear(y, w_proj).reshape(b, h, w, ch)
+            x = mp_sum(x, y, t=ATTN_BALANCE)
+        return x.clamp(-CLIP_ACT, CLIP_ACT)

@@ -1,0 +1,151 @@
+"""NVPrecond: EDM preconditioning around the feature encoder and the
+cross-attention denoiser, with the uncertainty (logvar) head.
+
+Counterpart of vivid_tpu/nn/precond.py with the same explicit source axis:
+
+    src:      [B, n_src, H, W, Cs]   (n_src = 2 dual-source, 1 vanilla)
+    dst:      [B, H, W, C]           noisy target
+    sigma:    [B]
+    geometry: [B, n_src, 20]
+
+The encoder folds the source axis into the batch; the denoiser consumes
+per-source feature stacks [B, n_src, h, w, c]. c_skip = sd^2/(s^2+sd^2),
+c_out = s*sd/sqrt(s^2+sd^2), c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4.
+Compute runs in bf16 when `use_bf16` (norm math stays fp32); D_x returns in
+fp32. Forward only.
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from vivid_tpu_torch.nn.mp import MPConv, MPFourier
+from vivid_tpu_torch.nn.unet import UNet, UNetConfig
+
+
+@dataclass(frozen=True)
+class PrecondConfig:
+    """The JAX package's PrecondConfig, field for field, so a snapshot's
+    `model_cfg` loads as it is. remat, scan_blocks, force_wn, wpack and
+    dropout only shape training or the TPU's execution and are ignored."""
+    img_resolution: int
+    img_channels: int = 3
+    source_label_dim: int = 20
+    target_label_dim: int = 40
+    use_bf16: bool = True
+    sigma_data: float = 0.5
+    logvar_channels: int = 128
+    super_res: bool = False
+    no_time_enc: bool = False
+    depth_input: bool = False
+    warp_depth_coor: bool = False
+    uncond: bool = False
+    noisy_sr: float = 0.25
+    num_sources: int = 2
+    model_channels: int = 192
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
+    channel_mult_noise: Optional[int] = None
+    channel_mult_emb: Optional[int] = None
+    num_blocks: int = 3
+    attn_resolutions: Tuple[int, ...] = (16, 8)
+    extra_attn: Optional[int] = None
+    epipolar_attention_bias: bool = False
+    channels_per_head: int = 64
+    dropout: float = 0.0
+    remat: object = True
+    scan_blocks: bool = False
+    force_wn: bool = False
+    wpack: Optional[bool] = None
+
+    def _unet_common(self):
+        return dict(
+            img_resolution=self.img_resolution,
+            model_channels=self.model_channels,
+            channel_mult=tuple(self.channel_mult),
+            channel_mult_noise=self.channel_mult_noise,
+            channel_mult_emb=self.channel_mult_emb,
+            num_blocks=self.num_blocks,
+            attn_resolutions=tuple(self.attn_resolutions),
+            extra_attn=self.extra_attn,
+            epipolar_attention_bias=self.epipolar_attention_bias,
+            num_cross_sources=self.num_sources,
+            channels_per_head=self.channels_per_head,
+        )
+
+    @property
+    def encoder_cfg(self) -> Optional[UNetConfig]:
+        if self.uncond:
+            return None
+        return UNetConfig(kind="encoder", img_channels=self.img_channels,
+                          label_dim=self.source_label_dim, **self._unet_common())
+
+    @property
+    def unet_cfg(self) -> UNetConfig:
+        return UNetConfig(kind="xattn", img_channels=self.img_channels,
+                          label_dim=self.target_label_dim, **self._unet_common())
+
+
+class NVPrecond(nn.Module):
+    def __init__(self, cfg: PrecondConfig, device=None, seed: Optional[int] = None):
+        """Parameters are allocated on `device` (use "meta" to count them
+        without memory). With `seed`, they are initialised from a
+        torch.Generator on that device: weights ~ N(0, 1), gains 0."""
+        super().__init__()
+        for flag in ("super_res", "warp_depth_coor", "depth_input"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"PrecondConfig.{flag} is not ported")
+        self.cfg = cfg
+        self.unet = UNet(cfg.unet_cfg, device)
+        self.logvar_fourier = MPFourier(cfg.logvar_channels, device)
+        self.logvar_linear = MPConv(cfg.logvar_channels, 1, (), device)
+        self.encoder = UNet(cfg.encoder_cfg, device) if not cfg.uncond else None
+        if seed is not None:
+            gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+            with torch.no_grad():
+                for module in self.children():
+                    module.reset_parameters(gen)
+
+    @property
+    def dtype(self):
+        return torch.bfloat16 if self.cfg.use_bf16 else torch.float32
+
+    def encode_sources(self, src, c_noise, geometry):
+        """Encoder over [B, n_src, H, W, Cs] -> list of [B, n_src, h, w, c]."""
+        b, s = src.shape[:2]
+        flat_src = src.reshape((b * s,) + src.shape[2:])
+        flat_geo = geometry.reshape(b * s, -1)
+        enc_noise = c_noise.repeat_interleave(s) * (0.0 if self.cfg.no_time_enc else 1.0)
+        feats = self.encoder(flat_src, enc_noise, flat_geo)
+        return [f.reshape((b, s) + f.shape[1:]) for f in feats]
+
+    def forward(self, src, dst, sigma, geometry=None, return_logvar: bool = False):
+        """D_x [B, H, W, C] in fp32 (and logvar [B, 1, 1, 1] on request)."""
+        cfg = self.cfg
+        b = dst.shape[0]
+        x = dst.float()
+        sigma = sigma.float().reshape(b, 1, 1, 1)
+        dtype = self.dtype
+        if geometry is None:
+            geometry = torch.zeros(b, cfg.num_sources, 20, device=x.device)
+        if cfg.uncond:
+            geometry = geometry * 0.0
+
+        sd = cfg.sigma_data
+        c_skip = sd ** 2 / (sigma ** 2 + sd ** 2)
+        c_out = sigma * sd / torch.sqrt(sigma ** 2 + sd ** 2)
+        c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
+        c_noise = torch.log(sigma.reshape(b)) / 4.0
+        x_in = (c_in * x).to(dtype)
+
+        if cfg.uncond:
+            features = "zeros"
+        else:
+            features = self.encode_sources(src.to(dtype), c_noise, geometry)
+        F_x = self.unet(x_in, c_noise, geometry.reshape(b, -1), features=features)
+        D_x = c_skip * x + c_out * F_x.float()
+        if return_logvar:
+            logvar = self.logvar_linear(self.logvar_fourier(c_noise)).reshape(b, 1, 1, 1)
+            return D_x, logvar
+        return D_x
