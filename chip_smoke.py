@@ -7,16 +7,27 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes)
-  kernels  each CUDA kernel against its plain PyTorch version at every shape
-           the 64px sampling path gives it, with times (CUDA events)
+  kernels  each of the four CUDA kernels (packed attention and cross
+           attention, forward and backward) against its plain PyTorch version
+           at every shape the 64px paths give it, with times (CUDA events);
+           a backward kernel run twice must give the same bits
   model    full-width vivid-base / vivid-uncond from a seed: parameter
            counts, and one NVPrecond call through the kernels vs the plain
            versions, held against a one-ulp noise control; planted faults
            (a cross source skipped, the zero sink dropped) must fail it
   slice    snapshots -> synthetic scenes -> generate_images_nvs (guided,
            32 Heun steps, 8 seeds): PNGs, finite images, kernel launch counts
-  profile  torch.profiler over 3 guided evaluations: device busy time,
-           kernels per evaluation, idle share, the top kernels
+  train    full-width vivid-base, batch 8 (the preset's global batch is
+           1024; only the batch is cut): the whole gradient of one loss
+           through the kernels vs the plain versions, held against a one-ulp
+           noise control, with planted faults (one source's dfeats zeroed,
+           the norm VJP's projection skipped) that must fail it; then 4
+           steps of vivid-base and 2 of vivid-uncond through the trainer's
+           entry point (launch counts, ms per step, peak memory), and the
+           snapshots it wrote sampled by generate_images_nvs
+  profile  torch.profiler over 3 guided evaluations and over 2 training
+           steps: device busy time, device operations, idle share, time by
+           kind, the top kernels
 
 Any failed check raises, so the script exits non-zero. Without a CUDA card
 it exits non-zero before printing any result. The line before the last is
@@ -32,9 +43,19 @@ import sys
 import tempfile
 import time
 
-TOL_KERNEL = 2e-2      # max |kernel - fp32 plain| on bf16 inputs
+TOL_KERNEL = 2e-2      # max |kernel - fp32 plain| on bf16 inputs (forward kernels)
+TOL_GRAD_L2 = 2e-2     # relative L2 of a backward kernel's gradient vs the fp32 plain version
+TOL_GRAD_MAX = 5e-2    # ... and, over every D-vector of it (every row of a dbias),
+                       # max ||err|| / (||reference vector|| + RMS * sqrt(len)): the
+                       # norm's VJP scales a whole vector by 1 / its input's norm, so
+                       # an error is held to its own vector as well as to the whole
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, for the bounds
+BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, same sheet
 TOL_MODEL = 1e-2       # relative L2 of D_x, kernels vs plain (emb gains at 0)
 TOL_CONTROL = 1.2      # ... and at most this multiple of the ulp-noise control
+TOL_GRAD_CONTROL = 1.2 # whole-model gradient, kernels vs plain: at most this multiple
+                       # of the control's relative L2 (one ulp on every attention
+                       # output and every attention gradient)
 SHAPES = [(1024, 4, 64), (256, 6, 64), (64, 8, 64)]   # (S, H, d) on the path
 EXTRA_SHAPES = [(100, 4, 64), (256, 8, 32)]           # ragged, d = 32
 BATCH = 8
@@ -92,61 +113,194 @@ def phase_build():
             print("  ptxas:", line.strip(), flush=True)
 
 
+def _sdpa_inputs(torch, qkv, feats, h):
+    """Pre-normalised [B, H, S, D] q and concatenated k, v for the library
+    yardstick (the attention core only: no in-kernel norm, packed layout,
+    sink or bias)."""
+    from vivid_tpu_torch.kernels.flash import _rms_norm
+    b, s, _ = qkv.shape
+    d = qkv.shape[2] // (3 * h)
+    y = qkv.view(b, s, 3, h, d)
+    ks, vs = [y[:, :, 1]], [y[:, :, 2]]
+    for f in feats:
+        z = f.view(b, f.shape[1], 2, h, d)
+        ks.append(z[:, :, 0])
+        vs.append(z[:, :, 1])
+    return tuple(_rms_norm(t).transpose(1, 2).contiguous()
+                 for t in (y[:, :, 0], torch.cat(ks, 1), torch.cat(vs, 1)))
+
+
 def _kernel_cases(torch, gen):
-    """(label, kernel fn, plain fn on fp32 copies, plain fn as the path runs
-    it) for K1 and K2 at every shape."""
+    """One dict per case of K1-K4 at every shape: `kernel` and `plain32` (the
+    plain version on fp32 copies) return tuples of tensors to compare,
+    `plain` is the plain version as a CPU-less path would run it, `library`
+    (headline cases only) the PyTorch attention call timed beside them."""
+    import torch.nn.functional as F
     from vivid_tpu_torch.kernels import flash
     dev = "cuda"
     cases = []
+
     def rows(s, parts, h, d):
         # Each d-vector scaled by exp(N(0, 1)), so the in-kernel norm matters.
         x = torch.randn(BATCH, s, parts * h, d, generator=gen, device=dev)
         x = x * torch.exp(torch.randn(BATCH, s, parts * h, 1, generator=gen, device=dev))
         return x.reshape(BATCH, s, parts * h * d).bfloat16()
 
+    def tup(fn):
+        def run():
+            out = fn()
+            if isinstance(out, torch.Tensor):
+                return (out,)
+            return (out[0], *out[1], *out[2])
+        return run
+
     for s, h, d in SHAPES + EXTRA_SHAPES:
         qkv = rows(s, 3, h, d)
         feats = [rows(s, 2, h, d) for _ in range(2)]
         bias = [torch.randn(BATCH, h, s, s, generator=gen, device=dev) for _ in range(2)]
+        g = torch.randn(BATCH, s, h * d, generator=gen, device=dev).bfloat16()
         f32 = [f.float() for f in feats]
+        main_shape = (s, h, d) == SHAPES[0]
+        io_self = 2 * (qkv.numel() + g.numel())           # bytes of qkv and out / g
+        io_x = io_self + 2 * sum(f.numel() for f in feats)
         for sink in (0, 2 * s):
-            cases.append((
-                "flash_fused_packed", f"S={s} H={h} d={d} sink={sink}",
-                lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed(qkv, h, zero_sink=sink),
-                lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv.float(), h, sink),
-                lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv, h, sink),
-                (s, h, d) == SHAPES[0] and sink == 0))
+            head = main_shape and sink == 0
+            lib = lib_bwd = None
+            if head:
+                q, k, v = _sdpa_inputs(torch, qkv, (), h)
+                lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
+                lib_bwd = _sdpa_backward(torch, q, k, v, g, h)
+            cases.append(dict(
+                name="flash_fused_packed", d=d, label=f"S={s} H={h} d={d} sink={sink}",
+                kernel=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed(qkv, h, zero_sink=sink)),
+                plain32=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv.float(), h, sink)),
+                plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv, h, sink),
+                headline=head, library=lib, bytes=io_self,
+                flops=4 * BATCH * h * s * s * d))
+            cases.append(dict(
+                name="flash_fused_packed_bwd", d=d, label=f"S={s} H={h} d={d} sink={sink}",
+                kernel=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd(qkv, g, h, sink)),
+                plain32=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h, sink)),
+                plain=lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv, g, h, sink),
+                headline=head, library=lib_bwd, bytes=io_self + 2 * qkv.numel(),
+                flops=10 * BATCH * h * s * s * d))
         for biased in (False, True):
             bs = bias if biased else ()
-            cases.append((
-                "flash_fused_packed_xattn", f"S={s} H={h} d={d} n_src=2 bias={biased}",
-                lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn(qkv, feats, h, biases=bs),
-                lambda qkv=qkv, h=h, bs=bs, f32=f32: flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h, bs),
-                lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_ref(qkv, feats, h, bs),
-                (s, h, d) == SHAPES[0] and not biased))
+            head = main_shape and not biased
+            lib = lib_bwd = None
+            if head:
+                q, k, v = _sdpa_inputs(torch, qkv, feats, h)
+                lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
+                lib_bwd = _sdpa_backward(torch, q, k, v, g, h)
+            io_b = 4 * sum(x.numel() for x in bs)
+            cases.append(dict(
+                name="flash_fused_packed_xattn", d=d, label=f"S={s} H={h} d={d} n_src=2 bias={biased}",
+                kernel=tup(lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn(qkv, feats, h, biases=bs)),
+                plain32=tup(lambda qkv=qkv, h=h, bs=bs, f32=f32: flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h, bs)),
+                plain=lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_ref(qkv, feats, h, bs),
+                headline=head, library=lib, bytes=io_x + io_b,
+                flops=4 * BATCH * h * s * 3 * s * d))
+            cases.append(dict(
+                name="flash_fused_packed_xattn_bwd", d=d, label=f"S={s} H={h} d={d} n_src=2 bias={biased}",
+                kernel=tup(lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd(qkv, feats, g, h, bs)),
+                plain32=tup(lambda qkv=qkv, g=g, h=h, bs=bs, f32=f32: flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), f32, g.float(), h, bs)),
+                plain=lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd_ref(qkv, feats, g, h, bs),
+                headline=head, library=lib_bwd,
+                bytes=io_x + 2 * (qkv.numel() + sum(f.numel() for f in feats)) + 2 * io_b,
+                flops=10 * BATCH * h * s * 3 * s * d))
     return cases
 
 
+def _sdpa_backward(torch, q, k, v, g, h):
+    """The backward of one scaled_dot_product_attention call, graph kept."""
+    import torch.nn.functional as F
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    go = g.view(g.shape[0], g.shape[1], h, -1).transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, leaves, go, retain_graph=True)
+
+
+def _check_zero_rows(torch, gen):
+    """All-zero q, k and v rows (r = 0 in the norm's VJP) must give finite
+    gradients that agree with the plain version."""
+    from vivid_tpu_torch.kernels import flash
+    s, h, d = 100, 4, 64
+    qkv = torch.randn(2, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
+    feats = [torch.randn(2, s, 2 * h * d, generator=gen, device="cuda").bfloat16()]
+    g = torch.randn(2, s, h * d, generator=gen, device="cuda").bfloat16()
+    qkv[:, 3] = 0            # q, k and v of one position
+    qkv[:, 70, h * d:] = 0   # k and v of another
+    feats[0][:, 5] = 0
+    got = flash.flash_fused_packed_xattn_bwd(qkv, feats, g, h)
+    want = flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), [feats[0].float()], g.float(), h)
+    errs = []
+    for a, w in zip((got[0], *got[1]), (want[0], *want[1])):
+        check(bool(torch.isfinite(a).all()), "zero rows: non-finite gradient")
+        errs.append(_rel_l2(a, w))
+    check(max(errs) <= TOL_GRAD_L2, f"zero rows: rel L2 {errs} (limit {TOL_GRAD_L2})")
+    say("kernel", name="flash_fused_packed_xattn_bwd", case="'zero rows, S=100 H=4 d=64 n_src=1'",
+        finite=True, rel_l2=f"{max(errs):.3e}",
+        dqkv_absmax=f"{got[0].float().abs().max().item():.3e}")
+
+
 def phase_kernels(table):
+    """Every kernel against its plain version at every path shape. A forward
+    kernel is held to TOL_KERNEL (max abs); a backward kernel's every
+    gradient to TOL_GRAD_L2 (relative L2) and TOL_GRAD_MAX (the same per
+    D-vector), and two runs on the same inputs must be bitwise
+    equal. Every case prints its bound: the larger of its bytes (each input
+    read once, each output written once) over the memory rate and its
+    operations over the bf16 peak. The headline case of each kernel fills
+    its row of the table and adds the library yardstick."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, label, kern, plain32, plain, headline in _kernel_cases(torch, gen):
-        got = kern().float()
-        want = plain32().float()
+    _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
+    for case in _kernel_cases(torch, gen):
+        name, label = case["name"], case["label"]
+        got = [t.float() for t in case["kernel"]()]
+        again = case["kernel"]()
+        want = [t.float() for t in case["plain32"]()]
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rms = want.square().mean().sqrt().item()
-        check(math.isfinite(err) and err <= TOL_KERNEL,
-              f"{name} {label}: max |kernel - plain| = {err} > {TOL_KERNEL}")
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain)
-        say("kernel", name=name, case=f"'{label}'", max_abs_err=f"{err:.3e}",
-            max_err_over_rms=f"{err / rms:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}")
+        check(len(got) == len(want), f"{name} {label}: {len(got)} outputs, want {len(want)}")
+        backward = name.endswith("_bwd")
+        err = rel_max = rel_l2 = scaled = 0.0
+        for i, (a, b, w) in enumerate(zip(got, again, want)):
+            check(a.shape == w.shape, f"{name} {label}: output {i} has shape {tuple(a.shape)}")
+            check(torch.equal(a, b.float()), f"{name} {label}: output {i} differs between two runs")
+            e = (a - w).abs().max().item()
+            rms = w.square().mean().sqrt().item()
+            err, rel_max = max(err, e), max(rel_max, e / rms)
+            rel_l2 = max(rel_l2, _rel_l2(a, w))
+            n = case["d"] if a.shape[-1] % case["d"] == 0 and a.dim() == 3 else a.shape[-1]
+            vec = (a - w).reshape(-1, n).norm(dim=1) / (w.reshape(-1, n).norm(dim=1)
+                                                        + rms * math.sqrt(n))
+            scaled = max(scaled, vec.max().item())
+        check(math.isfinite(err), f"{name} {label}: non-finite error")
+        if backward:
+            check(rel_l2 <= TOL_GRAD_L2 and scaled <= TOL_GRAD_MAX,
+                  f"{name} {label}: rel L2 {rel_l2} (limit {TOL_GRAD_L2}), max per-vector "
+                  f"err {scaled} (limit {TOL_GRAD_MAX}), max err over RMS {rel_max}")
+        else:
+            check(err <= TOL_KERNEL,
+                  f"{name} {label}: max |kernel - plain| = {err} > {TOL_KERNEL}")
+        ms = cuda_ms(case["kernel"])
+        plain_ms = cuda_ms(case["plain"])
+        by_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = case["flops"] / BF16_FLOPS * 1e3
+        bound_ms = max(by_bytes, by_ops)
+        bound_by = "bytes" if by_bytes >= by_ops else "operations"
+        say("kernel", name=name, case=f"'{label}'", outputs=len(got),
+            max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
+            rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
         row = table[name]
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
-        if headline:
-            row["ms"], row["plain_ms"] = ms, plain_ms
+        if case["headline"]:
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=cuda_ms(case["library"]))
+            say("kernel", name=name, headline=f"'{label}'", bytes=case["bytes"],
+                flops=case["flops"],
+                library_ms_attention_core_only=f"{row['library_ms']:.4f}")
 
 
 def main():
@@ -166,6 +320,14 @@ def main():
             name="flash_fused_packed_xattn", route="cuda",
             source="vivid_tpu_torch/csrc/flash_packed.cu",
             replaces="vivid_tpu/kernels/flash.py:427"),
+        "flash_fused_packed_bwd": dict(
+            name="flash_fused_packed_bwd", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_packed_bwd.cu",
+            replaces="vivid_tpu/kernels/flash.py:655"),
+        "flash_fused_packed_xattn_bwd": dict(
+            name="flash_fused_packed_xattn_bwd", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_packed_bwd.cu",
+            replaces="vivid_tpu/kernels/flash.py:733"),
     }
     card = phase_device()
     phase_build()
@@ -173,8 +335,14 @@ def main():
     phase_model()
     nets, launches = phase_slice(card)
     for name, n in launches.items():
-        table[name]["launches"] = n
+        if n:   # the forward kernels: the sampling path's count
+            table[name]["launches"] = n
+    for name, n in phase_train(card).items():
+        if name.endswith("_bwd"):   # the backward kernels: the training path's
+            table[name]["launches"] = n
     phase_profile(*nets)
+    del nets
+    phase_profile_train()
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -182,22 +350,24 @@ def main():
     return 0
 
 
-def _full_width(uncond, conditioned=True):
+def _full_width(uncond, conditioned=True, train=False):
     """vivid-base / vivid-uncond at the published widths (64px, ch=128,
     extra_attn=1, bf16) with random weights from a seed. A fresh init has
     every gain at 0, which makes F_x vanish (out_gain) and switches off the
     sigma conditioning of every block (emb_gain: c = 1). So out_gain is set
-    to 1, and with `conditioned` the emb gains too."""
+    to 1, and with `conditioned` the emb gains too. `train` leaves the net in
+    training mode with every parameter asking for its gradient. No block is
+    recomputed in a backward pass (remat off), as in the smoke's trainer runs."""
     import torch
     from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
     cfg = PrecondConfig(img_resolution=64, model_channels=128, extra_attn=1,
-                        uncond=uncond, use_bf16=True)
+                        uncond=uncond, use_bf16=True, remat=False)
     net = NVPrecond(cfg, device="cuda", seed=1 if uncond else 0)
     with torch.no_grad():
         for name, p in net.named_parameters():
             if name.endswith("out_gain") or conditioned and name.endswith("emb_gain"):
                 p.fill_(1.0)
-    return net.eval().requires_grad_(False)
+    return net.train() if train else net.eval().requires_grad_(False)
 
 
 def _rel_l2(a, b):
@@ -268,7 +438,7 @@ def phase_model():
             control = _rel_l2(run(net, "control"), want)
             faulty = _rel_l2(run(net, fault), want)
             torch.cuda.synchronize()
-            check(all(used.values()) or uncond and used["flash_fused_packed"],
+            check(used["flash_fused_packed"] and (uncond or used["flash_fused_packed_xattn"]),
                   f"{label}: the forward launched {used}")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite D_x")
             err = _rel_l2(got, want)
@@ -316,6 +486,7 @@ def phase_slice(card):
             "flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg))
             + len(attention_feature_spec(gnet.cfg.unet_cfg)),
             "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg)),
+            "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,   # no_grad
         }
         evals = 2 * steps - 1
         for run in ("cold", "warm"):
@@ -353,37 +524,261 @@ def phase_slice(card):
     return (base.net, gnet.net), counted
 
 
-def phase_profile(base, gnet):
-    """Where the time of a guided evaluation goes: the sampler's own loop
-    (2 Heun steps = 3 guided evaluations of base + uncond at batch 8) timed
-    without the profiler, then under torch.profiler. Busy time is the union
-    of the device's kernel and copy intervals; idle share = 1 - busy / wall."""
+def phase_train(card):
+    """The training step at full width, batch 8 of the preset's 1024.
+
+    First the whole gradient of one `vivid-base` loss (same sigma and noise)
+    through the four kernels against the same through the plain versions,
+    held against a control (plain versions with one bf16 ulp on every
+    attention output and every attention gradient); two planted faults must
+    fail the gate. Then the trainer's entry point takes 4 steps of
+    `vivid-base` and 2 of `vivid-uncond` with no learning-rate ramp-up, and
+    the snapshots it wrote are sampled. Returns the kernels' launch counts
+    of the `vivid-base` run."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+    import torch
+    from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
+    from vivid_tpu_torch.data.scenes import make_synthetic_dataset
+    from vivid_tpu_torch.diffusion.loss import NVLoss, clamp_loss
+    from vivid_tpu_torch.generate import generate_images_nvs
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.nn.precond import NVPrecond
+    from vivid_tpu_torch.nn.unet import attention_feature_spec
+    from vivid_tpu_torch.train.snapshots import load_snapshot
+
+    names = ("flash_fused_packed", "flash_fused_packed_xattn",
+             "flash_fused_packed_bwd", "flash_fused_packed_xattn_bwd")
+    k1, k2, k3, k4 = (getattr(flash, n) for n in names)
+    refs = (flash.flash_fused_packed_ref, flash.flash_fused_packed_xattn_ref,
+            flash.flash_fused_packed_bwd_ref, flash.flash_fused_packed_xattn_bwd_ref)
+    noise_gen = torch.Generator(device="cuda")
+
+    def noisy(fn):
+        def run(*args):
+            out = fn(*args)
+            if isinstance(out, torch.Tensor):
+                return _ulp_noise(out, noise_gen)
+            return (_ulp_noise(out[0], noise_gen),
+                    tuple(_ulp_noise(t, noise_gen) for t in out[1]), out[2])
+        return run
+
+    def k4_one_source_dropped(*args):
+        dqkv, dfeats, dbiases = k4(*args)
+        return dqkv, (dfeats[0], torch.zeros_like(dfeats[1])), dbiases
+
+    def rms_norm_without_projection(x):
+        # The pixel norm with its denominator held constant: its VJP loses
+        # the term -x <x, dy> / (D r (eps + r)^2).
+        x32 = x.float()
+        den = flash.NORM_EPS + torch.linalg.vector_norm(
+            x32, dim=-1, keepdim=True).detach() / math.sqrt(x.shape[-1])
+        return (x32 / den).to(x.dtype)
+
+    variants = {
+        "plain": (refs, None),
+        "control": (tuple(noisy(fn) for fn in refs), None),
+        "fault_dfeats_zeroed": ((k1, k2, k3, k4_one_source_dropped), None),
+        "fault_norm_vjp": ((k1, k2, refs[2], refs[3]), rms_norm_without_projection),
+    }
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = dict(
+        src=torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1),
+        tgt=torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1),
+        geometry=torch.randn(BATCH, 2, 20, generator=gen, device="cuda"))
+    loss_fn = NVLoss(P_mean=-0.8, P_std=1.6)
+    sigma = loss_fn.sample_sigma(gen, BATCH, "cuda")
+    eps = torch.randn(batch["tgt"].shape, generator=gen, device="cuda")
+    net = _full_width(uncond=False, train=True)
+    params = list(net.parameters())
+
+    def gradient(variant=None):
+        with contextlib.ExitStack() as stack:
+            if variant:
+                fns, norm = variants[variant]
+                for name, fn in zip(names, fns):
+                    stack.enter_context(mock.patch.object(flash, name, fn))
+                if norm:
+                    stack.enter_context(mock.patch.object(flash, "_rms_norm", norm))
+            noise_gen.manual_seed(5)
+            for p in params:
+                p.grad = None
+            loss = clamp_loss(loss_fn(net, batch["src"], batch["tgt"], batch["geometry"],
+                                      sigma=sigma, eps=eps))
+            scalar = loss.sum() / BATCH
+            scalar.backward()
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                          .float().reshape(-1) for p in params])
+        return scalar.item(), flat
+
+    def measured(variant=None):
+        before = dict(flash.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, flat = gradient(variant)
+        torch.cuda.synchronize()
+        return (loss, flat, {k: n - before[k] for k, n in flash.launches.items()},
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    loss_k, got, used, peak_gb = measured()
+    loss_p, want = gradient("plain")
+    control = _rel_l2(gradient("control")[1], want)
+    faults = {name: _rel_l2(gradient(name)[1], want) for name in variants
+              if name.startswith("fault")}
+    torch.cuda.synchronize()
+    check(all(used.values()), f"train: the loss and its backward launched {used}")
+    check(bool(torch.isfinite(got).all()) and math.isfinite(loss_k), "train: non-finite gradient")
+    err = _rel_l2(got, want)
+    gate = TOL_GRAD_CONTROL * control
+    say("train", check="gradient", net="vivid-base", weights="emb_gains_1", batch=BATCH,
+        values=got.numel(), loss_kernels=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}",
+        grad_norm_kernels=f"{got.norm().item():.6f}", grad_norm_plain=f"{want.norm().item():.6f}",
+        grad_rel_l2=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
+        ratio=f"{err / control:.3f}", gate=f"{gate:.3e}", kernel_launches=used,
+        **{k: f"{v:.3e}" for k, v in faults.items()})
+    check(err <= gate, f"train: gradient kernels vs plain rel L2 {err} > {gate} "
+          f"(control {control})")
+    check(abs(loss_k - loss_p) <= 5e-2 * abs(loss_p),
+          f"train: loss {loss_k} through the kernels, {loss_p} through the plain versions")
+    for name, faulty in faults.items():
+        check(faulty > gate, f"train: planted {name} gives {faulty}, which passes the gate {gate}")
+    del want
+
+    # Recompute in the backward pass: each mode gives the gradient of the
+    # mode that keeps every activation, no further from it than the gate.
+    say("train", check="remat", mode=False, kernel_launches=used, peak_memory_GB=f"{peak_gb:.2f}")
+    for mode in (True, "save_dots"):
+        for unet in (net.unet, net.encoder):
+            unet.cfg = dataclasses.replace(unet.cfg, remat=mode)
+        loss_m, grad_m, used_m, peak_m = measured()
+        err_m = _rel_l2(grad_m, got)
+        say("train", check="remat", mode=mode, kernel_launches=used_m,
+            peak_memory_GB=f"{peak_m:.2f}", grad_rel_l2_vs_no_remat=f"{err_m:.3e}",
+            loss=f"{loss_m:.6f}")
+        check(err_m <= gate and used_m["flash_fused_packed_bwd"] == used["flash_fused_packed_bwd"]
+              and used_m["flash_fused_packed_xattn_bwd"] == used["flash_fused_packed_xattn_bwd"]
+              and used_m["flash_fused_packed"] >= used["flash_fused_packed"],
+              f"train: remat={mode!r}: gradient rel L2 {err_m} (gate {gate}), launches {used_m}")
+        del grad_m
+    del net, params, got
+    torch.cuda.empty_cache()
+
+    # The trainer's entry point, as the CLI drives it.
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_train_") as tmp:
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=16,
+                                      num_views=8, imsize=64, seed=0)
+        for preset, steps in (("vivid-base", 4), ("vivid-uncond", 2)):
+            run_dir = os.path.join(tmp, preset)
+            nimg_step = BATCH * 6   # the dual-source collate counts 6 images a pair
+            c = setup_training_config(
+                preset=preset, data=data, batch=BATCH, max_steps=steps, remat="false",
+                status=nimg_step, snapshot=nimg_step * steps, seed=0, device="cuda")
+            c.lr_kwargs.rampup_Mimg = 0.0   # the preset's ramp-up starts at LR 0
+            for name in flash.launches:
+                flash.launches[name] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = launch_training(run_dir, c)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(flash.launches)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            state, ticks = result.state, result.ticks[1:]   # the first tick precedes step 1
+            cfg = state.net.cfg
+            n_enc = 0 if cfg.uncond else len(attention_feature_spec(cfg.encoder_cfg))
+            n_unet = len(attention_feature_spec(cfg.unet_cfg))
+            per_step = ({"flash_fused_packed": n_unet, "flash_fused_packed_xattn": 0}
+                        if cfg.uncond else
+                        {"flash_fused_packed": n_enc, "flash_fused_packed_xattn": n_unet})
+            per_step.update({f"{k}_bwd": n for k, n in list(per_step.items())})
+            for name, n in launches.items():
+                check(n == per_step[name] * steps,
+                      f"{preset}: {name} launched {n} times, want {per_step[name]} x {steps}")
+            check(len(ticks) == steps and state.adam_step == steps
+                  and state.cur_nimg == nimg_step * steps,
+                  f"{preset}: {len(ticks)} ticks, {state.adam_step} steps, nimg {state.cur_nimg}")
+            for t in ticks:
+                check(all(math.isfinite(t[k]) for k in ("loss", "loss_std", "grad_norm"))
+                      and t["learning_rate"] > 0 and t["grad_norm"] > 0,
+                      f"{preset}: tick {t}")
+            fresh = list(NVPrecond(cfg, device="cuda", seed=0).parameters())
+            # A fresh init has out_gain and every emb_gain at 0: step 1 moves
+            # out_gain alone, step 2 everything but what feeds an emb_gain, and
+            # from step 3 on every parameter has a gradient.
+            # The unconditional model's cross features are zeros, so its
+            # x_attn_kv projections never get one.
+            no_gradient = (() if steps >= 3 else
+                           ("emb_linear.weight", "emb_noise.weight", "emb_label.weight"))
+            if cfg.uncond:
+                no_gradient += ("x_attn_kv.weight",)
+            moved = [not torch.equal(p, q) for p, q in zip(state.params, fresh)]
+            still = [n for n, m in zip(state.names, moved)
+                     if not m and not n.endswith(no_gradient)]
+            check(not still, f"{preset}: parameters that did not move: {still[:8]}")
+            for std, ema in zip((0.050, 0.100), state.emas):   # the trainer's default stds
+                stuck = [n for n, m, e, p, q in zip(state.names, moved, ema, state.params, fresh)
+                         if m and (torch.equal(e, q) or torch.equal(e, p))]
+                check(not stuck, f"{preset}: EMA {std} did not follow {stuck[:8]}")
+            del fresh
+            log = open(os.path.join(run_dir, "log.txt")).read()
+            check(log.count("Status:") == steps + 1, f"{preset}: log.txt:\n{log}")
+            step_ms = [t["seconds"] * 1e3 for t in ticks]
+            warm_ms = statistics.median(step_ms[1:])
+            say("train", run=preset, steps=steps, global_batch=f"{BATCH}_of_the_preset's_1024",
+                remat=False, nimg_mult=6,
+                loss=[round(t["loss"], 4) for t in ticks],
+                grad_norm=[round(t["grad_norm"], 4) for t in ticks],
+                step_ms=[round(x, 1) for x in step_ms], warm_step_ms=f"{warm_ms:.1f}",
+                pairs_per_s=f"{BATCH / warm_ms * 1e3:.2f}",
+                nimg_per_s=f"{nimg_step / warm_ms * 1e3:.1f}",
+                parameters_moved=f"{sum(moved)}_of_{len(moved)}",
+                peak_memory_GB=f"{peak_gb:.2f}", total_s=f"{seconds:.2f}",
+                launches=launches, per_step=per_step, card=f"'{card}'")
+            snaps = sorted(f for f in os.listdir(run_dir) if f.endswith(".pkl"))
+            check(len(snaps) == 2, f"{preset}: snapshots {snaps}")
+            runs[preset] = (os.path.join(run_dir, snaps[0]), launches)
+            del result, state
+            torch.cuda.empty_cache()
+
+        base = load_snapshot(runs["vivid-base"][0], device="cuda")
+        gnet = load_snapshot(runs["vivid-uncond"][0], device="cuda")
+        seeds = [0, 1]
+        batches = list(generate_images_nvs(
+            net=base, gnet=gnet, guidance=1.5, seeds=seeds, max_batch_size=2, num_steps=8,
+            outdir=os.path.join(tmp, "out"), datakwargs={"path": data}, device="cuda",
+            verbose=False))
+        torch.cuda.synchronize()
+        lat = torch.cat([b.latents for b in batches])
+        check(lat.shape == (2, 64, 64, 3) and bool(torch.isfinite(lat).all()),
+              f"train: sampling the trained snapshots gave latents {tuple(lat.shape)}")
+        say("train", sampled_seeds=seeds, snapshot=os.path.basename(runs["vivid-base"][0]),
+            latents_absmax=f"{lat.abs().max().item():.3f}",
+            pngs=len(os.listdir(os.path.join(tmp, "out"))))
+    return runs["vivid-base"][1]
+
+
+def _profile(tag, fn, units, unit):
+    """Time `fn` (which does `units` units of work) with a host clock, then
+    under torch.profiler. Busy time is the union of the device's kernel and
+    copy intervals; idle share = 1 - busy / wall. Prints per-unit times, the
+    shares of device time by kind of kernel, and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    src = torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1)
-    geo = torch.randn(BATCH, 2, 20, generator=gen, device="cuda")
-    noise = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
-    evals = 3
-
-    def sample():
-        with torch.no_grad():
-            return edm_sampler(make_denoiser(base, src, geo), noise,
-                               gnet_denoise=make_denoiser(gnet), num_steps=2,
-                               guidance=1.5)
-
-    sample()
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sample()
+    fn()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / evals
+    wall_ms = (time.perf_counter() - t0) * 1e3 / units
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sample()
+        fn()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / evals
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / units
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     check(dev, "the profiler recorded no device activity")
@@ -395,30 +790,75 @@ def phase_profile(base, gnet):
             cur_start = start
         cur_end = max(cur_end, end)
     busy_us += cur_end - cur_start
-    busy_ms = busy_us / 1e3 / evals
+    busy_ms = busy_us / 1e3 / units
     by_name = {}
     for e in dev:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     total_us = sum(us for _, us in by_name.values())
-    say("profile", evals=evals, wall_ms_per_eval=f"{wall_ms:.2f}",
-        profiled_wall_ms_per_eval=f"{prof_wall_ms:.2f}",
-        device_busy_ms_per_eval=f"{busy_ms:.2f}",
-        device_ops_per_eval=len(dev) // evals,
-        idle_share=f"{1 - busy_ms / wall_ms:.3f}",
-        idle_share_profiled=f"{1 - busy_ms / prof_wall_ms:.3f}")
-    kinds = {"attention": ("flash_packed",), "conv": ("fprop", "conv", "cudnn"),
+    say(tag, **{f"{unit}s": units, f"wall_ms_per_{unit}": f"{wall_ms:.2f}",
+                f"profiled_wall_ms_per_{unit}": f"{prof_wall_ms:.2f}",
+                f"device_busy_ms_per_{unit}": f"{busy_ms:.2f}",
+                f"device_ops_per_{unit}": len(dev) // units,
+                "idle_share": f"{1 - busy_ms / wall_ms:.3f}",
+                "idle_share_profiled": f"{1 - busy_ms / prof_wall_ms:.3f}"})
+    kinds = {"attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+             "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn"),
              "gemm": ("gemm", "nvjet", "cutlass"), "reduce": ("reduce_kernel",)}
     shares = dict.fromkeys(list(kinds) + ["other"], 0.0)
     for name, (_, us) in by_name.items():
         kind = next((k for k, keys in kinds.items()
                      if any(key in name for key in keys)), "other")
         shares[kind] += us / total_us
-    say("profile", **{f"{k}_share": f"{v:.3f}" for k, v in shares.items()})
+    say(tag, **{f"{k}_share": f"{v:.3f}" for k, v in shares.items()},
+        **{f"{k}_ms_per_{unit}": f"{v * total_us / 1e3 / units:.2f}" for k, v in shares.items()})
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     for name, (n, us) in top:
-        say("profile", share=f"{us / total_us:.3f}", per_eval=n // evals,
-            ms_per_eval=f"{us / 1e3 / evals:.3f}", kernel=f"'{name[:110]}'")
+        say(tag, share=f"{us / total_us:.3f}", **{f"per_{unit}": n // units},
+            **{f"ms_per_{unit}": f"{us / 1e3 / units:.3f}"}, kernel=f"'{name[:110]}'")
+
+
+def phase_profile(base, gnet):
+    """Where the time of a guided evaluation goes: the sampler's own loop
+    (2 Heun steps = 3 guided evaluations of base + uncond at batch 8)."""
+    import torch
+    from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    src = torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1)
+    geo = torch.randn(BATCH, 2, 20, generator=gen, device="cuda")
+    noise = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
+
+    def sample():
+        with torch.no_grad():
+            return edm_sampler(make_denoiser(base, src, geo), noise,
+                               gnet_denoise=make_denoiser(gnet), num_steps=2,
+                               guidance=1.5)
+
+    _profile("profile", sample, 3, "eval")
+
+
+def phase_profile_train():
+    """Where the time of a training step goes: 2 steps of full-width
+    `vivid-base` at batch 8, no recompute, on one fixed batch."""
+    import torch
+    from vivid_tpu_torch.diffusion.loss import NVLoss
+    from vivid_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = dict(
+        src=torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1),
+        tgt=torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1),
+        geometry=torch.randn(BATCH, 2, 20, generator=gen, device="cuda"))
+    cfg = TrainConfig(batch_size=BATCH, ref_lr=0.0120, ref_batches=35000, rampup_Mimg=0.0,
+                      nimg_mult=6)
+    state = init_train_state(_full_width(uncond=False, train=True), cfg)
+    step = make_train_step(NVLoss(P_mean=-0.8, P_std=1.6), cfg)
+
+    def two_steps():
+        for _ in range(2):
+            stats = step(state, batch, gen)
+        return float(stats["Loss/loss"])
+
+    _profile("profile_train", two_steps, 2, "step")
 
 
 if __name__ == "__main__":

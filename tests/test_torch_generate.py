@@ -158,8 +158,9 @@ def test_generate_writes_triplets(env):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Every port module imports, and the CLI samples on the CPU, with jax
-    and vivid_tpu made unimportable."""
+    """Every port module imports, the trainer CLI takes one step and the
+    generation CLI samples on the CPU, with jax and vivid_tpu made
+    unimportable."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
@@ -174,6 +175,7 @@ def test_port_runs_without_jax(tmp_path):
         from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
         from vivid_tpu_torch.train.snapshots import save_snapshot
         from vivid_tpu_torch.cli.generate_images import cmdline
+        from vivid_tpu_torch.cli import train_nvs
         tiny = dict(model_channels=16, channel_mult=(1, 2), num_blocks=1,
                     attn_resolutions=(8,), channels_per_head=8, use_bf16=False)
         root = {str(tmp_path)!r}
@@ -183,6 +185,13 @@ def test_port_runs_without_jax(tmp_path):
                       NVPrecond(PrecondConfig(img_resolution=16, **tiny), seed=0))
         save_snapshot(os.path.join(root, "u.pkl"),
                       NVPrecond(PrecondConfig(img_resolution=16, uncond=True, **tiny), seed=1))
+        trained = train_nvs.cmdline(
+            ["--data", data, "--outdir", os.path.join(root, "run"), "--device", "cpu",
+             "--channels", "16", "--batch", "2", "--bf16", "false", "--max-steps", "1",
+             "--snapshot", "12"], standalone_mode=False)
+        assert trained.state.adam_step == 1 and trained.state.cur_nimg == 12
+        assert len([f for f in os.listdir(os.path.join(root, "run", "experiments"))
+                    if f.endswith(".pkl")]) == 2
         cmdline(["--net", os.path.join(root, "b.pkl"), "--gnet", os.path.join(root, "u.pkl"),
                  "--guidance", "1.5", "--data", data, "--outdir", os.path.join(root, "out"),
                  "--seeds", "0-1", "--steps", "2"], standalone_mode=False)

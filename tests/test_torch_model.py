@@ -229,5 +229,53 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         NVPrecond(PrecondConfig(img_resolution=16, super_res=True, **TINY), device="meta")
     with pytest.raises(NotImplementedError):
-        NVPrecond(PrecondConfig(img_resolution=16, epipolar_attention_bias=True, **TINY),
-                  device="meta")
+        NVPrecond(PrecondConfig(img_resolution=16, depth_input=True, **TINY), device="meta")
+
+
+def test_epipolar_geometry_matches_jax():
+    from vivid_tpu.geometry import epipolar as jepi
+    from vivid_tpu_torch.geometry import epipolar
+    rng = np.random.RandomState(0)
+    geo = (0.3 * rng.randn(3, 20)).astype(np.float32)
+    for imsize, patch in ((16, 2), (64, 8)):
+        want = np.asarray(jepi.get_epipolar_dist(geo, imsize, patch))
+        got = epipolar.get_epipolar_dist(torch.from_numpy(geo), imsize, patch)
+        n = (imsize // patch) ** 2
+        assert got.is_contiguous() and got.shape == want.shape == (3, n, n)
+        # Distances reach the image size; the projection divides by a depth.
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3 * imsize)
+    mixing = rng.randn(4, 5).astype(np.float32)
+    want = np.asarray(jepi.get_epipolar_attn(want, mixing, patch_size=8))
+    got = epipolar.get_epipolar_attn(got, torch.from_numpy(mixing), patch_size=8)
+    assert got.shape == want.shape == (3, 5, 64, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-3)
+
+
+def test_precond_with_epipolar_bias_matches_jax():
+    """The learned epipolar bias rides into the cross segments of the packed
+    attention; epipolar_mixing is random here (a fresh init has it at 0)."""
+    jcfg = jprecond.PrecondConfig(img_resolution=16, extra_attn=1,
+                                  epipolar_attention_bias=True, **TINY)
+    params = _params(lambda k: jprecond.precond_init(k, jcfg), 8)
+    assert "epipolar_mixing" in params["unet"]["dec/8x8_in0"]
+    rng = np.random.RandomState(8)
+    args = (rng.randn(2, 2, 16, 16, 3).astype(np.float32),
+            rng.randn(2, 16, 16, 3).astype(np.float32),
+            np.array([0.3, 2.5], np.float32),
+            (0.3 * rng.randn(2, 2, 20)).astype(np.float32))
+    want = jax.jit(lambda p, *a: jprecond.precond_apply(p, jcfg, *a))(params, *args)
+    net = _load(NVPrecond(PrecondConfig(**dataclasses.asdict(jcfg))), params)
+    with torch.no_grad():
+        got = net(*(torch.from_numpy(a) for a in args))
+    _close(got.numpy(), want)
+    off = _load(NVPrecond(PrecondConfig(**dataclasses.asdict(jcfg))), params)
+    with torch.no_grad():
+        for name, p in off.named_parameters():
+            if name.endswith("epipolar_mixing"):
+                p.zero_()
+        assert _rel(off(*(torch.from_numpy(a) for a in args)).numpy(), want) > 1e-3
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)

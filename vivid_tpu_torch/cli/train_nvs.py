@@ -1,0 +1,178 @@
+"""Training CLI of the PyTorch port: the presets and flag names of the JAX
+package's.
+
+    python -m vivid_tpu_torch.cli.train_nvs --preset=vivid-base \\
+        --data=scenes/ --outdir=runs/
+
+It trains on the first CUDA card unless `--device cpu` is given. A flag
+whose feature is not ported yet raises NotImplementedError; none is
+silently ignored.
+"""
+
+import json
+import os
+
+import click
+
+from vivid_tpu_torch.core.easydict import EasyDict
+
+config_presets = {
+    "vivid-base": EasyDict(duration=500000, batch=1024, channels=128, lr=0.0120,
+                           decay=35000, dropout=0.00, P_mean=-0.8, P_std=1.6,
+                           extra_attn=1),
+    "vivid-uncond": EasyDict(duration=1024 << 19, batch=1024, channels=128,
+                             lr=0.0120, decay=35000, dropout=0.00, P_mean=-0.8,
+                             P_std=1.6, extra_attn=1, uncond=True),
+}
+
+# Flags of the JAX package's CLI whose features the port does not have yet.
+NOT_PORTED = ("sr_training", "fsdp", "depth_input", "depth_model", "warp_depth_coor",
+              "metrics", "single_image_mix", "vanilla_mode", "sr_model",
+              "test_data_path", "samples", "checkpoint", "slice", "deterministic")
+
+
+def parse_nimg(s):
+    """Integer with optional power-of-two suffix: Ki=2^10, Mi=2^20, Gi=2^30."""
+    if isinstance(s, int):
+        return s
+    for suffix, shift in (("Ki", 10), ("Mi", 20), ("Gi", 30)):
+        if s.endswith(suffix):
+            return int(s[:-2]) << shift
+    return int(s)
+
+
+def _parse_remat(value):
+    if isinstance(value, str):
+        low = value.lower()
+        if low in ("true", "1", "yes"):
+            return True
+        if low in ("false", "0", "no"):
+            return False
+        if low == "save_dots":
+            return "save_dots"
+        raise click.ClickException(f"invalid --remat value {value!r}")
+    return bool(value)
+
+
+def setup_training_config(preset="vivid-base", **opts):
+    """CLI options -> the keyword arguments of `training_loop`."""
+    opts = EasyDict(opts)
+    if preset == "vivid-sr":
+        raise NotImplementedError("preset vivid-sr: super-resolution training is not ported yet")
+    if preset not in config_presets:
+        raise click.ClickException(f'Invalid configuration preset "{preset}"')
+    for name in NOT_PORTED:
+        if opts.get(name):
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported to vivid_tpu_torch yet")
+    for key, value in config_presets[preset].items():
+        if opts.get(key, None) in (None, False):
+            opts[key] = value
+
+    c = EasyDict()
+    c.dataset_kwargs = EasyDict(path=opts.data)
+    c.plain_mse = bool(opts.get("plain_mse"))
+    c.update(total_nimg=opts.duration, batch_size=opts.batch)
+    c.network_kwargs = EasyDict(
+        model_channels=opts.channels,
+        dropout=opts.get("dropout", 0.0),
+        extra_attn=opts.get("extra_attn"),
+        epipolar_attention_bias=bool(opts.get("epipolar_attn_bias")),
+        no_time_enc=bool(opts.get("no_time_enc")),
+        uncond=bool(opts.get("uncond")),
+        num_sources=2,
+        source_label_dim=20,
+        target_label_dim=40,
+        use_bf16=bool(opts.get("bf16", True)),
+        force_wn=bool(opts.get("force_wn", False)),
+        remat=_parse_remat(opts.get("remat", True)),
+    )
+    c.loss_kwargs = EasyDict(P_mean=opts.P_mean, P_std=opts.P_std)
+    c.lr_kwargs = EasyDict(ref_lr=opts.lr, ref_batches=opts.decay)
+    c.loss_scaling = opts.get("ls", 1)
+    c.batch_gpu = opts.get("batch_gpu") or None
+    c.status_nimg = opts.get("status") or None
+    c.snapshot_nimg = opts.get("snapshot") or None
+    c.seed = opts.get("seed", 0)
+    c.max_steps = opts.get("max_steps") or None
+    c.device = opts.get("device") or None
+    return c
+
+
+def launch_training(run_dir, c):
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
+        json.dump(c, f, indent=2)
+    from vivid_tpu_torch.train.loop import training_loop
+    return training_loop(run_dir=run_dir, **c)
+
+
+@click.command()
+# Main options.
+@click.option("--outdir", help="Where to save the results", metavar="DIR", type=str, default="output_nonvanilla/")
+@click.option("--data", help="Path to scene dataset (.npz dir)", metavar="DIR", type=str, required=True)
+@click.option("--preset", help="Configuration preset", metavar="STR", type=str, default="vivid-base", show_default=True)
+@click.option("--sr-training", help="Toggles training of SR model (not ported)", is_flag=True)
+# Hyperparameters.
+@click.option("--duration", help="Training duration", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--batch", help="Total batch size", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--channels", help="Channel multiplier", metavar="INT", type=click.IntRange(min=16), default=None)
+@click.option("--dropout", help="Dropout probability", metavar="FLOAT", type=click.FloatRange(min=0, max=1), default=None)
+@click.option("--P_mean", "P_mean", help="Noise level mean", metavar="FLOAT", type=float, default=None)
+@click.option("--P_std", "P_std", help="Noise level standard deviation", metavar="FLOAT", type=click.FloatRange(min=0, min_open=True), default=None)
+@click.option("--lr", help="Learning rate max. (alpha_ref)", metavar="FLOAT", type=click.FloatRange(min=0, min_open=True), default=None)
+@click.option("--decay", help="Learning rate decay (t_ref)", metavar="BATCHES", type=click.FloatRange(min=0), default=None)
+@click.option("--extra-attn", help="Force attention on block k per level", metavar="INT", type=int, default=None)
+# NVS params.
+@click.option("--epipolar-attn-bias", help="Use epipolar attn bias", is_flag=True)
+@click.option("--no-time-enc", help="Nullify time input in Encoder model", is_flag=True)
+@click.option("--depth-model", help="Depth model type (not ported)", metavar="small|base|large", type=str, default=None)
+@click.option("--depth-input", help="Adds depth in input (not ported)", is_flag=True)
+@click.option("--warp-depth-coor", help="Add coordinates and warped coordinates as input (not ported)", is_flag=True)
+@click.option("--single-image-mix", help="Use single image augmentations, percent of batch (not ported)", type=float, default=None)
+@click.option("--uncond", help="Regular (unconditional) diffusion", is_flag=True)
+@click.option("--sr-model", help="Path to SR model to use for evaluation (not ported)", metavar="STR", type=str, required=False)
+@click.option("--test-data-path", help="Path to the test dataset (not ported)", metavar="DIR", type=str, default=None)
+@click.option("--vanilla-mode", help="Single-source conditioning (not ported)", is_flag=True)
+@click.option("--plain-mse", help="Plain MSE loss instead of learned variance", is_flag=True)
+# Performance-related options.
+@click.option("--batch-gpu", help="Limit the microbatch size (gradient accumulation)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--fsdp", help="Shard the train state over several cards (not ported)", is_flag=True)
+@click.option("--deterministic", help="Bit-reproducible kill and resume (not ported: there is no resume yet)", is_flag=True)
+@click.option("--bf16", help="Enable bfloat16 compute", metavar="BOOL", type=bool, default=True, show_default=True)
+@click.option("--force-wn", help="Forced weight normalization (EDM2 Eq. 66)", metavar="BOOL", type=bool, default=False, show_default=True)
+@click.option("--remat", help="Recompute blocks in backward: true, false, or save_dots (keep conv and matrix-product outputs, recompute elementwise)", metavar="BOOL|save_dots", type=str, default="true", show_default=True)
+@click.option("--ls", help="Loss scaling", metavar="FLOAT", type=click.FloatRange(min=0, min_open=True), default=1, show_default=True)
+@click.option("--device", help="Device to train on  [default: cuda]", metavar="STR", type=str, default=None)
+# I/O-related options.
+@click.option("--status", help="Interval of status prints", metavar="NIMG", type=parse_nimg, default="960", show_default=True)
+@click.option("--samples", help="Interval of sample generation (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--metrics", help="Interval of metrics prints (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--snapshot", help="Interval of network snapshots", metavar="NIMG", type=parse_nimg, default="10000", show_default=True)
+@click.option("--checkpoint", help="Interval of training checkpoints (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--slice", help="Train in slices of this many nimg (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--max-steps", help="Stop after this many optimizer steps", metavar="INT", type=click.IntRange(min=1), default=None)
+@click.option("--seed", help="Random seed", metavar="INT", type=int, default=0, show_default=True)
+@click.option("--dry-run", help="Print training options and exit", is_flag=True)
+def cmdline(outdir, dry_run, **opts):
+    """Train a VIVID NVS diffusion model.
+
+    Examples:
+
+    \\b
+    python -m vivid_tpu_torch.cli.train_nvs --preset=vivid-base --data=/path/to/scenes --outdir=runs/
+    """
+    c = setup_training_config(**opts)
+    run_dir = os.path.join(outdir, "experiments")
+    print("Training config:")
+    print(json.dumps(c, indent=2))
+    print(f"Output directory:        {run_dir}")
+    print(f"Batch size:              {c.batch_size}")
+    if dry_run:
+        print("Dry run; exiting.")
+        return None
+    return launch_training(run_dir=run_dir, c=c)
+
+
+if __name__ == "__main__":
+    cmdline()

@@ -1,4 +1,5 @@
-// Packed-layout fused attention for the VIVID blocks, forward only (sm_90a).
+// Packed-layout fused attention for the VIVID blocks: the forward kernel
+// (sm_90a). Its backward is flash_packed_bwd.cu.
 //
 // Replaces the TPU kernels in vivid_tpu/kernels/flash.py:
 //   * flash_fused_packed       (_kernel_packed): self-attention straight off
@@ -34,17 +35,11 @@
 // normalising k/v once per (b, h), ldmatrix/wgmma and warp specialisation
 // are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block, 16 per warp
-constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kMaxSegments = 3;
+using namespace vivid;
 
 struct Segment {
   const __nv_bfloat16* base;  // batch 0, row 0, channel 0
@@ -66,51 +61,6 @@ struct Params {
   float eps;
   float zero_sink;
 };
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major); bf16 in, fp32 out.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp loads one D-wide row (lane holds D/32 elements) and returns the
-// pixel-norm denominator eps + ||x|| / sqrt(D). A null row reads as zeros.
-template <int D>
-__device__ __forceinline__ float load_row(const __nv_bfloat16* row, int lane,
-                                          float eps, float (&x)[D / 32]) {
-  constexpr int kPer = D / 32;
-  if (row == nullptr) {
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) x[e] = 0.f;
-  } else {
-    if constexpr (kPer == 2) {
-      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(row + 2 * lane);
-      x[0] = __bfloat162float(v.x);
-      x[1] = __bfloat162float(v.y);
-    } else {
-      x[0] = __bfloat162float(row[lane]);
-    }
-  }
-  float ss = 0.f;
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) ss += x[e] * x[e];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  return eps + (1.0f / sqrtf(static_cast<float>(D))) * sqrtf(ss);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)

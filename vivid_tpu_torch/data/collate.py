@@ -1,8 +1,8 @@
 """Dual-source view collation into fixed-shape batches, and the threaded
 batch loader.
 
-Copy of the parts of vivid_tpu/data/collate.py that sampling uses (numpy +
-PIL only): per scene, three random views become two sources and one shared
+Copy of the parts of vivid_tpu/data/collate.py that sampling and training
+use (numpy + PIL only): per scene, three random views become two sources and one shared
 target: src [B, 2, h, w, 3], tgt [B, h, w, 3], geometry [B, 2, 20]. The
 random draws are the same as the JAX package's for the same seed, so both
 packages see the same batches. Images come out as float32 in [0, 255].
@@ -46,7 +46,12 @@ def _pair_geometry(scene, src_idx, tgt_idx, imsize):
 
 
 class DualSourceCollate:
-    """Two sources sharing one target per scene."""
+    """Two sources sharing one target per scene. `sample_plan` makes every
+    random draw for a scene without touching pixels and `materialize` builds
+    the planned rows, so a loader can replay the draws of rows already
+    consumed at the cost of the draws alone."""
+
+    nimg_mult = 6  # the reference counts +batch*6 images per step in dual mode
 
     def __init__(self, imsize: int = 64, seed: int = 0):
         self.imsize = imsize
@@ -62,12 +67,18 @@ class DualSourceCollate:
                                  ).astype(np.float32),
         }
 
-    def rows_from_scene(self, scene) -> list:
+    def sample_plan(self, scene) -> list:
+        """(s1, s2, t) view-index tuples for this scene."""
         n = scene["image"].shape[0]
         if n < 3:
             return []
-        s1, s2, t = self.rng.sample(range(n), 3)
-        return [self._row(scene, s1, s2, t)]
+        return [tuple(self.rng.sample(range(n), 3))]
+
+    def materialize(self, scene, plan: list) -> list:
+        return [self._row(scene, *p) for p in plan]
+
+    def rows_from_scene(self, scene) -> list:
+        return self.materialize(scene, self.sample_plan(scene))
 
 
 class BatchLoader:
@@ -76,15 +87,25 @@ class BatchLoader:
     prefetches batches so host IO overlaps device compute. One assembly
     thread, so batch contents follow the collate's seed exactly (the JAX
     package's loader runs several). A finite iterator's tail batch is padded
-    by repeating its last row; `valid` marks the real rows."""
+    by repeating its last row; `valid` marks the real rows. `skip_rows`
+    replays the draws of that many rows (no pixel work) before the first
+    batch: a resumed run continues the stream where the earlier one stopped."""
 
     def __init__(self, scene_iter: Iterator, collate, batch_size: int,
-                 prefetch: int = 2):
+                 prefetch: int = 2, skip_rows: int = 0):
         self.scene_iter = scene_iter
         self.collate = collate
         self.batch_size = batch_size
         self.queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
+        self._initial_rows = []
+        skipped = 0
+        while skipped < skip_rows:
+            scene = next(self.scene_iter)
+            plan = self.collate.sample_plan(scene)
+            if skipped + len(plan) > skip_rows:   # the boundary falls inside a scene
+                self._initial_rows = self.collate.materialize(scene, plan[skip_rows - skipped:])
+            skipped = min(skipped + len(plan), skip_rows)
         self.thread = threading.Thread(target=self._worker, daemon=True)
         self.thread.start()
 
@@ -99,7 +120,7 @@ class BatchLoader:
             return []  # skip a scene that fails to decode, as the reference does
 
     def _worker(self):
-        pending = []
+        pending, self._initial_rows = self._initial_rows, []
         while not self._stop.is_set():
             rows = self._next_rows()
             n_valid = None

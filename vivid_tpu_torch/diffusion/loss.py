@@ -1,0 +1,63 @@
+"""EDM2 training loss with learned-uncertainty weighting.
+
+Counterpart of vivid_tpu/diffusion/loss.py `NVLoss` and `clamp_loss`
+(`SRNVLoss` waits for the super-resolution slice). Sigma and noise are drawn
+once per pair:
+
+    sigma  = exp(N(0, 1) * P_std + P_mean)              [B, 1, 1, 1]
+    weight = (sigma^2 + sd^2) / (sigma * sd)^2
+    loss   = weight * exp(-logvar) * (D(tgt + sigma * eps) - tgt)^2 + logvar
+
+with logvar clamped to +-logvar_clamp. `plain_mse` returns the weighted MSE's
+mean instead. The draws come from a `torch.Generator`; a caller (a test that
+feeds both packages the same numbers) may pass `sigma` and the unit noise
+`eps` itself.
+"""
+
+from dataclasses import dataclass
+
+import torch
+
+
+def clamp_loss(loss):
+    """Clamp an elementwise loss to mean +- 3 std; the statistics (the
+    population std) carry no gradient."""
+    m = loss.detach().mean()
+    s = loss.detach().std(correction=0)
+    return torch.clamp(loss, m - 3 * s, m + 3 * s)
+
+
+@dataclass(frozen=True)
+class NVLoss:
+    P_mean: float = -0.4
+    P_std: float = 1.0
+    sigma_data: float = 0.5
+    plain_mse: bool = False
+    logvar_clamp: float = 20.0
+
+    def sample_sigma(self, generator, batch: int, device):
+        rnd = torch.randn((batch, 1, 1, 1), generator=generator, device=device)
+        return torch.exp(rnd * self.P_std + self.P_mean)
+
+    def __call__(self, net, src, tgt, geometry, generator=None, sigma=None, eps=None):
+        """src [B, n_src, H, W, Cs]; tgt [B, H, W, C]; geometry [B, n_src, 20].
+        Returns the elementwise loss [B, H, W, C] (a scalar for plain_mse).
+        `generator` feeds sigma, eps and the net's dropout, in that order."""
+        b = tgt.shape[0]
+        if sigma is None:
+            sigma = self.sample_sigma(generator, b, tgt.device)
+        sigma = sigma.reshape(b, 1, 1, 1)
+        if eps is None:
+            eps = torch.randn(tgt.shape, generator=generator, device=tgt.device,
+                              dtype=tgt.dtype)
+        weight = (sigma ** 2 + self.sigma_data ** 2) / (sigma * self.sigma_data) ** 2
+        noisy = tgt + eps * sigma
+
+        if self.plain_mse:
+            denoised = net(src, noisy, sigma.reshape(b), geometry, generator=generator)
+            return torch.mean(weight * (denoised - tgt) ** 2)
+
+        denoised, logvar = net(src, noisy, sigma.reshape(b), geometry,
+                               return_logvar=True, generator=generator)
+        logvar = logvar.clamp(-self.logvar_clamp, self.logvar_clamp)
+        return weight * torch.exp(-logvar) * (denoised - tgt) ** 2 + logvar

@@ -1,7 +1,7 @@
-"""Camera geometry codec, host side: the 20-d conditioning vector.
+"""Camera geometry codec: the 20-d conditioning vector.
 
 Copy of the numpy part of vivid_tpu/geometry/codec.py (the collate's only
-need). Layout: flattened 3x4 relative pose tgt2src (12) + source fx,fy,cx,cy
+need), and `decompose_geometry` on tensors for the epipolar attention bias. Layout: flattened 3x4 relative pose tgt2src (12) + source fx,fy,cx,cy
 (4) + target fx,fy,cx,cy (4), z-normalised with MEAN/STD; the intrinsic
 slots are rescaled by imsize/64 (mean linearly, std quadratically), and
 zero-STD slots (cx, cy) encode as 0. The constants are part of the trained
@@ -9,6 +9,7 @@ models' input contract.
 """
 
 import numpy as np
+import torch
 
 MEAN = np.array([
     9.6681e-01, -1.6038e-04, -3.7034e-05, -1.6904e-03, -8.7718e-05,
@@ -38,3 +39,24 @@ def compose_geometry_np(tgt2src, src_K, tgt_K, imsize=64):
     out = np.zeros_like(geometry)
     np.divide(geometry - mean, std, out=out, where=std > 0)
     return out
+
+
+def decompose_geometry(t, imsize=64):
+    """Inverse of the packing, on a tensor [..., 20] ->
+    (tgt2src [..., 3, 4], src_K [..., 3, 3], tgt_K [..., 3, 3])."""
+    mean = torch.as_tensor(MEAN, dtype=t.dtype, device=t.device).clone()
+    std = torch.as_tensor(STD, dtype=t.dtype, device=t.device).clone()
+    scale = imsize / 64.0
+    mean[12:] *= scale
+    std[12:] *= scale ** 2
+    t = t * std + mean
+
+    def intrinsics(v):
+        fx, fy, cx, cy = v.unbind(-1)
+        zero, one = torch.zeros_like(fx), torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, zero, cx], -1),
+                            torch.stack([zero, fy, cy], -1),
+                            torch.stack([zero, zero, one], -1)], -2)
+
+    return (t[..., :12].reshape(*t.shape[:-1], 3, 4), intrinsics(t[..., 12:16]),
+            intrinsics(t[..., 16:20]))

@@ -4,7 +4,8 @@ Counterpart of vivid_tpu/kernels/attention.py's packed entries. The TPU
 package gated its Pallas kernels on the platform, on sequence alignment and
 on a VMEM budget; here there is no gate: the CUDA kernel takes any sequence
 length, so a CUDA tensor always goes to it (or the call raises) and a CPU
-tensor always goes to the plain version.
+tensor always goes to the plain version. Both entries are differentiable:
+their backward is the backward kernel (or its plain version on the CPU).
 """
 
 from vivid_tpu_torch.kernels import flash
@@ -13,11 +14,10 @@ from vivid_tpu_torch.kernels import flash
 def self_attention_from_packed(qkv, num_heads: int, zero_sink: int = 0):
     """qkv [B, S, 3*H*D] part-major -> [B, S, H*D]; `zero_sink` all-zero KV
     columns (the unconditional model's cross features) in closed form."""
-    return flash.flash_fused_packed(qkv, num_heads, zero_sink=zero_sink)
+    return flash.packed_self_attention(qkv, num_heads, zero_sink=zero_sink)
 
 
 def xattn_from_packed(qkv, feats, num_heads: int, biases=()):
     """Joint softmax over the self segment of qkv and every cross source
     feats[i] [B, Sf, 2*H*D]; biases: () or one unscaled [B, H, S, Sf] each."""
-    return flash.flash_fused_packed_xattn(qkv, tuple(feats), num_heads,
-                                          biases=tuple(biases))
+    return flash.packed_xattn(qkv, tuple(feats), num_heads, biases=tuple(biases))

@@ -1,8 +1,8 @@
 """Builds the CUDA kernels of `vivid_tpu_torch/csrc` at first use.
 
-`nvcc` compiles every source into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers: a build takes seconds).
-The library lands in `build/kernels/<hash>/` at the repository root, keyed
+`nvcc` compiles each source into an object file, all at once, and links
+them into one shared library with a plain C interface, loaded with ctypes
+(no PyTorch headers: a build takes seconds). The library lands in `build/kernels/<hash>/` at the repository root, keyed
 by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the cached library. A missing `nvcc` or a failed build
 raises; nothing falls back.
@@ -20,9 +20,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_packed.cu",)
+SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu")
+HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvivid_kernels.so"
 
 
@@ -41,9 +42,9 @@ def find_nvcc() -> str:
         "installed. CPU tensors take the plain PyTorch versions instead.")
 
 
-def _digest(sources) -> str:
+def _digest(files) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -54,22 +55,38 @@ def build() -> dict:
     """Compile (or find cached) and return dict(path, seconds, log, cached)."""
     sources = [CSRC / s for s in SOURCES]
     nvcc = find_nvcc()
-    out_dir = BUILD_DIR / _digest(sources)
+    out_dir = BUILD_DIR / _digest(sources + [CSRC / h for h in HEADERS])
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.is_file():
         log = log_path.read_text() if log_path.is_file() else ""
         return dict(path=str(lib), seconds=0.0, log=log, cached=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    tag = f"{os.getpid()}.tmp"
+    objects = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objects)])
+    try:
+        outputs = [proc.communicate()[0] for proc in procs]
+        codes = [proc.returncode for proc in procs]
+        if not any(codes):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            outputs.append(link.stdout + link.stderr)
+            codes.append(link.returncode)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(outputs)
+    if any(codes):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        failed = " ; ".join(" ".join(cmd) for cmd, rc in zip(cmds, codes) if rc)
+        raise RuntimeError(f"nvcc failed ({codes}):\n{failed}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)
     return dict(path=str(lib), seconds=seconds, log=log, cached=False)
@@ -85,4 +102,11 @@ def library() -> ctypes.CDLL:
         ptr, i32, ptr, ptr, i32, ptr,           # feats/len/bias for 2 sources
         f32, f32, ptr]                          # eps, zero_sink, stream
     lib.vivid_flash_packed_fwd.restype = i32
+    lib.vivid_flash_packed_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,                # qkv, g, dqkv, lse, delta
+        i32, i32, i32, i32, i32,                # B, S, H, d, n_src
+        ptr, ptr, i32, ptr, ptr,                # feats/dfeats/len/bias/dbias, source 0
+        ptr, ptr, i32, ptr, ptr,                # ... source 1
+        f32, f32, ptr]                          # eps, zero_sink, stream
+    lib.vivid_flash_packed_bwd.restype = i32
     return lib

@@ -1,10 +1,15 @@
-"""Packed-layout fused attention: the CUDA kernel's wrappers and their plain
-PyTorch versions.
+"""Packed-layout fused attention: the CUDA kernels' wrappers and their
+plain PyTorch versions.
 
 Counterparts of `flash_fused_packed` (self-attention, optional zero sink)
 and `flash_fused_packed_xattn` (self segment plus cross sources, one joint
-softmax, optional per-source logit bias) in vivid_tpu/kernels/flash.py.
-Both wrappers launch the one kernel in csrc/flash_packed.cu.
+softmax, optional per-source logit bias) in vivid_tpu/kernels/flash.py, and
+of their backward kernels `flash_fused_packed_bwd` and
+`flash_fused_packed_xattn_bwd`. The forward wrappers launch the one kernel
+in csrc/flash_packed.cu, the backward wrappers the pair of kernels in
+csrc/flash_packed_bwd.cu. `packed_self_attention` and `packed_xattn` are the
+differentiable entries: autograd functions whose forward and backward are
+those wrappers.
 
 Layouts: qkv [B, S, 3*H*D] part-major (part, head, d); feats [B, Sf, 2*H*D]
 (k, v part-major); biases [B, H, S, Sf] unscaled fp32; output [B, S, H*D]
@@ -13,24 +18,28 @@ pass the raw projection outputs.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper adds one to its entry of `launches` where it launches
-its kernel, and nowhere else.
+its kernel, and nowhere else. Between forward and backward only the inputs
+are kept: the backward recomputes the softmax from them.
 """
 
 import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from vivid_tpu_torch.kernels import build
 
 NORM_EPS = 1e-4  # the pixel norm's eps, as in the TPU kernels
-launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0}
+launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
+            "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0}
 
 
 def _rms_norm(x):
-    """Pixel norm of the last axis in fp32, result in x's dtype."""
+    """Pixel norm of the last axis in fp32, result in x's dtype. The norm's
+    gradient at a zero row is 0 (vector_norm's), as the kernels guard r = 0."""
     x32 = x.float()
-    den = NORM_EPS + torch.sqrt(x32.square().sum(-1, keepdim=True)) / math.sqrt(x.shape[-1])
+    den = NORM_EPS + torch.linalg.vector_norm(x32, dim=-1, keepdim=True) / math.sqrt(x.shape[-1])
     return (x32 / den).to(x.dtype)
 
 
@@ -75,6 +84,31 @@ def flash_fused_packed_xattn_ref(qkv, feats, num_heads: int, biases=()):
     return _attention_ref(qkv, tuple(feats), num_heads, tuple(biases), 0)
 
 
+def _attention_bwd_ref(qkv, feats, g, num_heads, biases, zero_sink):
+    """Autograd through `_attention_ref` on fp32 copies of the inputs;
+    gradients come back in the inputs' dtypes."""
+    inputs = (qkv, *feats, *biases)
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    n = len(feats)
+    with torch.enable_grad():
+        out = _attention_ref(leaves[0], tuple(leaves[1:1 + n]), num_heads,
+                             tuple(leaves[1 + n:]), zero_sink)
+        grads = torch.autograd.grad(out, leaves, g.float())
+    grads = [dx.to(t.dtype) for dx, t in zip(grads, inputs)]
+    return grads[0], tuple(grads[1:1 + n]), tuple(grads[1 + n:])
+
+
+def flash_fused_packed_bwd_ref(qkv, g, num_heads: int, zero_sink: int = 0):
+    """Plain version of K3: the gradient of `flash_fused_packed_ref` in fp32."""
+    return _attention_bwd_ref(qkv, (), g, num_heads, (), zero_sink)[0]
+
+
+def flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads: int, biases=()):
+    """Plain version of K4: (dqkv, dfeats, dbiases) of
+    `flash_fused_packed_xattn_ref` in fp32."""
+    return _attention_bwd_ref(qkv, tuple(feats), g, num_heads, tuple(biases), 0)
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
@@ -90,7 +124,9 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(qkv, feats, biases, num_heads, zero_sink):
+def _checked(qkv, feats, biases, num_heads, zero_sink):
+    """Raise on anything the kernels do not take; -> (b, s, h, d, srcs) with
+    srcs two (feats, sf, bias) triples, absent sources as (None, 0, None)."""
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be [B, S, 3*H*D], got {tuple(qkv.shape)}")
     b, s, c3 = qkv.shape
@@ -119,6 +155,12 @@ def _launch(qkv, feats, biases, num_heads, zero_sink):
             _check(bias, f"biases[{i}]", torch.float32, (b, h, s, sf), dev)
         srcs.append((f, sf, bias))
     srcs += [(None, 0, None)] * (2 - len(srcs))
+    return b, s, h, d, srcs
+
+
+def _launch(qkv, feats, biases, num_heads, zero_sink):
+    b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink)
+    dev = qkv.device
     out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
@@ -132,6 +174,33 @@ def _launch(qkv, feats, biases, num_heads, zero_sink):
     if rc != 0:
         raise RuntimeError(f"flash_packed kernel launch failed: CUDA error {rc}")
     return out
+
+
+def _launch_bwd(qkv, feats, biases, g, num_heads, zero_sink):
+    b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink)
+    dev = qkv.device
+    g = g.contiguous()   # autograd may hand over a strided cotangent
+    _check(g, "g", torch.bfloat16, (b, s, h * d), dev)
+    dqkv = torch.empty_like(qkv)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    grads = [(None if f is None else torch.empty_like(f),
+              None if bias is None else torch.empty_like(bias)) for f, _, bias in srcs]
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vivid_flash_packed_bwd(
+            _ptr(qkv), _ptr(g), _ptr(dqkv), _ptr(lse), _ptr(delta),
+            b, s, h, d, len(feats),
+            _ptr(srcs[0][0]), _ptr(grads[0][0]), srcs[0][1], _ptr(srcs[0][2]), _ptr(grads[0][1]),
+            _ptr(srcs[1][0]), _ptr(grads[1][0]), srcs[1][1], _ptr(srcs[1][2]), _ptr(grads[1][1]),
+            ctypes.c_float(NORM_EPS), ctypes.c_float(zero_sink),
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_packed_bwd kernel launch failed: CUDA error {rc}")
+    n = len(feats)
+    return (dqkv, tuple(df for df, _ in grads[:n]),
+            tuple(db for _, db in grads[:n] if db is not None))
 
 
 def flash_fused_packed(qkv, num_heads: int, zero_sink: int = 0):
@@ -152,3 +221,69 @@ def flash_fused_packed_xattn(qkv, feats, num_heads: int, biases=()):
     out = _launch(qkv, tuple(feats), tuple(biases), num_heads, 0)
     launches["flash_fused_packed_xattn"] += 1
     return out
+
+
+def flash_fused_packed_bwd(qkv, g, num_heads: int, zero_sink: int = 0):
+    """K3, backward of K1: qkv [B, S, 3*H*D], cotangent g [B, S, H*D] ->
+    dqkv [B, S, 3*H*D]."""
+    if qkv.device.type == "cpu":
+        return flash_fused_packed_bwd_ref(qkv, g, num_heads, zero_sink)
+    dqkv = _launch_bwd(qkv, (), (), g, num_heads, zero_sink)[0]
+    launches["flash_fused_packed_bwd"] += 1
+    return dqkv
+
+
+def flash_fused_packed_xattn_bwd(qkv, feats, g, num_heads: int, biases=()):
+    """K4, backward of K2 -> (dqkv, dfeats, dbiases): one [B, Sf, 2*H*D]
+    per source and one fp32 [B, H, S, Sf] per bias."""
+    if qkv.device.type == "cpu":
+        return flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads, biases)
+    grads = _launch_bwd(qkv, tuple(feats), tuple(biases), g, num_heads, 0)
+    launches["flash_fused_packed_xattn_bwd"] += 1
+    return grads
+
+
+class _PackedSelfAttention(torch.autograd.Function):
+    """K1 forward, K3 backward; keeps qkv only."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, zero_sink):
+        ctx.save_for_backward(qkv)
+        ctx.args = (num_heads, zero_sink)
+        return flash_fused_packed(qkv, num_heads, zero_sink)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None
+
+
+class _PackedXAttn(torch.autograd.Function):
+    """K2 forward, K4 backward; keeps qkv, the sources and the biases."""
+
+    @staticmethod
+    def forward(ctx, num_heads, n_src, qkv, *rest):
+        ctx.save_for_backward(qkv, *rest)
+        ctx.args = (num_heads, n_src)
+        return flash_fused_packed_xattn(qkv, rest[:n_src], num_heads, rest[n_src:])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        num_heads, n_src = ctx.args
+        qkv, *rest = ctx.saved_tensors
+        dqkv, dfeats, dbiases = flash_fused_packed_xattn_bwd(
+            qkv, rest[:n_src], g, num_heads, rest[n_src:])
+        return None, None, dqkv, *dfeats, *dbiases
+
+
+def packed_self_attention(qkv, num_heads: int, zero_sink: int = 0):
+    """Differentiable K1: its gradient is K3."""
+    return _PackedSelfAttention.apply(qkv, num_heads, zero_sink)
+
+
+def packed_xattn(qkv, feats, num_heads: int, biases=()):
+    """Differentiable K2: its gradients are K4's."""
+    feats = tuple(feats)
+    return _PackedXAttn.apply(num_heads, len(feats), qkv, *feats, *biases)

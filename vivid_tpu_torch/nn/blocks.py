@@ -1,9 +1,11 @@
-"""EDM2 U-Net block with optional self- or cross-attention, forward only.
+"""EDM2 U-Net block with optional self- or cross-attention.
 
 Counterpart of the packed path of vivid_tpu/nn/blocks.py `block_apply`
 (the default `_attn_dot` form): the 1x1 attention projections run as
 linears over the flattened [B, S, C] tokens, and attention reads q/k/v
-straight from the packed projection outputs (kernels/attention.py).
+straight from the packed projection outputs (kernels/attention.py), whose
+entries are differentiable: a backward pass through a block runs the
+backward attention kernels.
 
 Weight storage keeps the reference order: attn_qkv output channels are
 (head, d, {q,k,v}) innermost-last and x_attn_kv (head, d, {k,v}). The
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vivid_tpu_torch.geometry.epipolar import get_epipolar_attn, get_epipolar_dist
 from vivid_tpu_torch.kernels import attention
 from vivid_tpu_torch.nn.mp import MPConv, mp_silu, mp_sum, normalize, resample
 
@@ -38,6 +41,8 @@ class BlockConfig:
     num_cross_sources: int = 2
     channels_per_head: int = 64
     epipolar_attention_bias: bool = False
+    imsize: int = 64                 # full image resolution (epipolar bias)
+    dropout: float = 0.0             # on the residual branch, in training mode
 
     @property
     def num_heads(self) -> int:
@@ -56,9 +61,6 @@ def _packed_linear(conv: MPConv, x, num_heads: int, parts: int):
 class Block(nn.Module):
     def __init__(self, cfg: BlockConfig, device=None):
         super().__init__()
-        if cfg.epipolar_attention_bias:
-            raise NotImplementedError(
-                "epipolar_attention_bias: the epipolar geometry is not ported yet")
         self.cfg = cfg
         cin, cout = cfg.in_channels, cfg.out_channels
         self.emb_gain = nn.Parameter(torch.empty((), device=device))
@@ -71,16 +73,37 @@ class Block(nn.Module):
             self.attn_proj = MPConv(cout, cout, (1, 1), device)
             if cfg.xattn:
                 self.x_attn_kv = MPConv(cout, cout * 2, (1, 1), device)
+                if cfg.epipolar_attention_bias:
+                    # (mixing, log-temperature, cutoff offset, bias) per head
+                    self.epipolar_mixing = nn.Parameter(
+                        torch.empty((4, cfg.num_heads), device=device))
 
     def reset_parameters(self, gen: torch.Generator):
         nn.init.zeros_(self.emb_gain)
+        if hasattr(self, "epipolar_mixing"):
+            nn.init.zeros_(self.epipolar_mixing)
         for conv in self.children():
             conv.reset_parameters(gen)
 
-    def forward(self, x, emb, features=None):
+    def dropout_mask(self, x, generator=None):
+        """The residual branch's dropout mask for the input x [B, H, W, Cin]:
+        0 or 1/(1 - p) per element of the branch, drawn from `generator`; None
+        outside training mode or at p = 0. The caller draws it, so that a
+        recomputed forward (nn/unet.py `remat`) reuses the same mask."""
+        p = self.cfg.dropout
+        if not self.training or p <= 0:
+            return None
+        scale = {"keep": 1.0, "down": 0.5, "up": 2.0}[self.cfg.resample_mode]
+        shape = (x.shape[0], int(x.shape[1] * scale), int(x.shape[2] * scale),
+                 self.cfg.out_channels)
+        keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+        return keep.to(x.dtype) / (1.0 - p)
+
+    def forward(self, x, emb, features=None, dropout_mask=None, src_geometries=None):
         """x [B, H, W, Cin]; emb [B, Cemb]; features (xattn blocks): the
         string "zeros" (unconditional model) or a list of cross sources
-        [B, h, w, Cout]."""
+        [B, h, w, Cout]; dropout_mask from `dropout_mask`; src_geometries
+        (epipolar bias): one [B, 20] per cross source."""
         cfg = self.cfg
         x = resample(x, cfg.resample_mode)
         if cfg.flavor == "enc":
@@ -91,6 +114,8 @@ class Block(nn.Module):
         y = self.conv_res0(mp_silu(x))
         c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
         y = mp_silu(y * c[:, None, None, :].to(y.dtype))
+        if dropout_mask is not None:
+            y = y * dropout_mask
         y = self.conv_res1(y)
         if cfg.flavor == "dec" and self.conv_skip is not None:
             x = self.conv_skip(x)
@@ -111,7 +136,13 @@ class Block(nn.Module):
                                       f.to(x.dtype).reshape(b, f.shape[1] * f.shape[2], -1),
                                       heads, 2)
                        for f in features]
-                y = attention.xattn_from_packed(qkv, kvs, heads)
+                biases = ()
+                if cfg.epipolar_attention_bias and src_geometries is not None:
+                    patch = cfg.imsize // h
+                    biases = [get_epipolar_attn(get_epipolar_dist(geo, cfg.imsize, patch),
+                                                self.epipolar_mixing, patch_size=patch)
+                              for geo in src_geometries]
+                y = attention.xattn_from_packed(qkv, kvs, heads, biases=biases)
             w_proj = self.attn_proj.normalized_weight(y.dtype).flatten(1)
             y = F.linear(y, w_proj).reshape(b, h, w, ch)
             x = mp_sum(x, y, t=ATTN_BALANCE)

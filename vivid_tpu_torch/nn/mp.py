@@ -110,3 +110,16 @@ class MPConv(nn.Module):
         y = F.conv2d(x.permute(0, 3, 1, 2), w,
                      padding=(w.shape[2] // 2, w.shape[3] // 2))
         return y.permute(0, 2, 3, 1)
+
+
+def force_weight_normalize(module: nn.Module):
+    """Forced weight normalisation (EDM2 Eq. 66): every MPConv weight under
+    `module` is rescaled in place, under no_grad, to unit RMS per output
+    filter. The trainer applies it after each optimizer step when asked."""
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, MPConv):
+                w = sub.weight
+                dims = tuple(range(1, w.ndim))
+                norm = torch.sqrt(w.float().square().sum(dim=dims, keepdim=True))
+                w.copy_(w / (1e-4 + math.sqrt(norm.numel() / w.numel()) * norm))

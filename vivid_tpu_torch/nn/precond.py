@@ -12,7 +12,8 @@ The encoder folds the source axis into the batch; the denoiser consumes
 per-source feature stacks [B, n_src, h, w, c]. c_skip = sd^2/(s^2+sd^2),
 c_out = s*sd/sqrt(s^2+sd^2), c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4.
 Compute runs in bf16 when `use_bf16` (norm math stays fp32); D_x returns in
-fp32. Forward only.
+fp32. Parameters stay fp32 (the master weights) and are cast per call, so
+the same module trains and samples.
 """
 
 from dataclasses import dataclass
@@ -28,8 +29,9 @@ from vivid_tpu_torch.nn.unet import UNet, UNetConfig
 @dataclass(frozen=True)
 class PrecondConfig:
     """The JAX package's PrecondConfig, field for field, so a snapshot's
-    `model_cfg` loads as it is. remat, scan_blocks, force_wn, wpack and
-    dropout only shape training or the TPU's execution and are ignored."""
+    `model_cfg` loads as it is. dropout and remat shape training (nn/unet.py);
+    force_wn is read by the trainer; scan_blocks and wpack only shaped the
+    TPU's execution and are ignored."""
     img_resolution: int
     img_channels: int = 3
     source_label_dim: int = 20
@@ -72,6 +74,8 @@ class PrecondConfig:
             epipolar_attention_bias=self.epipolar_attention_bias,
             num_cross_sources=self.num_sources,
             channels_per_head=self.channels_per_head,
+            dropout=self.dropout,
+            remat=self.remat,
         )
 
     @property
@@ -111,17 +115,19 @@ class NVPrecond(nn.Module):
     def dtype(self):
         return torch.bfloat16 if self.cfg.use_bf16 else torch.float32
 
-    def encode_sources(self, src, c_noise, geometry):
+    def encode_sources(self, src, c_noise, geometry, generator=None):
         """Encoder over [B, n_src, H, W, Cs] -> list of [B, n_src, h, w, c]."""
         b, s = src.shape[:2]
         flat_src = src.reshape((b * s,) + src.shape[2:])
         flat_geo = geometry.reshape(b * s, -1)
         enc_noise = c_noise.repeat_interleave(s) * (0.0 if self.cfg.no_time_enc else 1.0)
-        feats = self.encoder(flat_src, enc_noise, flat_geo)
+        feats = self.encoder(flat_src, enc_noise, flat_geo, generator=generator)
         return [f.reshape((b, s) + f.shape[1:]) for f in feats]
 
-    def forward(self, src, dst, sigma, geometry=None, return_logvar: bool = False):
-        """D_x [B, H, W, C] in fp32 (and logvar [B, 1, 1, 1] on request)."""
+    def forward(self, src, dst, sigma, geometry=None, return_logvar: bool = False,
+                generator=None):
+        """D_x [B, H, W, C] in fp32 (and logvar [B, 1, 1, 1] on request).
+        `generator` feeds the dropout masks in training mode."""
         cfg = self.cfg
         b = dst.shape[0]
         x = dst.float()
@@ -142,8 +148,11 @@ class NVPrecond(nn.Module):
         if cfg.uncond:
             features = "zeros"
         else:
-            features = self.encode_sources(src.to(dtype), c_noise, geometry)
-        F_x = self.unet(x_in, c_noise, geometry.reshape(b, -1), features=features)
+            features = self.encode_sources(src.to(dtype), c_noise, geometry, generator)
+        src_geometries = ([geometry[:, i] for i in range(cfg.num_sources)]
+                          if cfg.epipolar_attention_bias else None)
+        F_x = self.unet(x_in, c_noise, geometry.reshape(b, -1), features=features,
+                        generator=generator, src_geometries=src_geometries)
         D_x = c_skip * x + c_out * F_x.float()
         if return_logvar:
             logvar = self.logvar_linear(self.logvar_fourier(c_noise)).reshape(b, 1, 1, 1)

@@ -1,4 +1,4 @@
-"""EDM2 U-Net family for sampling: UNet, XAttnUNet and UNetEncoder.
+"""EDM2 U-Net family: UNet, XAttnUNet and UNetEncoder.
 
 Counterpart of vivid_tpu/nn/unet.py: the same static plan (an ordered list
 of named block configs built once from the config), as `nn.Module`s whose
@@ -13,13 +13,25 @@ Kinds:
   * 'encoder' — trimmed after the decoder's last attention block, no
     out_conv; forward returns the activation of every attention block.
 Kind 'sr' (the 256px cascade) is not ported yet and raises.
+
+`remat` trades memory for recompute in the backward pass, on the decoder's
+blocks and on every block of an encoder, as the JAX package places it:
+False keeps every activation; True wraps each such block in
+`torch.utils.checkpoint`; "save_dots" does the same under a selective
+policy that keeps the outputs of convolutions and matrix products and
+recomputes the elementwise chains between them. On a CUDA tensor the
+attention kernel is no operator the policy can see, so "save_dots"
+launches the forward attention kernel again in the backward pass. All
+three give the same gradients.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from vivid_tpu_torch.nn.blocks import Block, BlockConfig
 from vivid_tpu_torch.nn.mp import MPConv, MPFourier, mp_cat, mp_silu, mp_sum
@@ -44,6 +56,8 @@ class UNetConfig:
     epipolar_attention_bias: bool = False
     num_cross_sources: int = 2
     channels_per_head: int = 64
+    dropout: float = 0.0
+    remat: object = False                 # False | True | "save_dots"
 
     @property
     def cblock(self):
@@ -89,7 +103,8 @@ def _block(cfg: UNetConfig, cin, cout, flavor, attention=False,
         resample_mode=resample_mode, attention=attention, xattn=xattn,
         num_cross_sources=cfg.num_cross_sources,
         channels_per_head=cfg.channels_per_head,
-        epipolar_attention_bias=cfg.epipolar_attention_bias)
+        epipolar_attention_bias=cfg.epipolar_attention_bias,
+        imsize=cfg.img_resolution, dropout=cfg.dropout)
 
 
 def build_plan(cfg: UNetConfig) -> Tuple[List[PlanEntry], List[PlanEntry]]:
@@ -151,6 +166,27 @@ def attention_feature_spec(cfg: UNetConfig) -> List[Tuple[str, int, int]]:
             if e.block is not None and e.block.num_heads > 0]
 
 
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    """Keep what a convolution or a matrix product puts out; recompute the rest."""
+    aten = torch.ops.aten
+    dots = (aten.convolution.default, aten.mm.default, aten.addmm.default,
+            aten.bmm.default)
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in dots
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_call(remat, fn, *args):
+    """fn(*args) under the recompute mode `remat` (see the module docstring)."""
+    if remat == "save_dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                         _save_dots_policy))
+    if remat is True:
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f'remat must be False, True or "save_dots", got {remat!r}')
+
+
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig, device=None):
         super().__init__()
@@ -183,10 +219,13 @@ class UNet(nn.Module):
         if self.cfg.kind != "encoder":
             nn.init.zeros_(self.out_gain)
 
-    def forward(self, x, noise_labels, geometry, features=None):
+    def forward(self, x, noise_labels, geometry, features=None, generator=None,
+                src_geometries=None):
         """x [B, H, W, C] (already preconditioned); noise_labels [B];
         geometry [B, label_dim] or None; features (xattn): "zeros" or a list
-        of [B, n_src, h, w, c], one per attention block. Returns
+        of [B, n_src, h, w, c], one per attention block; generator: the
+        source of the dropout masks in training mode; src_geometries (xattn
+        with the epipolar bias): one [B, 20] per cross source. Returns
         [B, H, W, out_channels], or the feature list for kind='encoder'."""
         cfg = self.cfg
         emb = self.emb_noise(self.emb_fourier(noise_labels))
@@ -211,7 +250,12 @@ class UNet(nn.Module):
                 else:
                     f = next(feat_iter)  # [B, n_src, h, w, c]
                     feats = [f[:, i] for i in range(cfg.num_cross_sources)]
-            h = module(h, emb, feats)
+            mask = module.dropout_mask(h, generator)
+            if (cfg.remat and torch.is_grad_enabled()
+                    and (group == "dec" or cfg.kind == "encoder")):
+                h = _remat_call(cfg.remat, module, h, emb, feats, mask, src_geometries)
+            else:
+                h = module(h, emb, feats, mask, src_geometries)
             if cfg.kind == "encoder" and e.block.num_heads > 0:
                 collected.append(h)
             return h

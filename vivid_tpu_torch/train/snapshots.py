@@ -26,15 +26,18 @@ def _map_tree(tree, fn):
     return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
-def save_snapshot(path: str, net: NVPrecond):
-    """Write `net`'s weights (fp16) and config."""
+def save_snapshot(path: str, net: NVPrecond, state=None, dataset_kwargs=None,
+                  loss_kwargs=None):
+    """Write `net`'s config and weights (fp16): its own state_dict, or
+    `state` in its place (the trainer's EMA copies)."""
     data = dict(
         format=SNAPSHOT_FORMAT,
-        ema=_map_tree(to_jax(net.state_dict()), lambda a: a.astype(np.float16)),
+        ema=_map_tree(to_jax(net.state_dict() if state is None else state),
+                      lambda a: a.astype(np.float16)),
         model_cfg=dataclasses.asdict(net.cfg),
         encoder=ENCODER,
-        dataset_kwargs={},
-        loss_kwargs={},
+        dataset_kwargs=dict(dataset_kwargs or {}),
+        loss_kwargs=dict(loss_kwargs or {}),
     )
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
