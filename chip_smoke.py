@@ -7,16 +7,20 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes)
-  kernels  each of the four CUDA kernels (packed attention and cross
-           attention, forward and backward) against its plain PyTorch version
-           at every shape the 64px paths give it, with times (CUDA events);
-           a backward kernel run twice must give the same bits
-  model    full-width vivid-base / vivid-uncond from a seed: parameter
-           counts, and one NVPrecond call through the kernels vs the plain
-           versions, held against a one-ulp noise control; planted faults
-           (a cross source skipped, the zero sink dropped) must fail it
+  kernels  each of the five CUDA kernels (packed attention and cross
+           attention, forward and backward, and the big-S no-max attention
+           of the 256px model) against its plain PyTorch version at every
+           shape the paths give it, with times (CUDA events); a kernel run
+           twice must give the same bits
+  model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
+           parameter counts, and one NVPrecond call through the kernels vs
+           the plain versions, held against a one-ulp noise control; planted
+           faults (a cross source skipped, the zero sink dropped, the cross
+           keys of the no-max attention skipped) must fail it
   slice    snapshots -> synthetic scenes -> generate_images_nvs (guided,
-           32 Heun steps, 8 seeds): PNGs, finite images, kernel launch counts
+           32 Heun steps, 8 seeds): PNGs, finite images, kernel launch
+           counts; then the same through the base -> SR cascade (256px PNGs,
+           launch counts per SR evaluation), and the SR model alone
   train    full-width vivid-base, batch 8 (the preset's global batch is
            1024; only the batch is cut): the whole gradient of one loss
            through the kernels vs the plain versions, held against a one-ulp
@@ -25,9 +29,9 @@ its own:
            steps of vivid-base and 2 of vivid-uncond through the trainer's
            entry point (launch counts, ms per step, peak memory), and the
            snapshots it wrote sampled by generate_images_nvs
-  profile  torch.profiler over 3 guided evaluations and over 2 training
-           steps: device busy time, device operations, idle share, time by
-           kind, the top kernels
+  profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations
+           and over 2 training steps: device busy time, device operations,
+           idle share, time by kind, the top kernels
 
 Any failed check raises, so the script exits non-zero. Without a CUDA card
 it exits non-zero before printing any result. The line before the last is
@@ -44,6 +48,10 @@ import tempfile
 import time
 
 TOL_KERNEL = 2e-2      # max |kernel - fp32 plain| on bf16 inputs (forward kernels)
+TOL_KERNEL_L2 = 1e-2   # ... and relative to the output, which at a long key axis is a
+TOL_KERNEL_MAX = 1e-1  # near-uniform average far below 1: relative L2, and max error
+                       # over the plain output's RMS. A bf16 output alone gives about
+                       # 3e-3 and 2e-2 to 6e-2; an eighth of the keys dropped, above 0.3
 TOL_GRAD_L2 = 2e-2     # relative L2 of a backward kernel's gradient vs the fp32 plain version
 TOL_GRAD_MAX = 5e-2    # ... and, over every D-vector of it (every row of a dbias),
                        # max ||err|| / (||reference vector|| + RMS * sqrt(len)): the
@@ -58,6 +66,13 @@ TOL_GRAD_CONTROL = 1.2 # whole-model gradient, kernels vs plain: at most this mu
                        # output and every attention gradient)
 SHAPES = [(1024, 4, 64), (256, 6, 64), (64, 8, 64)]   # (S, H, d) on the path
 EXTRA_SHAPES = [(100, 4, 64), (256, 8, 32)]           # ragged, d = 32
+# The no-max kernel on the 256px model's path, (Sq, Sk, H, d), at 128x128 and
+# 64x64: the denoiser's cross-attention with one source (Sk = 2 Sq; kind
+# 'sr' has 32 channels a head) and the encoder's self-attention (Sk = Sq; the
+# encoder keeps the config's 64 channels a head, so half the heads).
+NOMAX_SHAPES = [(16384, 32768, 4, 32), (16384, 16384, 2, 64),
+                (4096, 8192, 6, 32), (4096, 4096, 3, 64)]
+SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xattn": 3}
 BATCH = 8
 
 
@@ -211,6 +226,50 @@ def _kernel_cases(torch, gen):
     return cases
 
 
+def _nomax_cases(torch, gen):
+    """Cases of K6 `flash_nomax`, same keys as `_kernel_cases`. Unbiased at
+    the four path shapes at batch 8 (the plain version walks the query rows
+    in chunks, so it fits at the full batch and head count even where the
+    logits alone would take 68.7 GB), a ragged shape and a small d = 64 one; biased (std-1 bias, fp32) at
+    4096/8192 at batch 1 and at the two small shapes.
+    Rows are scaled by exp(N(0, 1)) before the pixel norm the caller applies.
+    The library call is F.scaled_dot_product_attention on the same
+    normalised inputs, with the bias as its mask: the same function."""
+    import torch.nn.functional as F
+    from vivid_tpu_torch.kernels import flash
+    dev = "cuda"
+
+    def rows(b, h, s, d):
+        x = torch.randn(b, h, s, d, generator=gen, device=dev)
+        x = x * torch.exp(torch.randn(b, h, s, 1, generator=gen, device=dev))
+        return flash._rms_norm(x.bfloat16())
+
+    shapes = [(BATCH, h, sq, sk, d, False, True) for sq, sk, h, d in NOMAX_SHAPES]
+    shapes += [(2, 3, 200, 333, 32, False, False), (2, 2, 256, 512, 64, False, False),
+               (1, 6, 4096, 8192, 32, True, False), (2, 3, 200, 333, 32, True, False),
+               (2, 2, 256, 512, 64, True, False)]
+    cases = []
+    for b, h, sq, sk, d, biased, on_path in shapes:
+        q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
+        on = " on_path" if on_path else ""
+        bias = torch.randn(b, h, sq, sk, generator=gen, device=dev) if biased else None
+        mask = None if bias is None else bias.to(q.dtype)   # SDPA wants q's dtype
+        cases.append(dict(
+            name="flash_nomax", d=d,
+            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} bias={biased}{on}",
+            kernel=lambda q=q, k=k, v=v, bias=bias: (flash.flash_nomax(q, k, v, bias),),
+            plain32=lambda q=q, k=k, v=v, bias=bias: (
+                flash.flash_nomax_ref(q.float(), k.float(), v.float(), bias),),
+            plain=lambda q=q, k=k, v=v, bias=bias: flash.flash_nomax_ref(q, k, v, bias),
+            plain_reps=3 if sq >= 4096 else 20,
+            library=lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask),
+            headline=(sq, sk, h, d) == NOMAX_SHAPES[0],
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * bias.numel() if biased else 0),
+            flops=4 * b * h * sq * sk * d))
+    return cases
+
+
 def _sdpa_backward(torch, q, k, v, g, h):
     """The backward of one scaled_dot_product_attention call, graph kept."""
     import torch.nn.functional as F
@@ -243,11 +302,37 @@ def _check_zero_rows(torch, gen):
         dqkv_absmax=f"{got[0].float().abs().max().item():.3e}")
 
 
+def _check_nomax_gate(torch, gen):
+    """A planted fault must fail the forward gate where the absolute limit
+    alone is too wide to see it: K6 at the longest path shape with the last
+    eighth of the keys left out, against the plain version over all of them."""
+    from vivid_tpu_torch.kernels import flash
+    sq, sk, h, d = NOMAX_SHAPES[0]
+    q, k, v = (flash._rms_norm(torch.randn(1, h, s, d, generator=gen, device="cuda").bfloat16())
+               for s in (sq, sk, sk))
+    keep = sk - sk // 8
+    got = flash.flash_nomax(q, k[:, :, :keep].contiguous(), v[:, :, :keep].contiguous()).float()
+    want = flash.flash_nomax_ref(q.float(), k.float(), v.float())
+    err = (got - want).abs().max().item()
+    rel_max = err / want.square().mean().sqrt().item()
+    rel_l2 = _rel_l2(got, want)
+    check(rel_l2 > TOL_KERNEL_L2 and rel_max > TOL_KERNEL_MAX,
+          f"flash_nomax without an eighth of its keys passes the gate: rel L2 {rel_l2}, "
+          f"max err over RMS {rel_max}")
+    say("kernel", name="flash_nomax", fault=f"'last {sk // 8} of {sk} keys dropped, Sq={sq} H={h} d={d}'",
+        max_abs_err=f"{err:.3e}", abs_limit_alone_sees_it=err > TOL_KERNEL,
+        max_err_over_rms=f"{rel_max:.3e}", rel_l2=f"{rel_l2:.3e}", fails_gate=True)
+
+
 def phase_kernels(table):
     """Every kernel against its plain version at every path shape. A forward
-    kernel is held to TOL_KERNEL (max abs); a backward kernel's every
-    gradient to TOL_GRAD_L2 (relative L2) and TOL_GRAD_MAX (the same per
-    D-vector), and two runs on the same inputs must be bitwise
+    kernel (K6 `flash_nomax` among them) is held to TOL_KERNEL (max abs
+    against the plain version on fp32 copies of the bf16 inputs) and, since
+    that is above a typical output value once thousands of keys share the
+    weight, to TOL_KERNEL_L2 (relative L2) and TOL_KERNEL_MAX (max error over
+    the plain output's RMS, printed as out_rms); a backward
+    kernel's every gradient to TOL_GRAD_L2 (relative L2) and TOL_GRAD_MAX
+    (the same per D-vector), and two runs on the same inputs must be bitwise
     equal. Every case prints its bound: the larger of its bytes (each input
     read once, each output written once) over the memory rate and its
     operations over the bf16 peak. The headline case of each kernel fills
@@ -255,7 +340,8 @@ def phase_kernels(table):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
-    for case in _kernel_cases(torch, gen):
+    _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
+    for case in _kernel_cases(torch, gen) + _nomax_cases(torch, gen):
         name, label = case["name"], case["label"]
         got = [t.float() for t in case["kernel"]()]
         again = case["kernel"]()
@@ -263,13 +349,13 @@ def phase_kernels(table):
         torch.cuda.synchronize()
         check(len(got) == len(want), f"{name} {label}: {len(got)} outputs, want {len(want)}")
         backward = name.endswith("_bwd")
-        err = rel_max = rel_l2 = scaled = 0.0
+        err = rel_max = rel_l2 = scaled = out_rms = 0.0
         for i, (a, b, w) in enumerate(zip(got, again, want)):
             check(a.shape == w.shape, f"{name} {label}: output {i} has shape {tuple(a.shape)}")
             check(torch.equal(a, b.float()), f"{name} {label}: output {i} differs between two runs")
             e = (a - w).abs().max().item()
             rms = w.square().mean().sqrt().item()
-            err, rel_max = max(err, e), max(rel_max, e / rms)
+            err, rel_max, out_rms = max(err, e), max(rel_max, e / rms), max(out_rms, rms)
             rel_l2 = max(rel_l2, _rel_l2(a, w))
             n = case["d"] if a.shape[-1] % case["d"] == 0 and a.dim() == 3 else a.shape[-1]
             vec = (a - w).reshape(-1, n).norm(dim=1) / (w.reshape(-1, n).norm(dim=1)
@@ -281,26 +367,32 @@ def phase_kernels(table):
                   f"{name} {label}: rel L2 {rel_l2} (limit {TOL_GRAD_L2}), max per-vector "
                   f"err {scaled} (limit {TOL_GRAD_MAX}), max err over RMS {rel_max}")
         else:
-            check(err <= TOL_KERNEL,
-                  f"{name} {label}: max |kernel - plain| = {err} > {TOL_KERNEL}")
+            check(err <= TOL_KERNEL and rel_l2 <= TOL_KERNEL_L2 and rel_max <= TOL_KERNEL_MAX,
+                  f"{name} {label}: max |kernel - plain| = {err} (limit {TOL_KERNEL}), rel L2 "
+                  f"{rel_l2} (limit {TOL_KERNEL_L2}), max err over RMS {rel_max} (limit "
+                  f"{TOL_KERNEL_MAX}; output RMS {out_rms})")
         ms = cuda_ms(case["kernel"])
-        plain_ms = cuda_ms(case["plain"])
+        plain_ms = cuda_ms(case["plain"], case.get("plain_reps", 20))
+        library_ms = cuda_ms(case["library"]) if case["library"] else None
         by_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
         by_ops = case["flops"] / BF16_FLOPS * 1e3
         bound_ms = max(by_bytes, by_ops)
         bound_by = "bytes" if by_bytes >= by_ops else "operations"
         say("kernel", name=name, case=f"'{label}'", outputs=len(got),
             max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
-            rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}", ms=f"{ms:.4f}",
-            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+            out_rms=f"{out_rms:.3e}", rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+            **({} if library_ms is None else {"library_ms": f"{library_ms:.4f}"}))
         row = table[name]
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
         if case["headline"]:
             row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=cuda_ms(case["library"]))
+                       library_ms=library_ms)
             say("kernel", name=name, headline=f"'{label}'", bytes=case["bytes"],
-                flops=case["flops"],
-                library_ms_attention_core_only=f"{row['library_ms']:.4f}")
+                flops=case["flops"], tflops=f"{case['flops'] / ms / 1e9:.1f}",
+                library_ms=f"{library_ms:.4f}",
+                library_computes="the_same_function" if name == "flash_nomax"
+                else "the_attention_core_only")
 
 
 def main():
@@ -328,19 +420,26 @@ def main():
             name="flash_fused_packed_xattn_bwd", route="cuda",
             source="vivid_tpu_torch/csrc/flash_packed_bwd.cu",
             replaces="vivid_tpu/kernels/flash.py:733"),
+        "flash_nomax": dict(
+            name="flash_nomax", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_nomax.cu",
+            replaces="vivid_tpu/kernels/flash.py:969"),
     }
     card = phase_device()
     phase_build()
     phase_kernels(table)
     phase_model()
-    nets, launches = phase_slice(card)
+    phase_model_sr()
+    nets, launches, sr_launches = phase_slice(card)
     for name, n in launches.items():
-        if n:   # the forward kernels: the sampling path's count
+        if n:   # K1, K2: the guided 64px sampling path's count
             table[name]["launches"] = n
+    table["flash_nomax"]["launches"] = sr_launches["flash_nomax"]   # the cascade's
     for name, n in phase_train(card).items():
         if name.endswith("_bwd"):   # the backward kernels: the training path's
             table[name]["launches"] = n
-    phase_profile(*nets)
+    phase_profile(*nets[:2])
+    phase_profile_sr(nets[2])
     del nets
     phase_profile_train()
     print(json.dumps({"kernels": list(table.values())}), flush=True)
@@ -459,7 +558,95 @@ def phase_model():
             torch.cuda.empty_cache()
 
 
+def _full_width_sr():
+    """vivid-sr as its preset builds it (256px, super_res, one source, ch=64,
+    extra_attn=1, 20/20 labels, noisy_sr 0.25, bf16) with random weights from
+    a seed; out_gain and the emb gains set to 1, as in `_full_width`."""
+    import torch
+    from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
+    cfg = PrecondConfig(img_resolution=256, super_res=True, num_sources=1, model_channels=64,
+                        extra_attn=1, source_label_dim=20, target_label_dim=20,
+                        noisy_sr=0.25, use_bf16=True, remat=False)
+    net = NVPrecond(cfg, device="cuda", seed=2)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(("out_gain", "emb_gain")):
+                p.fill_(1.0)
+    return net.eval().requires_grad_(False)
+
+
+def phase_model_sr():
+    """`phase_model` for the 256px model: 57,550,915 parameters, and D_x of
+    one NVPrecond call at batch 8 through K6, K1 and K2 against the same
+    call through their plain versions, held to TOL_CONTROL times the one-ulp
+    control. The planted fault: the cross segment's keys dropped from K6
+    wherever it is given more keys than queries."""
+    import contextlib
+    from unittest import mock
+    import torch
+    from vivid_tpu_torch.kernels import flash
+    names = ("flash_fused_packed", "flash_fused_packed_xattn", "flash_nomax")
+    k6 = flash.flash_nomax
+    refs = (flash.flash_fused_packed_ref, flash.flash_fused_packed_xattn_ref,
+            flash.flash_nomax_ref)
+    noise_gen = torch.Generator(device="cuda")
+
+    def self_keys_only(q, k, v, bias=None):
+        sq = q.shape[2]
+        return k6(q, k[:, :, :sq].contiguous(), v[:, :, :sq].contiguous(), bias)
+
+    variants = {
+        "plain": refs,
+        "control": tuple((lambda *a, fn=fn, **kw: _ulp_noise(fn(*a, **kw), noise_gen))
+                         for fn in refs),
+        "fault_no_cross_keys": (flash.flash_fused_packed, flash.flash_fused_packed_xattn,
+                                self_keys_only),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    src = torch.randn(BATCH, 1, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1)
+    dst = torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda")
+    cond = torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1)
+    cond_noise = torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda")
+    geo = torch.randn(BATCH, 1, 20, generator=gen, device="cuda")
+    sigma = torch.ones(BATCH, device="cuda")
+    net = _full_width_sr()
+    n_params = sum(p.numel() for p in net.parameters())
+    n_values = sum(t.numel() for t in net.state_dict().values())
+    check(n_params == 57_550_915 and n_values == n_params + 512,
+          f"vivid-sr: {n_params} parameters, {n_values} values with the Fourier buffers")
+
+    def run(variant=None):
+        with contextlib.ExitStack() as stack:
+            for name, fn in zip(names, variants.get(variant, ())):
+                stack.enter_context(mock.patch.object(flash, name, fn))
+            noise_gen.manual_seed(2)
+            with torch.no_grad():
+                return net(src, dst, sigma, geo, conditioning_image=cond, cond_noise=cond_noise)
+
+    before = dict(flash.launches)
+    got = run()
+    used = {k: n - before[k] for k, n in flash.launches.items() if n - before[k]}
+    want = run("plain")
+    control = _rel_l2(run("control"), want)
+    faulty = _rel_l2(run("fault_no_cross_keys"), want)
+    torch.cuda.synchronize()
+    check(used == SR_PER_EVAL, f"vivid-sr: one forward launched {used}, want {SR_PER_EVAL}")
+    check(bool(torch.isfinite(got).all()), "vivid-sr: non-finite D_x")
+    err = _rel_l2(got, want)
+    gate = TOL_CONTROL * control
+    say("model", net="vivid-sr", weights="emb_gains_1", params=n_params,
+        params_M=f"{n_params / 1e6:.2f}", batch=BATCH, kernel_launches=used,
+        d_x_rel_l2=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
+        ratio=f"{err / control:.3f}", gate=f"{gate:.3e}",
+        fault="fault_no_cross_keys", fault_rel_l2=f"{faulty:.3e}")
+    check(err <= gate, f"vivid-sr: D_x kernels vs plain rel L2 {err} > {gate} (control {control})")
+    check(faulty > gate, f"vivid-sr: the planted fault gives {faulty}, which passes the gate {gate}")
+    del net
+    torch.cuda.empty_cache()
+
+
 def phase_slice(card):
+    import PIL.Image
     import torch
     from vivid_tpu_torch.data.scenes import make_synthetic_dataset
     from vivid_tpu_torch.generate import generate_images_nvs
@@ -487,6 +674,7 @@ def phase_slice(card):
             + len(attention_feature_spec(gnet.cfg.unet_cfg)),
             "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg)),
             "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,   # no_grad
+            "flash_nomax": 0,                                                 # 64px only
         }
         evals = 2 * steps - 1
         for run in ("cold", "warm"):
@@ -521,7 +709,56 @@ def phase_slice(card):
                 images_per_s=f"{len(seeds) / seconds:.3f}", pngs=len(files),
                 launches=launches, per_eval=per_eval, evals=evals,
                 latents_absmax=f"{lat.abs().max().item():.3f}", card=f"'{card}'")
-    return (base.net, gnet.net), counted
+
+        # The base -> SR cascade on 256px scenes, nothing cut: the same guided
+        # 32-step base sampling, then 32 steps of full-width vivid-sr on the
+        # upsampled samples; then the SR model alone with fewer steps.
+        sr_path = os.path.join(tmp, "sr.pkl")
+        save_snapshot(sr_path, _full_width_sr())
+        sr = load_snapshot(sr_path, device="cuda")
+        data256 = make_synthetic_dataset(os.path.join(tmp, "scenes256"), num_scenes=8,
+                                         num_views=8, imsize=256, seed=0)
+        want_files = sorted(f"{p}_{s:06d}.png" for p in ("src", "tgt", "sample") for s in seeds)
+        sr_only_steps = 4
+        runs = [("cascade_cold", steps, dict(net=base, gnet=gnet, guidance=1.5, sr_model=sr)),
+                ("cascade_warm", steps, dict(net=base, gnet=gnet, guidance=1.5, sr_model=sr)),
+                ("sr_only", sr_only_steps, dict(net=sr, vanilla_mode=True))]
+        for run, n_steps, models in runs:
+            outdir = os.path.join(tmp, f"out_{run}")
+            n_evals = 2 * n_steps - 1
+            want = {name: SR_PER_EVAL.get(name, 0) * n_evals for name in flash.launches}
+            if run != "sr_only":
+                want = {name: n + per_eval[name] * n_evals for name, n in want.items()}
+            for name in flash.launches:
+                flash.launches[name] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            batches = list(generate_images_nvs(
+                seeds=seeds, max_batch_size=8, num_steps=n_steps, outdir=outdir,
+                datakwargs={"path": data256}, device="cuda", verbose=False, **models))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(flash.launches)
+            if run == "cascade_cold":
+                sr_counted = dict(launches)
+            check(launches == want, f"{run}: launches {launches}, want {want}")
+            check(sorted(os.listdir(outdir)) == want_files, f"{run}: PNGs {os.listdir(outdir)}")
+            sizes = {PIL.Image.open(os.path.join(outdir, f)).size for f in want_files}
+            check(sizes == {(256, 256)}, f"{run}: PNG sizes {sizes}")
+            b = batches[0]
+            check(len(batches) == 1 and b.images.shape == (8, 256, 256, 3)
+                  and b.src.shape == b.tgt.shape == (8, 256, 256, 3),
+                  f"{run}: images {b.images.shape}, src {b.src.shape}, tgt {b.tgt.shape}")
+            check(bool(torch.isfinite(b.latents).all()), f"{run}: non-finite latents")
+            check(float(b.images.astype(float).std()) > 0, f"{run}: constant images")
+            say("slice", run=run, steps=n_steps, seconds=f"{seconds:.3f}",
+                images_per_s=f"{len(seeds) / seconds:.3f}", pngs=len(want_files),
+                png_size="256x256", launches={k: n for k, n in launches.items() if n},
+                per_sr_eval=SR_PER_EVAL, sr_evals=n_evals,
+                peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                latents_absmax=f"{b.latents.abs().max().item():.3f}", card=f"'{card}'")
+    return (base.net, gnet.net, sr.net), counted, sr_counted
 
 
 def phase_train(card):
@@ -628,7 +865,7 @@ def phase_train(card):
     faults = {name: _rel_l2(gradient(name)[1], want) for name in variants
               if name.startswith("fault")}
     torch.cuda.synchronize()
-    check(all(used.values()), f"train: the loss and its backward launched {used}")
+    check(all(used[n] for n in names), f"train: the loss and its backward launched {used}")
     check(bool(torch.isfinite(got).all()) and math.isfinite(loss_k), "train: non-finite gradient")
     err = _rel_l2(got, want)
     gate = TOL_GRAD_CONTROL * control
@@ -695,6 +932,7 @@ def phase_train(card):
                         if cfg.uncond else
                         {"flash_fused_packed": n_enc, "flash_fused_packed_xattn": n_unet})
             per_step.update({f"{k}_bwd": n for k, n in list(per_step.items())})
+            per_step["flash_nomax"] = 0   # no sequence of the 64px models is that long
             for name, n in launches.items():
                 check(n == per_step[name] * steps,
                       f"{preset}: {name} launched {n} times, want {per_step[name]} x {steps}")
@@ -802,7 +1040,7 @@ def _profile(tag, fn, units, unit):
                 f"device_ops_per_{unit}": len(dev) // units,
                 "idle_share": f"{1 - busy_ms / wall_ms:.3f}",
                 "idle_share_profiled": f"{1 - busy_ms / prof_wall_ms:.3f}"})
-    kinds = {"attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+    kinds = {"attention_nomax": ("flash_nomax",), "attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
              "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn"),
              "gemm": ("gemm", "nvjet", "cutlass"), "reduce": ("reduce_kernel",)}
     shares = dict.fromkeys(list(kinds) + ["other"], 0.0)
@@ -835,6 +1073,26 @@ def phase_profile(base, gnet):
                                guidance=1.5)
 
     _profile("profile", sample, 3, "eval")
+
+
+def phase_profile_sr(sr):
+    """Where the time of an SR evaluation goes: the sampler's own loop on
+    full-width vivid-sr at batch 8 (2 Heun steps = 3 evaluations, each the
+    encoder over one 256px source and the denoiser)."""
+    import torch
+    from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    src = torch.randn(BATCH, 1, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1)
+    geo = torch.randn(BATCH, 1, 20, generator=gen, device="cuda")
+    cond = torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1)
+    noise = torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda")
+
+    def sample():
+        with torch.no_grad():
+            return edm_sampler(make_denoiser(sr, src, geo, conditioning_image=cond,
+                                             generator=gen), noise, num_steps=2)
+
+    _profile("profile_sr", sample, 3, "eval")
 
 
 def phase_profile_train():

@@ -154,13 +154,13 @@ def test_generate_writes_triplets(env):
     assert batches[0].images.dtype == np.uint8 and batches[0].images.shape == (2, 16, 16, 3)
     with pytest.raises(NotImplementedError):
         generate_images_nvs(net=env["snap"], datakwargs={"path": env["data"]},
-                            sr_model="sr.pkl", verbose=False)
+                            depth_model="depth.pkl", verbose=False, device="cpu")
 
 
 def test_port_runs_without_jax(tmp_path):
     """Every port module imports, the trainer CLI takes one step and the
-    generation CLI samples on the CPU, with jax and vivid_tpu made
-    unimportable."""
+    generation CLI samples a guided base -> SR cascade on the CPU, with jax
+    and vivid_tpu made unimportable."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
@@ -185,6 +185,10 @@ def test_port_runs_without_jax(tmp_path):
                       NVPrecond(PrecondConfig(img_resolution=16, **tiny), seed=0))
         save_snapshot(os.path.join(root, "u.pkl"),
                       NVPrecond(PrecondConfig(img_resolution=16, uncond=True, **tiny), seed=1))
+        save_snapshot(os.path.join(root, "s.pkl"),
+                      NVPrecond(PrecondConfig(img_resolution=32, super_res=True, num_sources=1,
+                                              source_label_dim=20, target_label_dim=20,
+                                              **tiny), seed=2))
         trained = train_nvs.cmdline(
             ["--data", data, "--outdir", os.path.join(root, "run"), "--device", "cpu",
              "--channels", "16", "--batch", "2", "--bf16", "false", "--max-steps", "1",
@@ -193,8 +197,11 @@ def test_port_runs_without_jax(tmp_path):
         assert len([f for f in os.listdir(os.path.join(root, "run", "experiments"))
                     if f.endswith(".pkl")]) == 2
         cmdline(["--net", os.path.join(root, "b.pkl"), "--gnet", os.path.join(root, "u.pkl"),
-                 "--guidance", "1.5", "--data", data, "--outdir", os.path.join(root, "out"),
+                 "--guidance", "1.5", "--sr-model", os.path.join(root, "s.pkl"),
+                 "--device", "cpu", "--data", data, "--outdir", os.path.join(root, "out"),
                  "--seeds", "0-1", "--steps", "2"], standalone_mode=False)
+        import PIL.Image
+        assert PIL.Image.open(os.path.join(root, "out", "sample_000000.png")).size == (32, 32)
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
         print("ok")
     """)

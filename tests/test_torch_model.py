@@ -227,7 +227,7 @@ def test_seeded_init_is_deterministic_and_reference_layout():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        NVPrecond(PrecondConfig(img_resolution=16, super_res=True, **TINY), device="meta")
+        NVPrecond(PrecondConfig(img_resolution=16, warp_depth_coor=True, **TINY), device="meta")
     with pytest.raises(NotImplementedError):
         NVPrecond(PrecondConfig(img_resolution=16, depth_input=True, **TINY), device="meta")
 

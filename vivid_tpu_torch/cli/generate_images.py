@@ -1,9 +1,12 @@
 """Generation CLI of the PyTorch port: the same flags as the JAX package's.
 
     python -m vivid_tpu_torch.cli.generate_images --net=base.pkl \\
-        --gnet=uncond.pkl --guidance=1.5 --data=scenes/ --outdir=out
+        --gnet=uncond.pkl --guidance=1.5 --sr-model=sr.pkl --data=scenes/ --outdir=out
 
-Runs on the first CUDA card when there is one, otherwise on the CPU.
+`--sr-model` takes the 64px samples through the 256px super-resolution
+model; `--net` may also be a 256px model itself (its conditioning is then
+the target view taken down and up again). Runs on the first CUDA card and
+fails without one; `--device cpu` asks for the CPU.
 """
 
 import re
@@ -53,6 +56,7 @@ def parse_int_list(s):
 @click.option("--range-selection", help="Range selection", metavar="MID,LONG", type=str, default=None, show_default=True)
 @click.option("--depth-model", help="Depth model to use for evaluation", metavar="STR", type=str, default=None, show_default=True)
 @click.option("--vanilla-mode", help="Single-source conditioning", is_flag=True)
+@click.option("--device", help="Device to sample on  [default: cuda; fails without a card]", metavar="STR", type=str, default=None)
 @click.option("--tp", help="Tensor-parallel ways over the local devices (latency lever)", metavar="INT", type=click.IntRange(min=0), default=0)
 def cmdline(preset, data_path, **opts):
     """Generate novel views using the given model.

@@ -1,17 +1,20 @@
-"""Dual-source view collation into fixed-shape batches, and the threaded
-batch loader.
+"""View collation into fixed-shape batches, and the threaded batch loader.
 
 Copy of the parts of vivid_tpu/data/collate.py that sampling and training
-use (numpy + PIL only): per scene, three random views become two sources and one shared
-target: src [B, 2, h, w, 3], tgt [B, h, w, 3], geometry [B, 2, 20]. The
-random draws are the same as the JAX package's for the same seed, so both
-packages see the same batches. Images come out as float32 in [0, 255].
+use (numpy + PIL only). Dual-source: per scene, three random views become
+two sources and one shared target: src [B, 2, h, w, 3], tgt [B, h, w, 3],
+geometry [B, 2, 20]. Vanilla: two random views, one source and one target:
+src [B, 1, h, w, 3], geometry [B, 1, 20]. With `sr_size`, each row also
+carries the same views at that size (sr_src_image, sr_tgt_image,
+sr_geometry) for the super-resolution stage. The random draws are the same
+as the JAX package's for the same seed, so both packages see the same
+batches. Images come out as float32 in [0, 255].
 """
 
 import queue
 import random as _random
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import PIL.Image
@@ -45,40 +48,60 @@ def _pair_geometry(scene, src_idx, tgt_idx, imsize):
                                scene["fxfycxcy"][tgt_idx], imsize=imsize)
 
 
-class DualSourceCollate:
-    """Two sources sharing one target per scene. `sample_plan` makes every
-    random draw for a scene without touching pixels and `materialize` builds
-    the planned rows, so a loader can replay the draws of rows already
-    consumed at the cost of the draws alone."""
+class _Collate:
+    """`sample_plan` makes every random draw for a scene without touching
+    pixels and `materialize` builds the planned rows, so a loader can replay
+    the draws of rows already consumed at the cost of the draws alone. A
+    plan entry is (source views..., target view)."""
 
-    nimg_mult = 6  # the reference counts +batch*6 images per step in dual mode
+    num_views = 0   # views drawn per scene: the sources, then the target
 
-    def __init__(self, imsize: int = 64, seed: int = 0):
+    def __init__(self, imsize: int = 64, sr_size: Optional[int] = None, seed: int = 0):
         self.imsize = imsize
+        self.sr_size = sr_size
         self.rng = _random.Random(seed)
 
-    def _row(self, scene, s1, s2, t):
-        return {
-            "src_image": np.stack([resize_image(scene["image"][s1], self.imsize),
-                                   resize_image(scene["image"][s2], self.imsize)]),
-            "tgt_image": resize_image(scene["image"][t], self.imsize),
-            "geometry": np.stack([_pair_geometry(scene, s1, t, self.imsize),
-                                  _pair_geometry(scene, s2, t, self.imsize)]
-                                 ).astype(np.float32),
-        }
+    def _views(self, scene, sources, t, size):
+        return (np.stack([resize_image(scene["image"][s], size) for s in sources]),
+                resize_image(scene["image"][t], size),
+                np.stack([_pair_geometry(scene, s, t, size) for s in sources]
+                         ).astype(np.float32))
+
+    def _row(self, scene, *views):
+        *sources, t = views
+        row = dict(zip(("src_image", "tgt_image", "geometry"),
+                       self._views(scene, sources, t, self.imsize)))
+        if self.sr_size is not None:
+            row.update(zip(("sr_src_image", "sr_tgt_image", "sr_geometry"),
+                           self._views(scene, sources, t, self.sr_size)))
+        return row
 
     def sample_plan(self, scene) -> list:
-        """(s1, s2, t) view-index tuples for this scene."""
+        """View-index tuples for this scene."""
         n = scene["image"].shape[0]
-        if n < 3:
+        if n < self.num_views:
             return []
-        return [tuple(self.rng.sample(range(n), 3))]
+        return [tuple(self.rng.sample(range(n), self.num_views))]
 
     def materialize(self, scene, plan: list) -> list:
         return [self._row(scene, *p) for p in plan]
 
     def rows_from_scene(self, scene) -> list:
         return self.materialize(scene, self.sample_plan(scene))
+
+
+class VanillaCollate(_Collate):
+    """One (source, target) pair per scene."""
+
+    num_views = 2
+    nimg_mult = 1
+
+
+class DualSourceCollate(_Collate):
+    """Two sources sharing one target per scene."""
+
+    num_views = 3
+    nimg_mult = 6  # the reference counts +batch*6 images per step in dual mode
 
 
 class BatchLoader:

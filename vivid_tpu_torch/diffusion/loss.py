@@ -1,8 +1,8 @@
 """EDM2 training loss with learned-uncertainty weighting.
 
-Counterpart of vivid_tpu/diffusion/loss.py `NVLoss` and `clamp_loss`
-(`SRNVLoss` waits for the super-resolution slice). Sigma and noise are drawn
-once per pair:
+Counterpart of vivid_tpu/diffusion/loss.py `NVLoss`, `clamp_loss` and
+`down_up_resize` (`SRNVLoss` waits for super-resolution training). Sigma
+and noise are drawn once per pair:
 
     sigma  = exp(N(0, 1) * P_std + P_mean)              [B, 1, 1, 1]
     weight = (sigma^2 + sd^2) / (sigma * sd)^2
@@ -17,6 +17,20 @@ feeds both packages the same numbers) may pass `sigma` and the unit noise
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
+
+
+def down_up_resize(x, factor: int = 4):
+    """The low-resolution conditioning of the super-resolution model from a
+    full-resolution [B, H, W, C] image: antialiased bilinear down by
+    `factor`, plain bilinear back up (torchvision's resize chain, which the
+    JAX package rebuilt as matrix products)."""
+    b, h, w, c = x.shape
+    y = x.float().permute(0, 3, 1, 2)
+    y = F.interpolate(y, size=(h // factor, w // factor), mode="bilinear",
+                      antialias=True, align_corners=False)
+    y = F.interpolate(y, size=(h, w), mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def clamp_loss(loss):

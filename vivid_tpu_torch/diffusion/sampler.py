@@ -69,8 +69,23 @@ def edm_sampler(denoise: Callable, noise: torch.Tensor,
     return x_next
 
 
-def make_denoiser(net, src=None, geometry=None):
-    """Bind an NVPrecond and its conditioning into `denoise(x, t)`."""
+def make_denoiser(net, src=None, geometry=None, conditioning_image=None,
+                  generator=None, cond_noise=None):
+    """Bind an NVPrecond and its conditioning into `denoise(x, t)`. For a
+    super-resolution model, `conditioning_image` [B, H, W, C] is the
+    low-resolution sample at the model's resolution. The noise on it
+    (noisy_sr > 0) is one draw for the whole sampling run, from `generator`
+    unless the caller passes the unit noise `cond_noise`: every evaluation
+    sees the same noisy image, as the JAX package's closure over one key
+    gives it."""
+    if (conditioning_image is not None and cond_noise is None
+            and net.cfg.super_res and net.cfg.noisy_sr > 0):
+        if generator is None:
+            raise ValueError("noisy_sr > 0 needs a generator or cond_noise")
+        cond_noise = torch.randn(conditioning_image.shape, generator=generator,
+                                 device=conditioning_image.device)
+
     def denoise(x, t):
-        return net(src, x, t, geometry)
+        return net(src, x, t, geometry, conditioning_image=conditioning_image,
+                   cond_noise=cond_noise)
     return denoise

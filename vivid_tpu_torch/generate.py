@@ -1,12 +1,25 @@
-"""Image generation: load snapshots, sample novel views, write PNGs.
+"""Image generation: load snapshots, sample novel views, optionally take
+them through the 256px super-resolution stage, write PNGs.
 
-Counterpart of vivid_tpu/generate.py `generate_images_nvs` for the guided
-base path on one process: a lazy iterable that yields EasyDict(images,
-latents, src, tgt, seeds, ...) per batch and writes
-src_/tgt_/sample_{seed:06d}.png when `outdir` is set. Per-seed noise comes from per-seed generators, so a sample
-depends on its seed and its conditioning only. The SR cascade, depth
-conditioning, single-source mode and tensor parallelism are not ported yet
-and raise.
+Counterpart of vivid_tpu/generate.py `generate_images_nvs` on one process: a
+lazy iterable that yields EasyDict(images, latents, src, tgt, seeds, ...) per
+batch and writes src_/tgt_/sample_{seed:06d}.png when `outdir` is set.
+Per-seed noise comes from per-seed generators, so a sample depends on its
+seed and its conditioning only. Three modes:
+
+  * base: `net` is a 64px model, optionally guided by `gnet`;
+  * cascade: with `sr_model`, the base sample is upsampled bilinearly to the
+    SR model's resolution and conditions its sampling (no guidance there);
+    the SR images replace the base images in the result and the PNGs;
+  * SR only: `net` itself is a super-resolution model (`cfg.super_res`; the
+    JAX package keys this on a resolution of 256, which the shipped model
+    has); its conditioning image is the target view taken down by 4 and up
+    again.
+
+The noise on an SR model's conditioning image (`noisy_sr`) is one draw per
+batch from a generator seeded by (`rng_seed`, batch index). Runs on the
+first CUDA card; the CPU only when `device="cpu"` asks for it. Depth
+conditioning and tensor parallelism are not ported yet and raise.
 """
 
 import os
@@ -15,12 +28,14 @@ from typing import Optional
 import numpy as np
 import PIL.Image
 import torch
+import torch.nn.functional as F
 
 from vivid_tpu_torch.core.easydict import EasyDict
-from vivid_tpu_torch.core.rngs import seeded_normal
-from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate
+from vivid_tpu_torch.core.rngs import fold_in, seeded_normal
+from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.data.scenes import SceneDataset
+from vivid_tpu_torch.diffusion.loss import down_up_resize
 from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
 from vivid_tpu_torch.train.snapshots import load_snapshot
 
@@ -67,21 +82,29 @@ def generate_images_nvs(
     device=None,
     **sampler_kwargs,
 ):
-    for name, value in (("sr_model", sr_model), ("depth_model", depth_model),
-                        ("vanilla_mode", vanilla_mode), ("tp", tp)):
+    for name, value in (("depth_model", depth_model), ("tp", tp)):
         if value:
             raise NotImplementedError(f"{name} is not ported to vivid_tpu_torch yet")
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA card found; pass device="cpu" to sample on the CPU')
+        device = "cuda"
     device = torch.device(device)
     net = resolve_model(net, device)
     gnet = resolve_model(gnet, device)
+    sr_model = resolve_model(sr_model, device)
     if encoder is None:
         encoder = StandardRGBEncoder()
     cfg = net.cfg
-    if cfg.img_resolution == 256:
-        raise NotImplementedError("super-resolution models are not ported yet")
     imsize = cfg.img_resolution
+    super_res = cfg.super_res
+    if super_res and sr_model is not None:
+        raise ValueError("net is itself an SR model; give sr_model only with a base net")
+    # With an SR model in play a row's SR fields come at its size, the base fields at 64.
+    sr_cfg = sr_model.cfg if sr_model is not None else (cfg if super_res else None)
+    sr_size = sr_cfg.img_resolution if sr_cfg is not None else None
+    collate_cls = VanillaCollate if vanilla_mode else DualSourceCollate
+    base_size = 64 if sr_cfg is not None else imsize
     seeds = list(seeds)
     num_batches = max((len(seeds) - 1) // max_batch_size + 1, 1)
     batches = np.array_split(np.arange(len(seeds)), num_batches)
@@ -97,8 +120,9 @@ def generate_images_nvs(
             return len(batches)
 
         def __iter__(self):
-            loader = BatchLoader(iter(dataset), DualSourceCollate(imsize, seed=rng_seed),
-                                 batch_size=max_batch_size)
+            loader = BatchLoader(
+                iter(dataset), collate_cls(base_size, sr_size=sr_size, seed=rng_seed),
+                batch_size=max_batch_size)
             try:
                 for batch_idx, indices in enumerate(batches):
                     yield self._batch(loader, batch_idx, indices)
@@ -114,13 +138,20 @@ def generate_images_nvs(
             raw = next(loader)
             n = min(len(r.seeds), int(raw["valid"].sum()))
             r.seeds = r.seeds[:n]
-            src_raw = raw["src_image"][:n]
-            tgt_raw = raw["tgt_image"][:n]
-            geometry = torch.as_tensor(raw["geometry"][:n], device=device)
+            prefix = "sr_" if super_res else ""
+            src_raw = raw[prefix + "src_image"][:n]
+            tgt_raw = raw[prefix + "tgt_image"][:n]
+            geometry = torch.as_tensor(raw[prefix + "geometry"][:n], device=device)
             src = encoder.encode_latents(src_raw, device=device)
             noise = seeded_normal(r.seeds, (imsize, imsize, cfg.img_channels), device)
+            # One stream per batch for the conditioning noise of an SR model.
+            gen = torch.Generator(device=device).manual_seed(fold_in(rng_seed, batch_idx))
             with torch.no_grad():
-                denoise = make_denoiser(net.net, src, geometry)
+                cond = None
+                if super_res:
+                    cond = down_up_resize(encoder.encode_latents(tgt_raw, device=device), 4)
+                denoise = make_denoiser(net.net, src, geometry, conditioning_image=cond,
+                                        generator=gen)
                 gden = None
                 if use_gnet:
                     # An unconditional gnet gets neither sources nor geometry.
@@ -129,10 +160,11 @@ def generate_images_nvs(
                                          None if g_uncond else geometry)
                 latents = edm_sampler(denoise, noise, gnet_denoise=gden,
                                       guidance=guidance, seeds=r.seeds, **sampler_kwargs)
+                r.src, r.tgt = src_raw[:, 0], tgt_raw
+                if sr_model is not None:
+                    latents = self._sr_stage(raw, n, r, latents, gen)
             r.latents = latents
             r.images = encoder.decode(latents)
-            r.src = src_raw[:, 0]
-            r.tgt = tgt_raw
             if outdir is not None:
                 for seed, _src, _tgt, image in zip(
                         r.seeds, np.clip(r.src, 0, 255).astype(np.uint8),
@@ -147,5 +179,30 @@ def generate_images_nvs(
                     PIL.Image.fromarray(image, "RGB").save(
                         os.path.join(image_dir, f"sample_{seed:06d}.png"))
             return r
+
+        def _sr_stage(self, raw, n, r, latents, gen):
+            """Sample the SR model on the base latents upsampled to its
+            resolution; sets r.src / r.tgt to the SR-size views."""
+            scfg = sr_model.cfg
+            sr_src_raw = raw["sr_src_image"][:n]
+            sr_geometry = raw["sr_geometry"][:n]
+            # The rows carry the base model's source count; an SR model with
+            # fewer sources is conditioned on the first views, and its target
+            # label narrows with them (per-source geometry, 20 values each).
+            if sr_src_raw.shape[1] < scfg.num_sources:
+                raise ValueError(f"SR model wants {scfg.num_sources} source views but the "
+                                 f"collate provides {sr_src_raw.shape[1]}")
+            sr_src_raw = sr_src_raw[:, :scfg.num_sources]
+            sr_geometry = torch.as_tensor(sr_geometry[:, :scfg.num_sources], device=device)
+            res = scfg.img_resolution
+            sr_src = encoder.encode_latents(sr_src_raw, device=device)
+            sr_noise = seeded_normal(r.seeds, (res, res, scfg.img_channels), device)
+            # Half-pixel bilinear, no antialiasing: jax.image.resize's upscale.
+            low_res = F.interpolate(latents.permute(0, 3, 1, 2), size=(res, res),
+                                    mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+            denoise = make_denoiser(sr_model.net, sr_src, sr_geometry,
+                                    conditioning_image=low_res, generator=gen)
+            r.src, r.tgt = sr_src_raw[:, 0], raw["sr_tgt_image"][:n]
+            return edm_sampler(denoise, sr_noise, seeds=r.seeds, **sampler_kwargs)
 
     return ImageIterable()

@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu")
+SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -109,4 +109,8 @@ def library() -> ctypes.CDLL:
         ptr, ptr, i32, ptr, ptr,                # ... source 1
         f32, f32, ptr]                          # eps, zero_sink, stream
     lib.vivid_flash_packed_bwd.restype = i32
+    lib.vivid_flash_nomax_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, bias, shift, out
+        i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream
+    lib.vivid_flash_nomax_fwd.restype = i32
     return lib

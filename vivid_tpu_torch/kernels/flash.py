@@ -1,5 +1,5 @@
-"""Packed-layout fused attention: the CUDA kernels' wrappers and their
-plain PyTorch versions.
+"""Fused attention: the CUDA kernels' wrappers and their plain PyTorch
+versions.
 
 Counterparts of `flash_fused_packed` (self-attention, optional zero sink)
 and `flash_fused_packed_xattn` (self segment plus cross sources, one joint
@@ -9,9 +9,11 @@ of their backward kernels `flash_fused_packed_bwd` and
 in csrc/flash_packed.cu, the backward wrappers the pair of kernels in
 csrc/flash_packed_bwd.cu. `packed_self_attention` and `packed_xattn` are the
 differentiable entries: autograd functions whose forward and backward are
-those wrappers.
+those wrappers. `flash_nomax` is the big-S kernel of the 256px model
+(csrc/flash_nomax.cu, counterpart of `flash_nomax` there): forward only, on
+q, k, v [B, H, S, D] that the caller has already pixel-normalised.
 
-Layouts: qkv [B, S, 3*H*D] part-major (part, head, d); feats [B, Sf, 2*H*D]
+Layouts (packed kernels): qkv [B, S, 3*H*D] part-major (part, head, d); feats [B, Sf, 2*H*D]
 (k, v part-major); biases [B, H, S, Sf] unscaled fp32; output [B, S, H*D]
 in (head, d) order. q, k and v rows are pixel-normalised inside, so callers
 pass the raw projection outputs.
@@ -32,7 +34,9 @@ from vivid_tpu_torch.kernels import build
 
 NORM_EPS = 1e-4  # the pixel norm's eps, as in the TPU kernels
 launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
-            "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0}
+            "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,
+            "flash_nomax": 0}
+REF_CHUNK_ELEMS = 1 << 28   # fp32 logits `flash_nomax_ref` holds at a time (1 GiB)
 
 
 def _rms_norm(x):
@@ -287,3 +291,73 @@ def packed_xattn(qkv, feats, num_heads: int, biases=()):
     """Differentiable K2: its gradients are K4's."""
     feats = tuple(feats)
     return _PackedXAttn.apply(num_heads, len(feats), qkv, *feats, *biases)
+
+
+def _nomax_shift(bias, d):
+    """sqrt(D) + max(bias) as a one-element fp32 tensor on bias's device: above
+    every biased logit of pixel-normalised rows. Stays on the device."""
+    return (math.sqrt(d) + bias.amax()).reshape(1)
+
+
+def flash_nomax_ref(q, k, v, bias=None):
+    """Plain version of K6, the kernel's arithmetic step for step: q scaled
+    by 1/sqrt(D) in fp32 and rounded to its dtype, fp32 logits, p = exp(s)
+    or exp(s + bias - shift) with shift = sqrt(D) + max(bias), fp32 row sums
+    of the unrounded p, p rounded to v's dtype for the second product, one
+    division. Walks the query rows in chunks (the softmax is per row), so
+    the logits never exceed REF_CHUNK_ELEMS values."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qs = (q.float() * (1.0 / math.sqrt(d))).to(q.dtype).float()
+    k32, v32 = k.float(), v.float()
+    shift = None if bias is None else _nomax_shift(bias.float(), d)
+    out = torch.empty(b, h, sq, d, dtype=v.dtype, device=q.device)
+    rows = max(1, min(sq, REF_CHUNK_ELEMS // (b * h * sk)))
+    for i in range(0, sq, rows):
+        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, i:i + rows], k32)
+        if bias is not None:
+            s = s + bias[:, :, i:i + rows].float() - shift
+        p = torch.exp(s)
+        acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v32)
+        out[:, :, i:i + rows] = (acc / p.sum(-1, keepdim=True)).to(v.dtype)
+    return out
+
+
+def flash_nomax(q, k, v, bias=None):
+    """K6: attention with no running max. q [B, H, Sq, D], k, v [B, H, Sk, D]
+    (bf16 on the card, D 32 or 64, any Sq and Sk), optional unscaled fp32 bias
+    [B, H, Sq, Sk] -> [B, H, Sq, D]. Forward only.
+
+    The contract is the caller's: q and k rows are pixel-normalised (row norm
+    <= sqrt(D)), so every scaled logit lies below sqrt(D) and exp of it stays
+    below e^5.66 (D = 32) or e^8 (D = 64). Unnormalised input overflows, as in
+    the TPU kernel; nothing here guards it. With a bias the shift
+    sqrt(D) + max(bias) keeps every exponent at or below 0; a row whose every
+    biased logit lies ~88 below that shift sums to 0 and comes out NaN."""
+    if q.device.type == "cpu":
+        return flash_nomax_ref(q, k, v, bias)
+    if q.dim() != 4 or q.shape[-1] not in (32, 64):
+        raise ValueError(f"q must be [B, H, Sq, D] with D 32 or 64, got {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    if k.dim() != 4 or k.shape[2] < 1 or sq < 1:
+        raise ValueError(f"k must be [B, H, Sk >= 1, D], got {tuple(k.shape)}")
+    sk = k.shape[2]
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
+    _check(k, "k", torch.bfloat16, (b, h, sk, d), dev)
+    _check(v, "v", torch.bfloat16, (b, h, sk, d), dev)
+    shift = None
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (b, h, sq, sk), dev)
+        shift = _nomax_shift(bias, d)
+    out = torch.empty_like(q)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vivid_flash_nomax_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(shift), _ptr(out),
+            b, h, sq, sk, d, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_nomax kernel launch failed: CUDA error {rc}")
+    launches["flash_nomax"] += 1
+    return out

@@ -9,8 +9,12 @@ Counterpart of vivid_tpu/nn/precond.py with the same explicit source axis:
     geometry: [B, n_src, 20]
 
 The encoder folds the source axis into the batch; the denoiser consumes
-per-source feature stacks [B, n_src, h, w, c]. c_skip = sd^2/(s^2+sd^2),
-c_out = s*sd/sqrt(s^2+sd^2), c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4.
+per-source feature stacks [B, n_src, h, w, c]. A `super_res` model (256px)
+also takes a conditioning image [B, H, W, C], the low-resolution sample
+resized to its resolution: N(0, noisy_sr^2) noise is added to it and it is
+concatenated to the scaled input of the denoiser (U-Net kind 'sr').
+c_skip = sd^2/(s^2+sd^2), c_out = s*sd/sqrt(s^2+sd^2),
+c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4.
 Compute runs in bf16 when `use_bf16` (norm math stays fp32); D_x returns in
 fp32. Parameters stay fp32 (the master weights) and are cast per call, so
 the same module trains and samples.
@@ -87,7 +91,8 @@ class PrecondConfig:
 
     @property
     def unet_cfg(self) -> UNetConfig:
-        return UNetConfig(kind="xattn", img_channels=self.img_channels,
+        return UNetConfig(kind="sr" if self.super_res else "xattn",
+                          img_channels=self.img_channels,
                           label_dim=self.target_label_dim, **self._unet_common())
 
 
@@ -97,7 +102,7 @@ class NVPrecond(nn.Module):
         without memory). With `seed`, they are initialised from a
         torch.Generator on that device: weights ~ N(0, 1), gains 0."""
         super().__init__()
-        for flag in ("super_res", "warp_depth_coor", "depth_input"):
+        for flag in ("warp_depth_coor", "depth_input"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"PrecondConfig.{flag} is not ported")
         self.cfg = cfg
@@ -125,9 +130,12 @@ class NVPrecond(nn.Module):
         return [f.reshape((b, s) + f.shape[1:]) for f in feats]
 
     def forward(self, src, dst, sigma, geometry=None, return_logvar: bool = False,
-                generator=None):
+                generator=None, conditioning_image=None, cond_noise=None):
         """D_x [B, H, W, C] in fp32 (and logvar [B, 1, 1, 1] on request).
-        `generator` feeds the dropout masks in training mode."""
+        `generator` feeds the dropout masks in training mode. A `super_res`
+        model needs `conditioning_image`, and with noisy_sr > 0 its unit noise
+        `cond_noise` (same shape): the caller draws it, once per sampling run
+        (`diffusion.sampler.make_denoiser`), never this call."""
         cfg = self.cfg
         b = dst.shape[0]
         x = dst.float()
@@ -144,6 +152,16 @@ class NVPrecond(nn.Module):
         c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
         c_noise = torch.log(sigma.reshape(b)) / 4.0
         x_in = (c_in * x).to(dtype)
+
+        if cfg.super_res:
+            if conditioning_image is None:
+                raise ValueError("a super_res model requires conditioning_image")
+            cond = conditioning_image.float()
+            if cfg.noisy_sr > 0:
+                if cond_noise is None:
+                    raise ValueError("a super_res model with noisy_sr > 0 requires cond_noise")
+                cond = cond + cfg.noisy_sr * cond_noise
+            x_in = torch.cat([x_in, cond.to(dtype)], dim=-1)
 
         if cfg.uncond:
             features = "zeros"

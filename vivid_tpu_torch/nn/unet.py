@@ -12,7 +12,9 @@ Kinds:
     encoder features, one per attention block; output is 3 channels.
   * 'encoder' — trimmed after the decoder's last attention block, no
     out_conv; forward returns the activation of every attention block.
-Kind 'sr' (the 256px cascade) is not ported yet and raises.
+  * 'sr'      — the 256px super-resolution denoiser: 'xattn' with 32
+    channels per head whatever the config says, and a first conv widened to
+    take the low-resolution conditioning image concatenated to the input.
 
 `remat` trades memory for recompute in the backward pass, on the decoder's
 blocks and on every block of an encoder, as the JAX package places it:
@@ -45,7 +47,7 @@ class UNetConfig:
     img_resolution: int
     img_channels: int
     label_dim: int
-    kind: str = "unet"                    # 'unet' | 'xattn' | 'encoder'
+    kind: str = "unet"                    # 'unet' | 'xattn' | 'encoder' | 'sr'
     model_channels: int = 192
     channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
     channel_mult_noise: Optional[int] = None
@@ -75,7 +77,7 @@ class UNetConfig:
 
     @property
     def out_channels(self):
-        return 3 if self.kind == "xattn" else self.img_channels
+        return 3 if self.kind in ("xattn", "sr") else self.img_channels
 
 
 @dataclass(frozen=True)
@@ -102,7 +104,7 @@ def _block(cfg: UNetConfig, cin, cout, flavor, attention=False,
         in_channels=cin, out_channels=cout, emb_channels=cfg.cemb, flavor=flavor,
         resample_mode=resample_mode, attention=attention, xattn=xattn,
         num_cross_sources=cfg.num_cross_sources,
-        channels_per_head=cfg.channels_per_head,
+        channels_per_head=32 if cfg.kind == "sr" else cfg.channels_per_head,
         epipolar_attention_bias=cfg.epipolar_attention_bias,
         imsize=cfg.img_resolution, dropout=cfg.dropout)
 
@@ -110,16 +112,18 @@ def _block(cfg: UNetConfig, cin, cout, flavor, attention=False,
 def build_plan(cfg: UNetConfig) -> Tuple[List[PlanEntry], List[PlanEntry]]:
     """(enc_plan, dec_plan) in the reference block layout, with the
     extra_attn placement rule and the encoder's trim."""
-    if cfg.kind not in ("unet", "xattn", "encoder"):
-        raise NotImplementedError(f"UNet kind {cfg.kind!r} is not ported")
-    xattn_kind = cfg.kind == "xattn"
+    if cfg.kind not in ("unet", "xattn", "encoder", "sr"):
+        raise ValueError(f"unknown UNet kind {cfg.kind!r}")
+    xattn_kind = cfg.kind in ("xattn", "sr")
     enc: List[PlanEntry] = []
     cout = cfg.img_channels + 1  # constant ones channel appended to the input
     for level, channels in enumerate(cfg.cblock):
         res = cfg.img_resolution >> level
         if level == 0:
             cin, cout = cout, channels
-            enc.append(PlanEntry(f"enc/{res}x{res}_conv", "conv", res, cin, cout))
+            # 'sr': x and the conditioning image, plus the ones channel.
+            conv_cin = 2 * (cin - 1) + 1 if cfg.kind == "sr" else cin
+            enc.append(PlanEntry(f"enc/{res}x{res}_conv", "conv", res, conv_cin, cout))
         else:
             enc.append(PlanEntry(f"enc/{res}x{res}_down", "block", res, cout, cout,
                                  _block(cfg, cout, cout, "enc", resample_mode="down")))
