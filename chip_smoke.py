@@ -7,11 +7,12 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes)
-  kernels  each of the five CUDA kernels (packed attention and cross
-           attention, forward and backward, and the big-S no-max attention
-           of the 256px model) against its plain PyTorch version at every
-           shape the paths give it, with times (CUDA events); a kernel run
-           twice must give the same bits
+  kernels  each of the CUDA kernels (packed attention and cross attention,
+           forward and backward; the big-S no-max attention of the 256px
+           model; the big-S flash attention forward with row statistics and
+           its backward) against its plain PyTorch version at every shape
+           the paths give it, with times (CUDA events); a kernel run twice
+           must give the same bits
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
            the plain versions, held against a one-ulp noise control; planted
@@ -28,10 +29,16 @@ its own:
            the norm VJP's projection skipped) that must fail it; then 4
            steps of vivid-base and 2 of vivid-uncond through the trainer's
            entry point (launch counts, ms per step, peak memory), and the
-           snapshots it wrote sampled by generate_images_nvs
-  profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations
-           and over 2 training steps: device busy time, device operations,
-           idle share, time by kind, the top kernels
+           snapshots it wrote sampled by generate_images_nvs. Then the same
+           for full-width vivid-sr at 256px, batch 8 (the preset's global
+           batch is 128; only the batch is cut): the whole gradient of one
+           SRNVLoss with a planted fault (dk of the cross keys zeroed), the
+           recompute modes, 3 steps of the vivid-sr preset through the
+           trainer's entry point with the preset's recompute and 3 without,
+           and the snapshot sampled as the SR model alone
+  profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations,
+           over 2 training steps at 64px and over 2 at 256px: device busy
+           time, device operations, idle share, time by kind, the top kernels
 
 Any failed check raises, so the script exits non-zero. Without a CUDA card
 it exits non-zero before printing any result. The line before the last is
@@ -73,6 +80,7 @@ EXTRA_SHAPES = [(100, 4, 64), (256, 8, 32)]           # ragged, d = 32
 NOMAX_SHAPES = [(16384, 32768, 4, 32), (16384, 16384, 2, 64),
                 (4096, 8192, 6, 32), (4096, 4096, 3, 64)]
 SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xattn": 3}
+BIG_S_KERNELS = ("flash_nomax", "flash_attention", "flash_attention_bwd")
 BATCH = 8
 
 
@@ -226,15 +234,18 @@ def _kernel_cases(torch, gen):
     return cases
 
 
-def _nomax_cases(torch, gen):
-    """Cases of K6 `flash_nomax`, same keys as `_kernel_cases`. Unbiased at
-    the four path shapes at batch 8 (the plain version walks the query rows
-    in chunks, so it fits at the full batch and head count even where the
-    logits alone would take 68.7 GB), a ragged shape and a small d = 64 one; biased (std-1 bias, fp32) at
-    4096/8192 at batch 1 and at the two small shapes.
-    Rows are scaled by exp(N(0, 1)) before the pixel norm the caller applies.
-    The library call is F.scaled_dot_product_attention on the same
-    normalised inputs, with the bias as its mask: the same function."""
+def _big_s_cases(torch, gen):
+    """Cases of K6 `flash_nomax` and of K8 `flash_attention` /
+    `flash_attention_bwd` on the same inputs, same keys as `_kernel_cases`.
+    Unbiased at the four path shapes at batch 8 (the plain versions walk the
+    query rows in chunks, so they fit at the full batch and head count even
+    where the logits alone would take 68.7 GB), a ragged shape and a small
+    d = 64 one; biased (std-1 bias, fp32) at 4096/8192 at batch 1 (its dbias
+    alone is 0.8 GB) and at the two small shapes. Rows are scaled by
+    exp(N(0, 1)) before the pixel norm the caller applies. K8's backward gets
+    the output and statistics of K8's forward. The library call is
+    F.scaled_dot_product_attention (its backward for the backward) on the
+    same normalised inputs, with the bias as its mask: the same function."""
     import torch.nn.functional as F
     from vivid_tpu_torch.kernels import flash
     dev = "cuda"
@@ -244,6 +255,9 @@ def _nomax_cases(torch, gen):
         x = x * torch.exp(torch.randn(b, h, s, 1, generator=gen, device=dev))
         return flash._rms_norm(x.bfloat16())
 
+    def flat(fn):
+        return lambda: tuple(t for t in fn() if t is not None)
+
     shapes = [(BATCH, h, sq, sk, d, False, True) for sq, sk, h, d in NOMAX_SHAPES]
     shapes += [(2, 3, 200, 333, 32, False, False), (2, 2, 256, 512, 64, False, False),
                (1, 6, 4096, 8192, 32, True, False), (2, 3, 200, 333, 32, True, False),
@@ -251,22 +265,47 @@ def _nomax_cases(torch, gen):
     cases = []
     for b, h, sq, sk, d, biased, on_path in shapes:
         q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
-        on = " on_path" if on_path else ""
+        g = torch.randn(b, h, sq, d, generator=gen, device=dev).bfloat16()
         bias = torch.randn(b, h, sq, sk, generator=gen, device=dev) if biased else None
         mask = None if bias is None else bias.to(q.dtype)   # SDPA wants q's dtype
+        out, lse = flash.flash_attention(q, k, v, bias)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        common = dict(
+            d=d, plain_reps=3 if sq >= 4096 else 20,
+            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} bias={biased}" + (" on_path" if on_path else ""),
+            headline=(sq, sk, h, d) == NOMAX_SHAPES[0])
+        io = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * bias.numel() if biased else 0)
+        fwd_lib = lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)
         cases.append(dict(
-            name="flash_nomax", d=d,
-            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} bias={biased}{on}",
+            common, name="flash_nomax",
             kernel=lambda q=q, k=k, v=v, bias=bias: (flash.flash_nomax(q, k, v, bias),),
             plain32=lambda q=q, k=k, v=v, bias=bias: (
                 flash.flash_nomax_ref(q.float(), k.float(), v.float(), bias),),
             plain=lambda q=q, k=k, v=v, bias=bias: flash.flash_nomax_ref(q, k, v, bias),
-            plain_reps=3 if sq >= 4096 else 20,
-            library=lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask),
-            headline=(sq, sk, h, d) == NOMAX_SHAPES[0],
-            bytes=2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * bias.numel() if biased else 0),
-            flops=4 * b * h * sq * sk * d))
+            library=fwd_lib, bytes=io, flops=4 * b * h * sq * sk * d))
+        cases.append(dict(
+            common, name="flash_attention",
+            kernel=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention(q, k, v, bias),
+            plain32=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention_ref(
+                q.float(), k.float(), v.float(), bias),
+            plain=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention_ref(q, k, v, bias),
+            against_k6=lambda q=q, k=k, v=v, bias=bias: flash.flash_nomax(q, k, v, bias),
+            library=fwd_lib, bytes=io + 4 * lse.numel(), flops=4 * b * h * sq * sk * d))
+        args = (q, k, v, bias, out, lse, g)
+        cases.append(dict(
+            common, name="flash_attention_bwd",
+            kernel=flat(lambda args=args: flash.flash_attention_bwd(*args)),
+            plain32=flat(lambda args=args: flash.flash_attention_bwd_ref(
+                *(t.float() if t is not None and t.dtype == torch.bfloat16 else t for t in args))),
+            plain=lambda args=args: flash.flash_attention_bwd_ref(*args),
+            library=lambda lib_out=lib_out, leaves=leaves, g=g: torch.autograd.grad(
+                lib_out, leaves, g, retain_graph=True),
+            # q, k, v, out, g read; dq, dk, dv written; lse; bias read, dbias written
+            bytes=2 * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+            + (8 * bias.numel() if biased else 0),
+            flops=10 * b * h * sq * sk * d))
     return cases
 
 
@@ -326,7 +365,8 @@ def _check_nomax_gate(torch, gen):
 
 def phase_kernels(table):
     """Every kernel against its plain version at every path shape. A forward
-    kernel (K6 `flash_nomax` among them) is held to TOL_KERNEL (max abs
+    kernel (K6 `flash_nomax` and K8's forward `flash_attention`, output and
+    row statistics, among them) is held to TOL_KERNEL (max abs
     against the plain version on fp32 copies of the bf16 inputs) and, since
     that is above a typical output value once thousands of keys share the
     weight, to TOL_KERNEL_L2 (relative L2) and TOL_KERNEL_MAX (max error over
@@ -336,18 +376,21 @@ def phase_kernels(table):
     equal. Every case prints its bound: the larger of its bytes (each input
     read once, each output written once) over the memory rate and its
     operations over the bf16 peak. The headline case of each kernel fills
-    its row of the table and adds the library yardstick."""
+    its row of the table and adds the library yardstick. K8's forward output
+    is also held, by the forward limits, to K6's on the same inputs: the two
+    differ by their rounding only."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
     _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
-    for case in _kernel_cases(torch, gen) + _nomax_cases(torch, gen):
+    for case in _kernel_cases(torch, gen) + _big_s_cases(torch, gen):
         name, label = case["name"], case["label"]
         got = [t.float() for t in case["kernel"]()]
         again = case["kernel"]()
         want = [t.float() for t in case["plain32"]()]
         torch.cuda.synchronize()
         check(len(got) == len(want), f"{name} {label}: {len(got)} outputs, want {len(want)}")
+        n_out = len(got)
         backward = name.endswith("_bwd")
         err = rel_max = rel_l2 = scaled = out_rms = 0.0
         for i, (a, b, w) in enumerate(zip(got, again, want)):
@@ -371,6 +414,16 @@ def phase_kernels(table):
                   f"{name} {label}: max |kernel - plain| = {err} (limit {TOL_KERNEL}), rel L2 "
                   f"{rel_l2} (limit {TOL_KERNEL_L2}), max err over RMS {rel_max} (limit "
                   f"{TOL_KERNEL_MAX}; output RMS {out_rms})")
+        vs_k6 = {}
+        if "against_k6" in case:
+            k6 = case["against_k6"]().float()
+            vs_k6 = dict(k6_rel_l2=_rel_l2(got[0], k6), k6_max_err_over_rms=(
+                (got[0] - k6).abs().max() / k6.square().mean().sqrt()).item())
+            check(vs_k6["k6_rel_l2"] <= TOL_KERNEL_L2
+                  and vs_k6["k6_max_err_over_rms"] <= TOL_KERNEL_MAX,
+                  f"{name} {label}: output against flash_nomax's: {vs_k6}")
+            del k6
+        del got, again, want
         ms = cuda_ms(case["kernel"])
         plain_ms = cuda_ms(case["plain"], case.get("plain_reps", 20))
         library_ms = cuda_ms(case["library"]) if case["library"] else None
@@ -378,11 +431,12 @@ def phase_kernels(table):
         by_ops = case["flops"] / BF16_FLOPS * 1e3
         bound_ms = max(by_bytes, by_ops)
         bound_by = "bytes" if by_bytes >= by_ops else "operations"
-        say("kernel", name=name, case=f"'{label}'", outputs=len(got),
+        say("kernel", name=name, case=f"'{label}'", outputs=n_out,
             max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
             out_rms=f"{out_rms:.3e}", rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}", ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
-            **({} if library_ms is None else {"library_ms": f"{library_ms:.4f}"}))
+            **({} if library_ms is None else {"library_ms": f"{library_ms:.4f}"}),
+            **{k: f"{x:.3e}" for k, x in vs_k6.items()})
         row = table[name]
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
         if case["headline"]:
@@ -391,7 +445,7 @@ def phase_kernels(table):
             say("kernel", name=name, headline=f"'{label}'", bytes=case["bytes"],
                 flops=case["flops"], tflops=f"{case['flops'] / ms / 1e9:.1f}",
                 library_ms=f"{library_ms:.4f}",
-                library_computes="the_same_function" if name == "flash_nomax"
+                library_computes="the_same_function" if name in BIG_S_KERNELS
                 else "the_attention_core_only")
 
 
@@ -424,6 +478,14 @@ def main():
             name="flash_nomax", route="cuda",
             source="vivid_tpu_torch/csrc/flash_nomax.cu",
             replaces="vivid_tpu/kernels/flash.py:969"),
+        "flash_attention": dict(
+            name="flash_attention", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_bwd.cu",
+            replaces="vivid_tpu/kernels/attention.py:588"),
+        "flash_attention_bwd": dict(
+            name="flash_attention_bwd", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_bwd.cu",
+            replaces="vivid_tpu/kernels/attention.py:588"),
     }
     card = phase_device()
     phase_build()
@@ -436,12 +498,16 @@ def main():
             table[name]["launches"] = n
     table["flash_nomax"]["launches"] = sr_launches["flash_nomax"]   # the cascade's
     for name, n in phase_train(card).items():
-        if name.endswith("_bwd"):   # the backward kernels: the training path's
+        if name.endswith("_bwd"):   # the packed backward kernels: the 64px training path's
+            table[name]["launches"] = n
+    for name, n in phase_train_sr(card).items():
+        if name.startswith("flash_attention"):   # K8: the SR training path's
             table[name]["launches"] = n
     phase_profile(*nets[:2])
     phase_profile_sr(nets[2])
     del nets
     phase_profile_train()
+    phase_profile_train_sr()
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -558,21 +624,23 @@ def phase_model():
             torch.cuda.empty_cache()
 
 
-def _full_width_sr():
+def _full_width_sr(train=False, remat=False):
     """vivid-sr as its preset builds it (256px, super_res, one source, ch=64,
     extra_attn=1, 20/20 labels, noisy_sr 0.25, bf16) with random weights from
-    a seed; out_gain and the emb gains set to 1, as in `_full_width`."""
+    a seed; out_gain and the emb gains set to 1, as in `_full_width`. `train`
+    leaves the net in training mode with every parameter asking for its
+    gradient; `remat` is the recompute mode of its blocks."""
     import torch
     from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
     cfg = PrecondConfig(img_resolution=256, super_res=True, num_sources=1, model_channels=64,
                         extra_attn=1, source_label_dim=20, target_label_dim=20,
-                        noisy_sr=0.25, use_bf16=True, remat=False)
+                        noisy_sr=0.25, use_bf16=True, remat=remat)
     net = NVPrecond(cfg, device="cuda", seed=2)
     with torch.no_grad():
         for name, p in net.named_parameters():
             if name.endswith(("out_gain", "emb_gain")):
                 p.fill_(1.0)
-    return net.eval().requires_grad_(False)
+    return net.train() if train else net.eval().requires_grad_(False)
 
 
 def phase_model_sr():
@@ -674,7 +742,7 @@ def phase_slice(card):
             + len(attention_feature_spec(gnet.cfg.unet_cfg)),
             "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg)),
             "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,   # no_grad
-            "flash_nomax": 0,                                                 # 64px only
+            "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0,  # 64px only
         }
         evals = 2 * steps - 1
         for run in ("cold", "warm"):
@@ -776,13 +844,10 @@ def phase_train(card):
     import dataclasses
     from unittest import mock
     import torch
-    from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
     from vivid_tpu_torch.data.scenes import make_synthetic_dataset
     from vivid_tpu_torch.diffusion.loss import NVLoss, clamp_loss
     from vivid_tpu_torch.generate import generate_images_nvs
     from vivid_tpu_torch.kernels import flash
-    from vivid_tpu_torch.nn.precond import NVPrecond
-    from vivid_tpu_torch.nn.unet import attention_feature_spec
     from vivid_tpu_torch.train.snapshots import load_snapshot
 
     names = ("flash_fused_packed", "flash_fused_packed_xattn",
@@ -908,79 +973,8 @@ def phase_train(card):
         data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=16,
                                       num_views=8, imsize=64, seed=0)
         for preset, steps in (("vivid-base", 4), ("vivid-uncond", 2)):
-            run_dir = os.path.join(tmp, preset)
-            nimg_step = BATCH * 6   # the dual-source collate counts 6 images a pair
-            c = setup_training_config(
-                preset=preset, data=data, batch=BATCH, max_steps=steps, remat="false",
-                status=nimg_step, snapshot=nimg_step * steps, seed=0, device="cuda")
-            c.lr_kwargs.rampup_Mimg = 0.0   # the preset's ramp-up starts at LR 0
-            for name in flash.launches:
-                flash.launches[name] = 0
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            result = launch_training(run_dir, c)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = dict(flash.launches)
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            state, ticks = result.state, result.ticks[1:]   # the first tick precedes step 1
-            cfg = state.net.cfg
-            n_enc = 0 if cfg.uncond else len(attention_feature_spec(cfg.encoder_cfg))
-            n_unet = len(attention_feature_spec(cfg.unet_cfg))
-            per_step = ({"flash_fused_packed": n_unet, "flash_fused_packed_xattn": 0}
-                        if cfg.uncond else
-                        {"flash_fused_packed": n_enc, "flash_fused_packed_xattn": n_unet})
-            per_step.update({f"{k}_bwd": n for k, n in list(per_step.items())})
-            per_step["flash_nomax"] = 0   # no sequence of the 64px models is that long
-            for name, n in launches.items():
-                check(n == per_step[name] * steps,
-                      f"{preset}: {name} launched {n} times, want {per_step[name]} x {steps}")
-            check(len(ticks) == steps and state.adam_step == steps
-                  and state.cur_nimg == nimg_step * steps,
-                  f"{preset}: {len(ticks)} ticks, {state.adam_step} steps, nimg {state.cur_nimg}")
-            for t in ticks:
-                check(all(math.isfinite(t[k]) for k in ("loss", "loss_std", "grad_norm"))
-                      and t["learning_rate"] > 0 and t["grad_norm"] > 0,
-                      f"{preset}: tick {t}")
-            fresh = list(NVPrecond(cfg, device="cuda", seed=0).parameters())
-            # A fresh init has out_gain and every emb_gain at 0: step 1 moves
-            # out_gain alone, step 2 everything but what feeds an emb_gain, and
-            # from step 3 on every parameter has a gradient.
-            # The unconditional model's cross features are zeros, so its
-            # x_attn_kv projections never get one.
-            no_gradient = (() if steps >= 3 else
-                           ("emb_linear.weight", "emb_noise.weight", "emb_label.weight"))
-            if cfg.uncond:
-                no_gradient += ("x_attn_kv.weight",)
-            moved = [not torch.equal(p, q) for p, q in zip(state.params, fresh)]
-            still = [n for n, m in zip(state.names, moved)
-                     if not m and not n.endswith(no_gradient)]
-            check(not still, f"{preset}: parameters that did not move: {still[:8]}")
-            for std, ema in zip((0.050, 0.100), state.emas):   # the trainer's default stds
-                stuck = [n for n, m, e, p, q in zip(state.names, moved, ema, state.params, fresh)
-                         if m and (torch.equal(e, q) or torch.equal(e, p))]
-                check(not stuck, f"{preset}: EMA {std} did not follow {stuck[:8]}")
-            del fresh
-            log = open(os.path.join(run_dir, "log.txt")).read()
-            check(log.count("Status:") == steps + 1, f"{preset}: log.txt:\n{log}")
-            step_ms = [t["seconds"] * 1e3 for t in ticks]
-            warm_ms = statistics.median(step_ms[1:])
-            say("train", run=preset, steps=steps, global_batch=f"{BATCH}_of_the_preset's_1024",
-                remat=False, nimg_mult=6,
-                loss=[round(t["loss"], 4) for t in ticks],
-                grad_norm=[round(t["grad_norm"], 4) for t in ticks],
-                step_ms=[round(x, 1) for x in step_ms], warm_step_ms=f"{warm_ms:.1f}",
-                pairs_per_s=f"{BATCH / warm_ms * 1e3:.2f}",
-                nimg_per_s=f"{nimg_step / warm_ms * 1e3:.1f}",
-                parameters_moved=f"{sum(moved)}_of_{len(moved)}",
-                peak_memory_GB=f"{peak_gb:.2f}", total_s=f"{seconds:.2f}",
-                launches=launches, per_step=per_step, card=f"'{card}'")
-            snaps = sorted(f for f in os.listdir(run_dir) if f.endswith(".pkl"))
-            check(len(snaps) == 2, f"{preset}: snapshots {snaps}")
-            runs[preset] = (os.path.join(run_dir, snaps[0]), launches)
-            del result, state
-            torch.cuda.empty_cache()
+            runs[preset] = _run_trainer(card, os.path.join(tmp, preset), data, preset, steps,
+                                        remat="false", preset_batch=1024)
 
         base = load_snapshot(runs["vivid-base"][0], device="cuda")
         gnet = load_snapshot(runs["vivid-uncond"][0], device="cuda")
@@ -997,6 +991,279 @@ def phase_train(card):
             latents_absmax=f"{lat.abs().max().item():.3f}",
             pngs=len(os.listdir(os.path.join(tmp, "out"))))
     return runs["vivid-base"][1]
+
+
+def _train_launches(cfg):
+    """Kernel launches of one loss and its backward, from the model's plan:
+    every attention block launches its forward kernel once, and once more
+    where its block is recomputed in the backward pass (`remat`: the
+    decoder's blocks and every block of an encoder); S >= 4096 without a
+    zero sink goes to K6 forward and K8 forward + backward, the rest to the
+    packed kernels and their backward."""
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.kernels.attention import NOMAX_MIN_SQ
+    from vivid_tpu_torch.nn.unet import attention_feature_spec
+    want = dict.fromkeys(flash.launches, 0)
+    nets = [(cfg.unet_cfg, "flash_fused_packed" if cfg.uncond else "flash_fused_packed_xattn")]
+    if not cfg.uncond:
+        nets.append((cfg.encoder_cfg, "flash_fused_packed"))
+    for ucfg, packed in nets:
+        for name, _, res in attention_feature_spec(ucfg):
+            forwards = 2 if ucfg.remat and (name.startswith("dec/")
+                                            or ucfg.kind == "encoder") else 1
+            if res * res >= NOMAX_MIN_SQ and not cfg.uncond:
+                want["flash_nomax"] += forwards
+                want["flash_attention"] += 1
+                want["flash_attention_bwd"] += 1
+            else:
+                want[packed] += forwards
+                want[packed + "_bwd"] += 1
+    return want
+
+
+def _run_trainer(card, run_dir, data, preset, steps, remat, preset_batch):
+    """`steps` optimizer steps of `preset` at global batch 8 through
+    `cli.train_nvs.launch_training`, from a fresh seeded init with no
+    learning-rate ramp-up. Checks the launch counts against the model's plan,
+    the ticks, the log, that every parameter and EMA moved, and the snapshots.
+    Returns (a snapshot's path, the launch counts)."""
+    import torch
+    from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.nn.precond import NVPrecond
+    c = setup_training_config(preset=preset, data=data, batch=BATCH, max_steps=steps,
+                              remat=remat, seed=0, device="cuda")
+    nimg_mult = 1 if c.vanilla_mode else 6   # the dual-source collate counts 6 images a pair
+    nimg_step = BATCH * nimg_mult
+    c.update(status_nimg=nimg_step, snapshot_nimg=nimg_step * steps)
+    c.lr_kwargs.rampup_Mimg = 0.0   # the preset's ramp-up starts at LR 0
+    for name in flash.launches:
+        flash.launches[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9   # earlier phases' models
+    t0 = time.perf_counter()
+    result = launch_training(run_dir, c)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(flash.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, ticks = result.state, result.ticks[1:]   # the first tick precedes step 1
+    cfg = state.net.cfg
+    per_step = _train_launches(cfg)
+    for name, n in launches.items():
+        check(n == per_step[name] * steps,
+              f"{preset}: {name} launched {n} times, want {per_step[name]} x {steps}")
+    check(len(ticks) == steps and state.adam_step == steps
+          and state.cur_nimg == nimg_step * steps,
+          f"{preset}: {len(ticks)} ticks, {state.adam_step} steps, nimg {state.cur_nimg}")
+    for t in ticks:
+        check(all(math.isfinite(t[k]) for k in ("loss", "loss_std", "grad_norm"))
+              and t["learning_rate"] > 0 and t["grad_norm"] > 0,
+              f"{preset}: tick {t}")
+    fresh = list(NVPrecond(cfg, device="cuda", seed=0).parameters())
+    # A fresh init has out_gain and every emb_gain at 0: step 1 moves
+    # out_gain alone, step 2 everything but what feeds an emb_gain, and
+    # from step 3 on every parameter has a gradient.
+    # The unconditional model's cross features are zeros, so its
+    # x_attn_kv projections never get one.
+    no_gradient = (() if steps >= 3 else
+                   ("emb_linear.weight", "emb_noise.weight", "emb_label.weight"))
+    if cfg.uncond:
+        no_gradient += ("x_attn_kv.weight",)
+    moved = [not torch.equal(p, q) for p, q in zip(state.params, fresh)]
+    still = [n for n, m in zip(state.names, moved)
+             if not m and not n.endswith(no_gradient)]
+    check(not still, f"{preset}: parameters that did not move: {still[:8]}")
+    for std, ema in zip((0.050, 0.100), state.emas):   # the trainer's default stds
+        stuck = [n for n, m, e, p, q in zip(state.names, moved, ema, state.params, fresh)
+                 if m and (torch.equal(e, q) or torch.equal(e, p))]
+        check(not stuck, f"{preset}: EMA {std} did not follow {stuck[:8]}")
+    del fresh
+    log = open(os.path.join(run_dir, "log.txt")).read()
+    check(log.count("Status:") == steps + 1, f"{preset}: log.txt:\n{log}")
+    step_ms = [t["seconds"] * 1e3 for t in ticks]
+    warm_ms = statistics.median(step_ms[1:])
+    say("train", run=preset, steps=steps, global_batch=f"{BATCH}_of_the_preset's_{preset_batch}",
+        remat=cfg.remat, nimg_mult=nimg_mult,
+        loss=[round(t["loss"], 4) for t in ticks],
+        grad_norm=[round(t["grad_norm"], 4) for t in ticks],
+        step_ms=[round(x, 1) for x in step_ms], warm_step_ms=f"{warm_ms:.1f}",
+        pairs_per_s=f"{BATCH / warm_ms * 1e3:.2f}",
+        nimg_per_s=f"{nimg_step / warm_ms * 1e3:.1f}",
+        parameters_moved=f"{sum(moved)}_of_{len(moved)}",
+        peak_memory_GB=f"{peak_gb:.2f}", resident_before_GB=f"{resident_gb:.2f}",
+        total_s=f"{seconds:.2f}", launches=launches, per_step=per_step, card=f"'{card}'")
+    snaps = sorted(f for f in os.listdir(run_dir) if f.endswith(".pkl"))
+    check(len(snaps) == 2, f"{preset}: snapshots {snaps}")
+    del result, state
+    torch.cuda.empty_cache()
+    return os.path.join(run_dir, snaps[0]), launches
+
+
+def phase_train_sr(card):
+    """The 256px training step at full width, batch 8 of the preset's 128.
+
+    First the whole gradient of one `vivid-sr` `SRNVLoss` (same sigma, noise
+    and conditioning noise) through the kernels (K6 forward, K8 forward and
+    backward at S >= 4096, K1-K4 at S = 1024) against the same through the
+    plain versions, held against a control (plain versions with one bf16 ulp
+    on every attention output and every attention gradient); a planted fault
+    (dk of the cross keys zeroed in K8's backward) must fail the gate, and the
+    distance is split by kernel family. Then the recompute modes, then the trainer's entry point takes 3 steps of the
+    `vivid-sr` preset with the preset's recompute and 3 without, and the
+    snapshot it wrote is sampled as the SR model alone. Returns the kernels'
+    launch counts of the preset's run."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+    import torch
+    from vivid_tpu_torch.data.scenes import make_synthetic_dataset
+    from vivid_tpu_torch.diffusion.loss import SRNVLoss, clamp_loss
+    from vivid_tpu_torch.generate import generate_images_nvs
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.train.snapshots import load_snapshot
+
+    names = ("flash_fused_packed", "flash_fused_packed_xattn", "flash_fused_packed_bwd",
+             "flash_fused_packed_xattn_bwd", "flash_nomax", "flash_attention",
+             "flash_attention_bwd")
+    kernels = tuple(getattr(flash, n) for n in names)
+    refs = tuple(getattr(flash, n + "_ref") for n in names)
+    noise_gen = torch.Generator(device="cuda")
+
+    def noisy(fn):
+        # One ulp on every bf16 tensor the function returns, whatever its
+        # nesting; fp32 statistics and bias gradients pass.
+        def ulp(out):
+            if isinstance(out, torch.Tensor):
+                return _ulp_noise(out, noise_gen) if out.dtype == torch.bfloat16 else out
+            return out if out is None else tuple(ulp(t) for t in out)
+        return lambda *args: ulp(fn(*args))
+
+    def k8_bwd_without_cross_dk(q, k, v, bias, out, lse, g):
+        dq, dk, dv, dbias = kernels[6](q, k, v, bias, out, lse, g)
+        dk[:, :, q.shape[2]:] = 0   # the keys after the self segment
+        return dq, dk, dv, dbias
+
+    variants = {
+        "plain": refs,
+        "control": tuple(noisy(fn) for fn in refs),
+        "fault_cross_dk_zeroed": kernels[:6] + (k8_bwd_without_cross_dk,),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batch = dict(
+        src=torch.randn(BATCH, 1, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1),
+        tgt=torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1),
+        geometry=torch.randn(BATCH, 1, 20, generator=gen, device="cuda"))
+    loss_fn = SRNVLoss(P_mean=-0.8, P_std=1.6)
+    sigma = loss_fn.sample_sigma(gen, BATCH, "cuda")
+    eps = torch.randn(batch["tgt"].shape, generator=gen, device="cuda")
+    cond_noise = torch.randn(batch["tgt"].shape, generator=gen, device="cuda")
+    net = _full_width_sr(train=True)
+    params = list(net.parameters())
+
+    def gradient(variant=None, noise_seed=5):
+        with contextlib.ExitStack() as stack:
+            for name, fn in zip(names, variants.get(variant, ())):
+                stack.enter_context(mock.patch.object(flash, name, fn))
+            noise_gen.manual_seed(noise_seed)
+            for p in params:
+                p.grad = None
+            loss = clamp_loss(loss_fn(net, batch["src"], batch["tgt"], batch["geometry"],
+                                      sigma=sigma, eps=eps, cond_noise=cond_noise))
+            scalar = loss.sum() / BATCH
+            scalar.backward()
+        flat = torch.cat([p.grad.float().reshape(-1) for p in params])
+        return scalar.item(), flat
+
+    def measured(variant=None):
+        before = dict(flash.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, flat = gradient(variant)
+        torch.cuda.synchronize()
+        return (loss, flat, {k: n - before[k] for k, n in flash.launches.items()},
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    resident_gb = torch.cuda.memory_allocated() / 1e9   # the net, the batch, earlier phases
+    loss_k, got, used, peak_gb = measured()
+    check(used == _train_launches(net.cfg),
+          f"train_sr: one loss and its backward launched {used}, want {_train_launches(net.cfg)}")
+    loss_p, want = gradient("plain")
+    control = _rel_l2(gradient("control")[1], want)
+    faulty = _rel_l2(gradient("fault_cross_dk_zeroed")[1], want)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and math.isfinite(loss_k), "train_sr: non-finite gradient")
+    err = _rel_l2(got, want)
+    gate = TOL_GRAD_CONTROL * control
+    say("train_sr", check="gradient", net="vivid-sr", weights="emb_gains_1", batch=BATCH,
+        values=got.numel(), loss_kernels=f"{loss_k:.6f}", loss_plain=f"{loss_p:.6f}",
+        grad_norm_kernels=f"{got.norm().item():.6f}", grad_norm_plain=f"{want.norm().item():.6f}",
+        grad_rel_l2=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
+        ratio=f"{err / control:.3f}", gate=f"{gate:.3e}", kernel_launches=used,
+        fault_cross_dk_zeroed=f"{faulty:.3e}")
+    check(err <= gate, f"train_sr: gradient kernels vs plain rel L2 {err} > {gate} "
+          f"(control {control})")
+    check(abs(loss_k - loss_p) <= 5e-2 * abs(loss_p),
+          f"train_sr: loss {loss_k} through the kernels, {loss_p} through the plain versions")
+    check(faulty > gate, f"train_sr: the planted fault gives {faulty}, which passes the gate {gate}")
+
+    # Where the distance comes from (printed, not gated): each kernel family
+    # alone through its kernels with the others through their plain versions,
+    # and the control under another noise seed.
+    families = {"k1_to_k4": (0, 1, 2, 3), "k6": (4,), "k8": (5, 6)}
+    alone = {}
+    for family, own in families.items():
+        variants[family] = tuple(k if i in own else r
+                                 for i, (k, r) in enumerate(zip(kernels, refs)))
+        alone[f"only_{family}_rel_l2"] = f"{_rel_l2(gradient(family)[1], want):.3e}"
+    say("train_sr", check="gradient_by_family", **alone,
+        control_other_seed_rel_l2=f"{_rel_l2(gradient('control', 6)[1], want):.3e}")
+    del want
+
+    # Recompute in the backward pass: K6 runs again in every recomputed block,
+    # K8 as often as without; the gradient stays within the gate of the mode
+    # that keeps every activation.
+    say("train_sr", check="remat", mode=False, kernel_launches=used,
+        peak_memory_GB=f"{peak_gb:.2f}", resident_before_GB=f"{resident_gb:.2f}")
+    for mode in (True, "save_dots"):
+        net.cfg = dataclasses.replace(net.cfg, remat=mode)
+        for unet in (net.unet, net.encoder):
+            unet.cfg = dataclasses.replace(unet.cfg, remat=mode)
+        loss_m, grad_m, used_m, peak_m = measured()
+        err_m = _rel_l2(grad_m, got)
+        say("train_sr", check="remat", mode=mode, kernel_launches=used_m,
+            peak_memory_GB=f"{peak_m:.2f}", grad_rel_l2_vs_no_remat=f"{err_m:.3e}",
+            bitwise_equal=torch.equal(grad_m, got), loss=f"{loss_m:.6f}")
+        check(err_m <= gate and used_m == _train_launches(net.cfg),
+              f"train_sr: remat={mode!r}: gradient rel L2 {err_m} (gate {gate}), launches "
+              f"{used_m}, want {_train_launches(net.cfg)}")
+        del grad_m
+    del net, params, got
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_train_sr_") as tmp:
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes256"), num_scenes=16,
+                                      num_views=8, imsize=256, seed=0)
+        snapshot, launches = _run_trainer(card, os.path.join(tmp, "remat"), data, "vivid-sr", 3,
+                                          remat="true", preset_batch=128)
+        _run_trainer(card, os.path.join(tmp, "no_remat"), data, "vivid-sr", 3,
+                     remat="false", preset_batch=128)
+        sr = load_snapshot(snapshot, device="cuda")
+        check(sr.cfg.super_res and sr.cfg.img_resolution == 256, f"train_sr: snapshot {sr.cfg}")
+        seeds = [0, 1]
+        batches = list(generate_images_nvs(
+            net=sr, vanilla_mode=True, seeds=seeds, max_batch_size=2, num_steps=4,
+            outdir=os.path.join(tmp, "out"), datakwargs={"path": data}, device="cuda",
+            verbose=False))
+        torch.cuda.synchronize()
+        lat = torch.cat([b.latents for b in batches])
+        check(lat.shape == (2, 256, 256, 3) and bool(torch.isfinite(lat).all()),
+              f"train_sr: sampling the trained snapshot gave latents {tuple(lat.shape)}")
+        say("train_sr", sampled_seeds=seeds, snapshot=os.path.basename(snapshot),
+            latents_absmax=f"{lat.abs().max().item():.3f}",
+            pngs=len(os.listdir(os.path.join(tmp, "out"))))
+    return launches
 
 
 def _profile(tag, fn, units, unit):
@@ -1040,7 +1307,10 @@ def _profile(tag, fn, units, unit):
                 f"device_ops_per_{unit}": len(dev) // units,
                 "idle_share": f"{1 - busy_ms / wall_ms:.3f}",
                 "idle_share_profiled": f"{1 - busy_ms / prof_wall_ms:.3f}"})
-    kinds = {"attention_nomax": ("flash_nomax",), "attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+    kinds = {"attention_nomax": ("flash_nomax",),
+             "attention_k8_fwd": ("flash_fwd_kernel",),
+             "attention_k8_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "bwd_delta_kernel"),
+             "attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
              "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn"),
              "gemm": ("gemm", "nvjet", "cutlass"), "reduce": ("reduce_kernel",)}
     shares = dict.fromkeys(list(kinds) + ["other"], 0.0)
@@ -1117,6 +1387,30 @@ def phase_profile_train():
         return float(stats["Loss/loss"])
 
     _profile("profile_train", two_steps, 2, "step")
+
+
+def phase_profile_train_sr():
+    """Where the time of a 256px training step goes: 2 steps of full-width
+    `vivid-sr` at batch 8 with the preset's recompute, on one fixed batch."""
+    import torch
+    from vivid_tpu_torch.diffusion.loss import SRNVLoss
+    from vivid_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = dict(
+        src=torch.randn(BATCH, 1, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1),
+        tgt=torch.randn(BATCH, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1),
+        geometry=torch.randn(BATCH, 1, 20, generator=gen, device="cuda"))
+    cfg = TrainConfig(batch_size=BATCH, ref_lr=0.0200, ref_batches=35000, rampup_Mimg=0.0,
+                      nimg_mult=1)
+    state = init_train_state(_full_width_sr(train=True, remat=True), cfg)
+    step = make_train_step(SRNVLoss(P_mean=-0.8, P_std=1.6), cfg)
+
+    def two_steps():
+        for _ in range(2):
+            stats = step(state, batch, gen)
+        return float(stats["Loss/loss"])
+
+    _profile("profile_train_sr", two_steps, 2, "step")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """The plain version of the port's big-S no-max attention kernel (K6
 flash_nomax) against the JAX package's Pallas kernel run in interpret mode,
-and the dispatch that sends long sequences to it (CPU, tiny shapes). The
+and the dispatch that sends long sequences to it (CPU, tiny shapes; its
+gradient is held in test_torch_flash_attn_bwd.py). The
 CUDA kernel itself runs only on a card: chip_smoke.py compares it with this
 plain version there.
 
@@ -191,16 +192,24 @@ def test_dispatch_threshold_is_the_jax_packages():
 
 @pytest.mark.parametrize("entry", ["self", "xattn"])
 def test_dispatch_raises_under_autograd(spy, entry):
-    """No backward for the no-max route yet, and no quiet way round it."""
+    """Under autograd a tensor that is neither on the CPU nor a CUDA tensor the
+    kernels take raises from the launcher: there is no quiet way round the
+    kernels to the plain version. On the CPU the same call differentiates
+    (tests/test_torch_flash_attn_bwd.py holds the gradient to the packed
+    route's)."""
     h, d = 2, 32
-    qkv = torch.from_numpy(_packed(1, 64, 3, h, d, 0)).requires_grad_()
+    qkv = torch.from_numpy(_packed(1, 64, 3, h, d, 0))
     feats = [torch.from_numpy(_packed(1, 64, 2, h, d, 1))]
-    with pytest.raises(NotImplementedError, match="K8"):
+
+    def call(device):
+        x = qkv.to(device).requires_grad_()
         if entry == "self":
-            attention.self_attention_from_packed(qkv, h)
-        else:
-            attention.xattn_from_packed(qkv, feats, h)
-    assert spy == []
-    with torch.no_grad():
-        attention.self_attention_from_packed(qkv, h)
+            return x, attention.self_attention_from_packed(x, h)
+        return x, attention.xattn_from_packed(x, [f.to(device) for f in feats], h)
+
+    with pytest.raises(ValueError, match="must be on"):
+        call("meta")
     assert len(spy) == 1
+    x, out = call("cpu")
+    out.sum().backward()
+    assert len(spy) == 2 and x.grad.shape == x.shape and bool(x.grad.abs().sum() > 0)

@@ -95,10 +95,10 @@ def test_training_loop_accumulates_and_refuses_what_is_not_ported(data, tmp_path
     assert "in 2 microbatch(es)" in open(tmp_path / "acc" / "log.txt").read()
     with pytest.raises(ValueError, match="not divisible"):
         _train(tmp_path / "bad", data, batch_size=4, batch_gpu=3)
-    with pytest.raises(NotImplementedError):
-        _train(tmp_path / "sr", data, network_kwargs=dict(NET, super_res=True))
-    with pytest.raises(NotImplementedError):
-        _train(tmp_path / "vanilla", data, network_kwargs=dict(NET, num_sources=1))
+    with pytest.raises(NotImplementedError, match="depth_input"):
+        _train(tmp_path / "depth", data, network_kwargs=dict(NET, depth_input=True))
+    with pytest.raises(NotImplementedError, match="warp_depth_coor"):
+        _train(tmp_path / "warp", data, network_kwargs=dict(NET, warp_depth_coor=True))
 
 
 def test_cli_dry_run_prints_the_config(capsys):
@@ -111,8 +111,10 @@ def test_cli_dry_run_prints_the_config(capsys):
     assert cfg["batch_size"] == 8 and cfg["total_nimg"] == 1024
     assert cfg["network_kwargs"] == dict(
         model_channels=128, dropout=0.0, extra_attn=1, epipolar_attention_bias=False,
-        no_time_enc=False, uncond=True, num_sources=2, source_label_dim=20,
-        target_label_dim=40, use_bf16=True, force_wn=False, remat="save_dots")
+        super_res=False, no_time_enc=False, uncond=True, noisy_sr=0.25, num_sources=2,
+        source_label_dim=20, target_label_dim=40, use_bf16=True, force_wn=False,
+        remat="save_dots")
+    assert not cfg["sr_training"] and not cfg["vanilla_mode"]
     assert cfg["loss_kwargs"] == dict(P_mean=-0.8, P_std=1.6)
     assert cfg["lr_kwargs"] == dict(ref_lr=0.012, ref_batches=35000)
     assert "Dry run" in text
@@ -126,13 +128,35 @@ def test_cli_presets_match_the_jax_package():
         assert train_nvs.parse_nimg(text) == jcli.parse_nimg(text) == want
 
 
-@pytest.mark.parametrize("flags", [["--sr-training"], ["--fsdp"], ["--depth-input"],
-                                   ["--metrics", "1Ki"], ["--single-image-mix", "0.25"],
-                                   ["--vanilla-mode"], ["--checkpoint", "1Ki"],
-                                   ["--preset", "vivid-sr"]])
+@pytest.mark.parametrize("flags", [["--fsdp"], ["--depth-input"], ["--metrics", "1Ki"],
+                                   ["--single-image-mix", "0.25"], ["--checkpoint", "1Ki"]])
 def test_cli_unported_options_raise(flags):
     with pytest.raises(NotImplementedError):
         train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)
+
+
+@pytest.mark.parametrize("flags,sr,sources,batch", [
+    (["--sr-training"], True, 2, 1024),
+    (["--vanilla-mode"], False, 1, 1024),
+    (["--preset", "vivid-sr"], True, 1, 128),
+])
+def test_cli_sr_and_vanilla_options_build_their_configs(flags, sr, sources, batch, capsys):
+    """The flags that used to be refused, against the JAX package's CLI."""
+    from vivid_tpu.cli import train_nvs as jcli
+    train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)
+    text = capsys.readouterr().out
+    cfg = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    preset = flags[1] if flags[0] == "--preset" else "vivid-base"
+    want = jcli.setup_training_config(preset=preset, data="scenes/",
+                                      sr_training="--sr-training" in flags,
+                                      vanilla_mode="--vanilla-mode" in flags)
+    net = cfg["network_kwargs"]
+    assert (cfg["sr_training"], cfg["vanilla_mode"], cfg["batch_size"]) == (
+        sr, sources == 1, batch) == (want.sr_training, want.vanilla_mode, want.batch_size)
+    assert (net["super_res"], net["num_sources"], net["target_label_dim"]) == (
+        sr, sources, 20 * sources)
+    for key, value in net.items():
+        assert value == want.network_kwargs[key], key
 
 
 def test_cli_trains(data, tmp_path):

@@ -3,10 +3,14 @@ package's.
 
     python -m vivid_tpu_torch.cli.train_nvs --preset=vivid-base \\
         --data=scenes/ --outdir=runs/
+    python -m vivid_tpu_torch.cli.train_nvs --preset=vivid-sr \\
+        --data=scenes256/ --outdir=runs_sr/
 
-It trains on the first CUDA card unless `--device cpu` is given. A flag
-whose feature is not ported yet raises NotImplementedError; none is
-silently ignored.
+`vivid-sr` trains the 256px super-resolution model (single source);
+`--vanilla-mode` with a 64px preset trains the single-source base model. It
+trains on the first CUDA card unless `--device cpu` is given. A flag whose
+feature is not ported yet raises NotImplementedError; none is silently
+ignored.
 """
 
 import json
@@ -23,12 +27,17 @@ config_presets = {
     "vivid-uncond": EasyDict(duration=1024 << 19, batch=1024, channels=128,
                              lr=0.0120, decay=35000, dropout=0.00, P_mean=-0.8,
                              P_std=1.6, extra_attn=1, uncond=True),
+    # The shipped super-resolution model: single source, labels 20/20.
+    "vivid-sr": EasyDict(duration=256 << 20, batch=128, channels=64, lr=0.0200,
+                         decay=35000, dropout=0.00, P_mean=-0.8, P_std=1.6,
+                         noisy_sr=0.25, sr_training=True, extra_attn=1,
+                         vanilla_mode=True),
 }
 
 # Flags of the JAX package's CLI whose features the port does not have yet.
-NOT_PORTED = ("sr_training", "fsdp", "depth_input", "depth_model", "warp_depth_coor",
-              "metrics", "single_image_mix", "vanilla_mode", "sr_model",
-              "test_data_path", "samples", "checkpoint", "slice", "deterministic")
+NOT_PORTED = ("fsdp", "depth_input", "depth_model", "warp_depth_coor", "metrics",
+              "single_image_mix", "sr_model", "test_data_path", "samples", "checkpoint",
+              "slice", "deterministic")
 
 
 def parse_nimg(s):
@@ -57,8 +66,6 @@ def _parse_remat(value):
 def setup_training_config(preset="vivid-base", **opts):
     """CLI options -> the keyword arguments of `training_loop`."""
     opts = EasyDict(opts)
-    if preset == "vivid-sr":
-        raise NotImplementedError("preset vivid-sr: super-resolution training is not ported yet")
     if preset not in config_presets:
         raise click.ClickException(f'Invalid configuration preset "{preset}"')
     for name in NOT_PORTED:
@@ -71,18 +78,22 @@ def setup_training_config(preset="vivid-base", **opts):
 
     c = EasyDict()
     c.dataset_kwargs = EasyDict(path=opts.data)
+    c.vanilla_mode = bool(opts.get("vanilla_mode"))
     c.plain_mse = bool(opts.get("plain_mse"))
+    num_sources = 1 if c.vanilla_mode else 2
     c.update(total_nimg=opts.duration, batch_size=opts.batch)
     c.network_kwargs = EasyDict(
         model_channels=opts.channels,
         dropout=opts.get("dropout", 0.0),
         extra_attn=opts.get("extra_attn"),
         epipolar_attention_bias=bool(opts.get("epipolar_attn_bias")),
+        super_res=bool(opts.get("sr_training")),
         no_time_enc=bool(opts.get("no_time_enc")),
         uncond=bool(opts.get("uncond")),
-        num_sources=2,
+        noisy_sr=opts.get("noisy_sr") or 0.25,
+        num_sources=num_sources,
         source_label_dim=20,
-        target_label_dim=40,
+        target_label_dim=20 * num_sources,
         use_bf16=bool(opts.get("bf16", True)),
         force_wn=bool(opts.get("force_wn", False)),
         remat=_parse_remat(opts.get("remat", True)),
@@ -91,6 +102,7 @@ def setup_training_config(preset="vivid-base", **opts):
     c.lr_kwargs = EasyDict(ref_lr=opts.lr, ref_batches=opts.decay)
     c.loss_scaling = opts.get("ls", 1)
     c.batch_gpu = opts.get("batch_gpu") or None
+    c.sr_training = bool(opts.get("sr_training"))
     c.status_nimg = opts.get("status") or None
     c.snapshot_nimg = opts.get("snapshot") or None
     c.seed = opts.get("seed", 0)
@@ -112,7 +124,7 @@ def launch_training(run_dir, c):
 @click.option("--outdir", help="Where to save the results", metavar="DIR", type=str, default="output_nonvanilla/")
 @click.option("--data", help="Path to scene dataset (.npz dir)", metavar="DIR", type=str, required=True)
 @click.option("--preset", help="Configuration preset", metavar="STR", type=str, default="vivid-base", show_default=True)
-@click.option("--sr-training", help="Toggles training of SR model (not ported)", is_flag=True)
+@click.option("--sr-training", help="Toggles training of SR model", is_flag=True)
 # Hyperparameters.
 @click.option("--duration", help="Training duration", metavar="NIMG", type=parse_nimg, default=None)
 @click.option("--batch", help="Total batch size", metavar="NIMG", type=parse_nimg, default=None)
@@ -131,9 +143,10 @@ def launch_training(run_dir, c):
 @click.option("--warp-depth-coor", help="Add coordinates and warped coordinates as input (not ported)", is_flag=True)
 @click.option("--single-image-mix", help="Use single image augmentations, percent of batch (not ported)", type=float, default=None)
 @click.option("--uncond", help="Regular (unconditional) diffusion", is_flag=True)
+@click.option("--noisy-sr", help="Adds noise to low-res image", type=float, default=None)
 @click.option("--sr-model", help="Path to SR model to use for evaluation (not ported)", metavar="STR", type=str, required=False)
 @click.option("--test-data-path", help="Path to the test dataset (not ported)", metavar="DIR", type=str, default=None)
-@click.option("--vanilla-mode", help="Single-source conditioning (not ported)", is_flag=True)
+@click.option("--vanilla-mode", help="Single-source conditioning", is_flag=True)
 @click.option("--plain-mse", help="Plain MSE loss instead of learned variance", is_flag=True)
 # Performance-related options.
 @click.option("--batch-gpu", help="Limit the microbatch size (gradient accumulation)", metavar="NIMG", type=parse_nimg, default=None)

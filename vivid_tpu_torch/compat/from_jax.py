@@ -69,7 +69,8 @@ def to_jax(state) -> dict:
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = np.ascontiguousarray(arr)
+        # (ascontiguousarray alone would turn a 0-dim gain into shape (1,).)
+        node[keys[-1]] = np.ascontiguousarray(arr).reshape(arr.shape)
     return tree
 
 

@@ -1,6 +1,7 @@
-// Device helpers shared by the packed attention kernels (forward and
-// backward): bf16 fragment loads, the m16n8k16 tensor-core product, and the
-// pixel norm of one D-wide row.
+// Device helpers shared by the attention kernels: bf16 fragment loads, the
+// m16n8k16 tensor-core product, the pixel norm of one D-wide row (packed
+// kernels), and the cp.async + ldmatrix feeding of shared-memory tiles (the
+// big-S kernels).
 
 #pragma once
 
@@ -59,6 +60,46 @@ __device__ __forceinline__ float load_row(const __nv_bfloat16* row, int lane,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
   return eps + (1.0f / sqrtf(static_cast<float>(D))) * sqrtf(ss);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes = 0 writes zeros (rows past the end).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared; src_bytes = 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8. Lane t receives elements [t / 4][2 (t % 4) .. + 1] of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed: lane t receives [2 (t % 4) .. + 1][t / 4].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 }  // namespace vivid

@@ -1,8 +1,7 @@
 """EDM2 training loss with learned-uncertainty weighting.
 
-Counterpart of vivid_tpu/diffusion/loss.py `NVLoss`, `clamp_loss` and
-`down_up_resize` (`SRNVLoss` waits for super-resolution training). Sigma
-and noise are drawn once per pair:
+Counterpart of vivid_tpu/diffusion/loss.py `NVLoss`, `SRNVLoss`,
+`clamp_loss` and `down_up_resize`. Sigma and noise are drawn once per pair:
 
     sigma  = exp(N(0, 1) * P_std + P_mean)              [B, 1, 1, 1]
     weight = (sigma^2 + sd^2) / (sigma * sd)^2
@@ -11,7 +10,10 @@ and noise are drawn once per pair:
 with logvar clamped to +-logvar_clamp. `plain_mse` returns the weighted MSE's
 mean instead. The draws come from a `torch.Generator`; a caller (a test that
 feeds both packages the same numbers) may pass `sigma` and the unit noise
-`eps` itself.
+`eps` itself. `SRNVLoss` trains the super-resolution model: it conditions
+the net on the target resized down by 4 and back up, and draws the unit
+noise that `super_res` preconditioning adds to that image (`noisy_sr`) anew
+on every call.
 """
 
 from dataclasses import dataclass
@@ -53,10 +55,9 @@ class NVLoss:
         rnd = torch.randn((batch, 1, 1, 1), generator=generator, device=device)
         return torch.exp(rnd * self.P_std + self.P_mean)
 
-    def __call__(self, net, src, tgt, geometry, generator=None, sigma=None, eps=None):
-        """src [B, n_src, H, W, Cs]; tgt [B, H, W, C]; geometry [B, n_src, 20].
-        Returns the elementwise loss [B, H, W, C] (a scalar for plain_mse).
-        `generator` feeds sigma, eps and the net's dropout, in that order."""
+    def _noised(self, tgt, generator, sigma, eps):
+        """-> (sigma [B, 1, 1, 1], the loss weight, tgt + sigma * eps), drawing
+        sigma and then eps from `generator` where they are not given."""
         b = tgt.shape[0]
         if sigma is None:
             sigma = self.sample_sigma(generator, b, tgt.device)
@@ -65,7 +66,14 @@ class NVLoss:
             eps = torch.randn(tgt.shape, generator=generator, device=tgt.device,
                               dtype=tgt.dtype)
         weight = (sigma ** 2 + self.sigma_data ** 2) / (sigma * self.sigma_data) ** 2
-        noisy = tgt + eps * sigma
+        return sigma, weight, tgt + eps * sigma
+
+    def __call__(self, net, src, tgt, geometry, generator=None, sigma=None, eps=None):
+        """src [B, n_src, H, W, Cs]; tgt [B, H, W, C]; geometry [B, n_src, 20].
+        Returns the elementwise loss [B, H, W, C] (a scalar for plain_mse).
+        `generator` feeds sigma, eps and the net's dropout, in that order."""
+        b = tgt.shape[0]
+        sigma, weight, noisy = self._noised(tgt, generator, sigma, eps)
 
         if self.plain_mse:
             denoised = net(src, noisy, sigma.reshape(b), geometry, generator=generator)
@@ -73,5 +81,29 @@ class NVLoss:
 
         denoised, logvar = net(src, noisy, sigma.reshape(b), geometry,
                                return_logvar=True, generator=generator)
+        logvar = logvar.clamp(-self.logvar_clamp, self.logvar_clamp)
+        return weight * torch.exp(-logvar) * (denoised - tgt) ** 2 + logvar
+
+
+@dataclass(frozen=True)
+class SRNVLoss(NVLoss):
+    """The super-resolution variant. `plain_mse` is accepted and, as in the
+    JAX package's class, not honoured: the loss is always the learned-variance
+    form."""
+
+    def __call__(self, net, src, tgt, geometry, generator=None, sigma=None, eps=None,
+                 cond_noise=None):
+        """As `NVLoss.__call__`; `generator` feeds sigma, eps, the conditioning
+        noise and the net's dropout, in that order. `cond_noise` [B, H, W, C]
+        replaces the conditioning-noise draw."""
+        b = tgt.shape[0]
+        sigma, weight, noisy = self._noised(tgt, generator, sigma, eps)
+        if cond_noise is None and net.cfg.noisy_sr > 0:
+            cond_noise = torch.randn(tgt.shape, generator=generator, device=tgt.device,
+                                     dtype=tgt.dtype)
+        low_res = down_up_resize(tgt, 4)
+        denoised, logvar = net(src, noisy, sigma.reshape(b), geometry,
+                               return_logvar=True, generator=generator,
+                               conditioning_image=low_res, cond_noise=cond_noise)
         logvar = logvar.clamp(-self.logvar_clamp, self.logvar_clamp)
         return weight * torch.exp(-logvar) * (denoised - tgt) ** 2 + logvar

@@ -8,11 +8,14 @@ the projection outputs as they are (any sequence length) and both entries
 are differentiable: their backward is the backward kernel. From
 NOMAX_MIN_SQ on (the 256px model's attention at 128x128 and 64x64) the
 rows are split, pixel-normalised in fp32, rounded to the compute dtype and
-laid out [B, H, S, D] in plain PyTorch, and the no-max kernel
-`flash.flash_nomax` runs on the concatenated self and cross segments. That
-kernel has no backward: under autograd this route raises. A CUDA tensor
-always reaches a kernel (or the call raises), a CPU tensor the kernel's
-plain version.
+laid out [B, H, S, D] in plain PyTorch, and `flash.nomax_attention` runs on
+the concatenated self and cross segments: the no-max kernel forward, and
+under autograd the big-S flash attention kernels backward (forward again for
+the row statistics, then dk/dv and dq/dbias). The split, norm, relayout and
+bias concatenation around it differentiate by autograd, as XLA differentiates
+them in the JAX package's composites; the bias gradient flows back through
+the concatenation to each source's bias. A CUDA tensor always reaches a
+kernel (or the call raises), a CPU tensor the kernel's plain version.
 """
 
 import torch
@@ -23,19 +26,15 @@ NOMAX_MIN_SQ = 4096   # query length from which the no-max kernel takes over
 
 
 def _nomax_from_packed(qkv, feats, num_heads: int, biases):
-    """Split the packed rows, normalise, run `flash.flash_nomax` over the
+    """Split the packed rows, normalise, run `flash.nomax_attention` over the
     self segment followed by every cross source (the self segment's bias is
     zeros), and re-pack to [B, S, H*D]. With biases the kernel reads one
     fp32 [B, H, S, S + sum(Sf)] block, built here from a zero block and the
     sources' biases: 4*B*H*S*Sk bytes twice over while it is concatenated
     (0.8 GB a copy at B = 1, H = 6, S = 4096, Sk = 8192; 68.7 GB at B = 8,
     H = 4, S = 16384, Sk = 32768), so a biased model at these lengths runs
-    out of device memory at a large batch rather than changing kernels."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (qkv, *feats, *biases)):
-        raise NotImplementedError(
-            f"attention at S = {qkv.shape[1]} >= {NOMAX_MIN_SQ} has no backward yet: the "
-            "no-max kernel is forward only and its backward (K8, the counterpart of "
-            "pallas.ops.tpu.flash_attention) is not ported; run under torch.no_grad()")
+    out of device memory at a large batch rather than changing kernels
+    (training adds the bias gradient, as large again)."""
     b, s, c3 = qkv.shape
     h = num_heads
     d = c3 // (3 * h)
@@ -51,7 +50,7 @@ def _nomax_from_packed(qkv, feats, num_heads: int, biases):
     if biases:
         zero = torch.zeros(b, h, s, s, dtype=torch.float32, device=qkv.device)
         bias = torch.cat([zero] + [bi.float() for bi in biases], -1)
-    out = flash.flash_nomax(q, k, v, bias)
+    out = flash.nomax_attention(q, k, v, bias)
     return out.transpose(1, 2).reshape(b, s, h * d)
 
 

@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu")
+SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu", "flash_bwd.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -113,4 +113,13 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, bias, shift, out
         i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream
     lib.vivid_flash_nomax_fwd.restype = i32
+    lib.vivid_flash_attn_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, bias, out, lse
+        i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream
+    lib.vivid_flash_attn_fwd.restype = i32
+    lib.vivid_flash_attn_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,      # q, k, v, bias, out, lse, g
+        ptr, ptr, ptr, ptr, ptr,                # delta, dq, dk, dv, dbias
+        i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream
+    lib.vivid_flash_attn_bwd.restype = i32
     return lib

@@ -9,9 +9,17 @@ of their backward kernels `flash_fused_packed_bwd` and
 in csrc/flash_packed.cu, the backward wrappers the pair of kernels in
 csrc/flash_packed_bwd.cu. `packed_self_attention` and `packed_xattn` are the
 differentiable entries: autograd functions whose forward and backward are
-those wrappers. `flash_nomax` is the big-S kernel of the 256px model
-(csrc/flash_nomax.cu, counterpart of `flash_nomax` there): forward only, on
-q, k, v [B, H, S, D] that the caller has already pixel-normalised.
+those wrappers. `flash_nomax` is the big-S forward kernel of the 256px model
+(csrc/flash_nomax.cu, counterpart of `flash_nomax` there), on q, k, v
+[B, H, S, D] that the caller has already pixel-normalised. `flash_attention`
+and `flash_attention_bwd` (csrc/flash_bwd.cu) are the counterpart of JAX's
+`pallas.ops.tpu.flash_attention` as vivid_tpu/kernels/attention.py
+`_stock_flash` calls it: the forward with a running max that also returns the
+row log-sum-exp, and the backward kernels for dk/dv and for dq and the bias.
+`nomax_attention` is the differentiable big-S entry: forward `flash_nomax`,
+backward `flash_attention` again for the output and the statistics, then
+`flash_attention_bwd`, which is the JAX package's own schedule
+(`jax.vjp(_stock_flash)` behind the no-max forward).
 
 Layouts (packed kernels): qkv [B, S, 3*H*D] part-major (part, head, d); feats [B, Sf, 2*H*D]
 (k, v part-major); biases [B, H, S, Sf] unscaled fp32; output [B, S, H*D]
@@ -35,8 +43,8 @@ from vivid_tpu_torch.kernels import build
 NORM_EPS = 1e-4  # the pixel norm's eps, as in the TPU kernels
 launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,
-            "flash_nomax": 0}
-REF_CHUNK_ELEMS = 1 << 28   # fp32 logits `flash_nomax_ref` holds at a time (1 GiB)
+            "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
 
 
 def _rms_norm(x):
@@ -299,6 +307,30 @@ def _nomax_shift(bias, d):
     return (math.sqrt(d) + bias.amax()).reshape(1)
 
 
+def _ref_chunks(b, h, sq, sk):
+    """Slices of the query rows that keep b * h * rows * sk logits within
+    REF_CHUNK_ELEMS (the softmax is per row, so the walk is exact)."""
+    rows = max(1, min(sq, REF_CHUNK_ELEMS // (b * h * sk)))
+    return [slice(i, i + rows) for i in range(0, sq, rows)]
+
+
+def _checked_bhsd(q, k, v, bias):
+    """Raise on anything the big-S kernels do not take -> (b, h, sq, sk, d)."""
+    if q.dim() != 4 or q.shape[-1] not in (32, 64):
+        raise ValueError(f"q must be [B, H, Sq, D] with D 32 or 64, got {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    if k.dim() != 4 or k.shape[2] < 1 or sq < 1:
+        raise ValueError(f"k must be [B, H, Sk >= 1, D], got {tuple(k.shape)}")
+    sk = k.shape[2]
+    dev = q.device
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
+    _check(k, "k", torch.bfloat16, (b, h, sk, d), dev)
+    _check(v, "v", torch.bfloat16, (b, h, sk, d), dev)
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (b, h, sq, sk), dev)
+    return b, h, sq, sk, d
+
+
 def flash_nomax_ref(q, k, v, bias=None):
     """Plain version of K6, the kernel's arithmetic step for step: q scaled
     by 1/sqrt(D) in fp32 and rounded to its dtype, fp32 logits, p = exp(s)
@@ -310,23 +342,24 @@ def flash_nomax_ref(q, k, v, bias=None):
     sk = k.shape[2]
     qs = (q.float() * (1.0 / math.sqrt(d))).to(q.dtype).float()
     k32, v32 = k.float(), v.float()
-    shift = None if bias is None else _nomax_shift(bias.float(), d)
-    out = torch.empty(b, h, sq, d, dtype=v.dtype, device=q.device)
-    rows = max(1, min(sq, REF_CHUNK_ELEMS // (b * h * sk)))
-    for i in range(0, sq, rows):
-        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, i:i + rows], k32)
+    # Softmax does not depend on the shift: it carries no gradient.
+    shift = None if bias is None else _nomax_shift(bias.detach().float(), d)
+    outs = []
+    for cut in _ref_chunks(b, h, sq, sk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, cut], k32)
         if bias is not None:
-            s = s + bias[:, :, i:i + rows].float() - shift
+            s = s + bias[:, :, cut].float() - shift
         p = torch.exp(s)
         acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v32)
-        out[:, :, i:i + rows] = (acc / p.sum(-1, keepdim=True)).to(v.dtype)
-    return out
+        outs.append((acc / p.sum(-1, keepdim=True)).to(v.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 2)
 
 
 def flash_nomax(q, k, v, bias=None):
     """K6: attention with no running max. q [B, H, Sq, D], k, v [B, H, Sk, D]
     (bf16 on the card, D 32 or 64, any Sq and Sk), optional unscaled fp32 bias
-    [B, H, Sq, Sk] -> [B, H, Sq, D]. Forward only.
+    [B, H, Sq, Sk] -> [B, H, Sq, D]. The forward alone: `nomax_attention`
+    is the entry with a gradient.
 
     The contract is the caller's: q and k rows are pixel-normalised (row norm
     <= sqrt(D)), so every scaled logit lies below sqrt(D) and exp of it stays
@@ -336,20 +369,9 @@ def flash_nomax(q, k, v, bias=None):
     biased logit lies ~88 below that shift sums to 0 and comes out NaN."""
     if q.device.type == "cpu":
         return flash_nomax_ref(q, k, v, bias)
-    if q.dim() != 4 or q.shape[-1] not in (32, 64):
-        raise ValueError(f"q must be [B, H, Sq, D] with D 32 or 64, got {tuple(q.shape)}")
-    b, h, sq, d = q.shape
-    if k.dim() != 4 or k.shape[2] < 1 or sq < 1:
-        raise ValueError(f"k must be [B, H, Sk >= 1, D], got {tuple(k.shape)}")
-    sk = k.shape[2]
+    b, h, sq, sk, d = _checked_bhsd(q, k, v, bias)
     dev = q.device
-    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
-    _check(k, "k", torch.bfloat16, (b, h, sk, d), dev)
-    _check(v, "v", torch.bfloat16, (b, h, sk, d), dev)
-    shift = None
-    if bias is not None:
-        _check(bias, "bias", torch.float32, (b, h, sq, sk), dev)
-        shift = _nomax_shift(bias, d)
+    shift = None if bias is None else _nomax_shift(bias, d)
     out = torch.empty_like(q)
     lib = build.library()
     with torch.cuda.device(dev):
@@ -361,3 +383,140 @@ def flash_nomax(q, k, v, bias=None):
         raise RuntimeError(f"flash_nomax kernel launch failed: CUDA error {rc}")
     launches["flash_nomax"] += 1
     return out
+
+
+def flash_attention_ref(q, k, v, bias=None):
+    """Plain version of K8's forward -> (out, lse): q scaled by 1/sqrt(D) in
+    fp32 and rounded to its dtype, fp32 logits (+ bias), softmax about the row
+    maximum with fp32 row sums, p rounded to v's dtype for the second product;
+    lse = max + log(sum) in fp32 [B, H, Sq]. Exact for any logits. Walks the
+    query rows in chunks of at most REF_CHUNK_ELEMS logits."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qs = (q.float() * (1.0 / math.sqrt(d))).to(q.dtype).float()
+    k32, v32 = k.float(), v.float()
+    out = torch.empty(b, h, sq, d, dtype=v.dtype, device=q.device)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    for cut in _ref_chunks(b, h, sq, sk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, cut], k32)
+        if bias is not None:
+            s = s + bias[:, :, cut].float()
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v32)
+        out[:, :, cut] = (acc / l).to(v.dtype)
+        lse[:, :, cut] = (m + torch.log(l)).squeeze(-1)
+    return out, lse
+
+
+def flash_attention_bwd_ref(q, k, v, bias, out, lse, g):
+    """Plain version of K8's backward -> (dq, dk, dv, dbias or None), the
+    kernels' arithmetic: P = exp(s - lse) from the recomputed logits,
+    delta = rowsum(g * out), dv = P^T g, dS = P * (g v^T - delta),
+    dq = dS k / sqrt(D), dk = dS^T (q / sqrt(D)), dbias = dS in fp32. P and dS
+    are rounded to the inputs' dtype for the products. Walks the query rows in
+    chunks, adding up dk and dv in fp32."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qs = (q.float() * scale).to(q.dtype).float()
+    k32, v32, g32 = k.float(), v.float(), g.float()
+    delta = (g32 * out.float()).sum(-1, keepdim=True)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(b, h, sk, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dbias = None if bias is None else torch.empty(b, h, sq, sk, dtype=torch.float32,
+                                                  device=q.device)
+    for cut in _ref_chunks(b, h, sq, sk):
+        s = torch.einsum("bhqd,bhkd->bhqk", qs[:, :, cut], k32)
+        if bias is not None:
+            s = s + bias[:, :, cut].float()
+        p = torch.exp(s - lse[:, :, cut, None])
+        dv += torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), g32[:, :, cut])
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", g32[:, :, cut], v32) - delta[:, :, cut])
+        if dbias is not None:
+            dbias[:, :, cut] = ds
+        ds = ds.to(q.dtype).float()
+        dq[:, :, cut] = (torch.einsum("bhqk,bhkd->bhqd", ds, k32) * scale).to(q.dtype)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qs[:, :, cut])
+    return dq, dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def flash_attention(q, k, v, bias=None):
+    """K8 forward: softmax(q k^T / sqrt(D) + bias) v with a running max, for
+    any logits. q [B, H, Sq, D], k, v [B, H, Sk, D] (bf16 on the card, D 32
+    or 64, any Sq and Sk), optional unscaled fp32 bias [B, H, Sq, Sk] ->
+    (out [B, H, Sq, D], lse fp32 [B, H, Sq]), what `flash_attention_bwd` needs."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, bias)
+    b, h, sq, sk, d = _checked_bhsd(q, k, v, bias)
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vivid_flash_attn_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse),
+            b, h, sq, sk, d, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error {rc}")
+    launches["flash_attention"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, bias, out, lse, g):
+    """K8 backward: the gradients of `flash_attention` for the cotangent g
+    [B, H, Sq, D], from the output and row statistics that forward returned ->
+    (dq, dk, dv, dbias): dbias fp32 [B, H, Sq, Sk], None without a bias. Two
+    kernels (dk/dv per key tile, dq and dbias per query tile) after a small
+    pass for delta = rowsum(g * out); no atomics, so two runs give the same bits."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, bias, out, lse, g)
+    b, h, sq, sk, d = _checked_bhsd(q, k, v, bias)
+    dev = q.device
+    g = g.contiguous()   # autograd may hand over a strided cotangent
+    _check(g, "g", torch.bfloat16, (b, h, sq, d), dev)
+    _check(out, "out", torch.bfloat16, (b, h, sq, d), dev)
+    _check(lse, "lse", torch.float32, (b, h, sq), dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    dbias = None if bias is None else torch.empty_like(bias)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vivid_flash_attn_bwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), _ptr(g),
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias),
+            b, h, sq, sk, d, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {rc}")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+class _NomaxAttention(torch.autograd.Function):
+    """K6 forward, K8 backward; keeps the inputs only. The backward runs K8's
+    forward for the output and the row statistics and feeds K8's own output
+    (not K6's, which may differ in the last bit) to delta, so the backward
+    pair is consistent in itself."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return flash_nomax(q, k, v, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        out, lse = flash_attention(q, k, v, bias)
+        return flash_attention_bwd(q, k, v, bias, out, lse, g)
+
+
+def nomax_attention(q, k, v, bias=None):
+    """Differentiable K6: `flash_nomax` whose gradients are K8's. A CPU
+    tensor takes the plain version under ordinary autograd."""
+    if q.device.type == "cpu":
+        return flash_nomax(q, k, v, bias)
+    return _NomaxAttention.apply(q, k, v, bias)

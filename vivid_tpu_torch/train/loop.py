@@ -2,15 +2,16 @@
 per-EMA snapshots.
 
 Counterpart of vivid_tpu/train/loop.py `training_loop`, cut to what a run
-on one card needs: it trains `vivid-base` / `vivid-uncond` style models on a
-directory of scene files. Not ported yet, and absent here: resume and
-training-state checkpoints, sample grids, metric ticks, the stats file,
-single-image co-training, depth conditioning, super-resolution training and
-more than one process.
+on one card needs: it trains `vivid-base` / `vivid-uncond` style models, the
+256px super-resolution model (`sr_training`) and single-source models
+(`vanilla_mode`) on a directory of scene files. Not ported yet, and absent
+here: resume and training-state checkpoints, sample grids, metric ticks, the
+stats file, single-image co-training, depth conditioning and more than one
+process.
 
 Every `Status:` line goes to stdout and to `<run_dir>/log.txt`. Intervals are
 in images (nimg), as in the JAX package; one step advances the count by
-`batch_size * collate.nimg_mult`.
+`batch_size * collate.nimg_mult` (6 in dual-source mode, 1 in vanilla mode).
 """
 
 import os
@@ -21,9 +22,9 @@ import torch
 
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.rngs import fold_in
-from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate
+from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
-from vivid_tpu_torch.diffusion.loss import NVLoss
+from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss
 from vivid_tpu_torch.generate import open_scene_dataset
 from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
 from vivid_tpu_torch.train.snapshots import save_snapshot
@@ -54,38 +55,46 @@ def training_loop(
     snapshot_nimg: Optional[int] = 10000,
     loss_scaling: float = 1.0,
     force_finite: bool = True,
+    sr_training: bool = False,
+    vanilla_mode: bool = False,
     plain_mse: bool = False,
     max_steps: Optional[int] = None,
     device=None,
 ):
     """Train an NVS diffusion model; `max_steps` also bounds the number of
-    optimizer steps. Runs on the first CUDA card unless `device` says
-    otherwise. Returns EasyDict(state, ticks): the final TrainState and one
-    dict per status tick (nimg, steps, loss, loss_std, learning_rate,
-    grad_norm as means over the tick's steps, seconds)."""
+    optimizer steps. `sr_training` trains a `super_res` model at 256px with
+    `SRNVLoss`; `vanilla_mode` feeds one source view per pair. Runs on the
+    first CUDA card unless `device` says otherwise. Returns
+    EasyDict(state, ticks): the final TrainState and one dict per status tick
+    (nimg, steps, loss, loss_std, learning_rate, grad_norm as means over the
+    tick's steps, seconds)."""
     start_time = time.time()
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card found; pass device='cpu' to train on the CPU")
     os.makedirs(run_dir, exist_ok=True)
 
+    num_sources = 1 if vanilla_mode else 2
     net_kwargs = dict(network_kwargs or {})
-    net_kwargs.setdefault("img_resolution", 64)
-    net_kwargs.setdefault("num_sources", 2)
+    net_kwargs.setdefault("img_resolution", 256 if sr_training else 64)
+    net_kwargs.setdefault("num_sources", num_sources)
     net_kwargs.setdefault("source_label_dim", 20)
-    net_kwargs.setdefault("target_label_dim", 20 * net_kwargs["num_sources"])
+    net_kwargs.setdefault("target_label_dim", 20 * num_sources)
+    net_kwargs.setdefault("super_res", sr_training)
     model_cfg = PrecondConfig(**net_kwargs)
-    if model_cfg.super_res:
-        raise NotImplementedError("super-resolution training is not ported yet: its loss "
-                                  "(SRNVLoss) and the backward of the big-S attention wait")
-    if model_cfg.num_sources != 2:
-        raise NotImplementedError("single-source (vanilla) training is not ported yet")
+    if model_cfg.num_sources != num_sources or model_cfg.super_res != sr_training:
+        raise ValueError(
+            f"network_kwargs (num_sources {model_cfg.num_sources}, super_res "
+            f"{model_cfg.super_res}) disagree with vanilla_mode={vanilla_mode}, "
+            f"sr_training={sr_training}")
 
     dataset_kwargs = dict(dataset_kwargs or {})
     dataset = open_scene_dataset(dataset_kwargs["path"], seed=seed)
-    collate = DualSourceCollate(imsize=model_cfg.img_resolution, seed=seed)
+    collate_cls = VanillaCollate if vanilla_mode else DualSourceCollate
+    collate = collate_cls(imsize=model_cfg.img_resolution, seed=seed)
     encoder = StandardRGBEncoder()
-    loss_fn = NVLoss(plain_mse=plain_mse, **dict(loss_kwargs or {}))
+    loss_cls = SRNVLoss if sr_training else NVLoss
+    loss_fn = loss_cls(plain_mse=plain_mse, **dict(loss_kwargs or {}))
 
     num_accum = 1
     if batch_gpu and batch_gpu < batch_size:
