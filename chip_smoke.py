@@ -10,18 +10,23 @@ its own:
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
-           its backward) against its plain PyTorch version at every shape
-           the paths give it, with times (CUDA events); a kernel run twice
-           must give the same bits
+           its backward; the [B, H, S, D] forward with the norm and the sink
+           inside; the no-max packed forward; the fused SiLU + 3x3
+           convolution; the lab variants of the no-max attention) against its
+           plain PyTorch version at every shape the paths give it, with times
+           (CUDA events); a kernel run twice must give the same bits
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
            the plain versions, held against a one-ulp noise control; planted
            faults (a cross source skipped, the zero sink dropped, the cross
-           keys of the no-max attention skipped) must fail it
+           keys of the no-max attention skipped) must fail it; then the three
+           models again with VIVID_NOMAX_PACKED=1 (the no-max packed forward
+           in place of the packed ones), faults planted in that kernel
   slice    snapshots -> synthetic scenes -> generate_images_nvs (guided,
            32 Heun steps, 8 seeds): PNGs, finite images, kernel launch
            counts; then the same through the base -> SR cascade (256px PNGs,
-           launch counts per SR evaluation), and the SR model alone
+           launch counts per SR evaluation), and the SR model alone; the
+           64px run and a short cascade again with VIVID_NOMAX_PACKED=1
   train    full-width vivid-base, batch 8 (the preset's global batch is
            1024; only the batch is cut): the whole gradient of one loss
            through the kernels vs the plain versions, held against a one-ulp
@@ -36,6 +41,10 @@ its own:
            recompute modes, 3 steps of the vivid-sr preset through the
            trainer's entry point with the preset's recompute and 3 without,
            and the snapshot sampled as the SR model alone
+  labs     the [B, H, S, D] entries (attention_from_raw and fused_attention,
+           outputs and gradients against the plain composite) and the three
+           kernel labs of vivid_tpu_torch/tools, each at one timing case; a
+           failed parity check raises
   profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations,
            over 2 training steps at 64px and over 2 at 256px: device busy
            time, device operations, idle share, time by kind, the top kernels
@@ -45,6 +54,7 @@ it exits non-zero before printing any result. The line before the last is
 the kernel table as JSON; the last is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -80,8 +90,13 @@ EXTRA_SHAPES = [(100, 4, 64), (256, 8, 32)]           # ragged, d = 32
 NOMAX_SHAPES = [(16384, 32768, 4, 32), (16384, 16384, 2, 64),
                 (4096, 8192, 6, 32), (4096, 4096, 3, 64)]
 SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xattn": 3}
-BIG_S_KERNELS = ("flash_nomax", "flash_attention", "flash_attention_bwd")
+SR_PER_EVAL_NOMAX = {"flash_nomax": 8, "flash_nomax_packed": 6}   # VIVID_NOMAX_PACKED=1
 BATCH = 8
+SAME_FUNCTION = "the_same_function"             # what a case's library call computes
+CORE_ONLY = "the_attention_core_only"
+# The [B, H, S, D] forward with the norm inside, (H, Sq, Sk) at d = 64: the 64px
+# model's cross-attention (self + 2 sources) at its three resolutions.
+FUSED_SHAPES = [(4, 1024, 3072), (6, 256, 768), (8, 64, 192)]
 
 
 def check(cond, msg):
@@ -91,6 +106,21 @@ def check(cond, msg):
 
 def say(tag, **kw):
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+@contextlib.contextmanager
+def nomax_packed(on=True):
+    """VIVID_NOMAX_PACKED set (or cleared) in the environment for the block,
+    then put back: the port reads it at every call."""
+    old = os.environ.pop("VIVID_NOMAX_PACKED", None)
+    if on:
+        os.environ["VIVID_NOMAX_PACKED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("VIVID_NOMAX_PACKED", None)
+        if old is not None:
+            os.environ["VIVID_NOMAX_PACKED"] = old
 
 
 def cuda_ms(fn, reps=20):
@@ -132,7 +162,9 @@ def phase_build():
     say("build", seconds=f"{info['seconds']:.2f}", cached=info["cached"],
         path=os.path.relpath(info["path"]))
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "Compiling entry function" in line:   # the mangled name carries the template arguments
+            print("  ptxas:", line.split("'")[1][:150], flush=True)
+        elif "registers" in line or "spill" in line or "smem" in line:
             print("  ptxas:", line.strip(), flush=True)
 
 
@@ -154,10 +186,12 @@ def _sdpa_inputs(torch, qkv, feats, h):
 
 
 def _kernel_cases(torch, gen):
-    """One dict per case of K1-K4 at every shape: `kernel` and `plain32` (the
-    plain version on fp32 copies) return tuples of tensors to compare,
+    """One dict per case of K1-K4 and K7 at every shape: `kernel` and `plain32`
+    (the plain version on fp32 copies) return tuples of tensors to compare,
     `plain` is the plain version as a CPU-less path would run it, `library`
-    (headline cases only) the PyTorch attention call timed beside them."""
+    (headline cases only) the PyTorch attention call timed beside them. K7
+    runs on the inputs of every K1 case and every unbiased K2 case, and its
+    output is also held to theirs (`against`)."""
     import torch.nn.functional as F
     from vivid_tpu_torch.kernels import flash
     dev = "cuda"
@@ -201,6 +235,14 @@ def _kernel_cases(torch, gen):
                 headline=head, library=lib, bytes=io_self,
                 flops=4 * BATCH * h * s * s * d))
             cases.append(dict(
+                name="flash_nomax_packed", d=d, label=f"S={s} H={h} d={d} sink={sink}",
+                kernel=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed(qkv, (), h, sink)),
+                plain32=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed_ref(qkv.float(), (), h, sink)),
+                plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed_ref(qkv, (), h, sink),
+                against=("k1", tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed(qkv, h, zero_sink=sink))),
+                headline=False, library=lib, library_is=CORE_ONLY, bytes=io_self,
+                flops=4 * BATCH * h * s * s * d))
+            cases.append(dict(
                 name="flash_fused_packed_bwd", d=d, label=f"S={s} H={h} d={d} sink={sink}",
                 kernel=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd(qkv, g, h, sink)),
                 plain32=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h, sink)),
@@ -223,6 +265,15 @@ def _kernel_cases(torch, gen):
                 plain=lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_ref(qkv, feats, h, bs),
                 headline=head, library=lib, bytes=io_x + io_b,
                 flops=4 * BATCH * h * s * 3 * s * d))
+            if not biased:   # the table's row of K7: the 64px model's cross-attention
+                cases.append(dict(
+                    name="flash_nomax_packed", d=d, label=f"S={s} H={h} d={d} n_src=2",
+                    kernel=tup(lambda qkv=qkv, h=h, feats=feats: flash.flash_nomax_packed(qkv, feats, h)),
+                    plain32=tup(lambda qkv=qkv, h=h, f32=f32: flash.flash_nomax_packed_ref(qkv.float(), f32, h)),
+                    plain=lambda qkv=qkv, h=h, feats=feats: flash.flash_nomax_packed_ref(qkv, feats, h),
+                    against=("k2", tup(lambda qkv=qkv, h=h, feats=feats: flash.flash_fused_packed_xattn(qkv, feats, h))),
+                    headline=head, library=lib, library_is=CORE_ONLY, bytes=io_x,
+                    flops=4 * BATCH * h * s * 3 * s * d))
             cases.append(dict(
                 name="flash_fused_packed_xattn_bwd", d=d, label=f"S={s} H={h} d={d} n_src=2 bias={biased}",
                 kernel=tup(lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd(qkv, feats, g, h, bs)),
@@ -272,7 +323,7 @@ def _big_s_cases(torch, gen):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
         common = dict(
-            d=d, plain_reps=3 if sq >= 4096 else 20,
+            d=d, plain_reps=3 if sq >= 4096 else 20, library_is=SAME_FUNCTION,
             label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} bias={biased}" + (" on_path" if on_path else ""),
             headline=(sq, sk, h, d) == NOMAX_SHAPES[0])
         io = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * bias.numel() if biased else 0)
@@ -291,7 +342,7 @@ def _big_s_cases(torch, gen):
             plain32=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention_ref(
                 q.float(), k.float(), v.float(), bias),
             plain=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention_ref(q, k, v, bias),
-            against_k6=lambda q=q, k=k, v=v, bias=bias: flash.flash_nomax(q, k, v, bias),
+            against=("k6", lambda q=q, k=k, v=v, bias=bias: (flash.flash_nomax(q, k, v, bias),)),
             library=fwd_lib, bytes=io + 4 * lse.numel(), flops=4 * b * h * sq * sk * d))
         args = (q, k, v, bias, out, lse, g)
         cases.append(dict(
@@ -306,6 +357,117 @@ def _big_s_cases(torch, gen):
             bytes=2 * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
             + (8 * bias.numel() if biased else 0),
             flops=10 * b * h * sq * sk * d))
+    return cases
+
+
+def _fused_lab_conv_cases(torch, gen):
+    """Cases of K5 `flash_fused`, K10 (the no-max lab's `nomax_attention`) and
+    K9 (the conv lab's `conv3x3_silu`), same keys as `_kernel_cases`.
+
+    K5 at the 64px model's three cross-attention shapes in [B, H, S, D] at
+    batch 8, raw rows with the norm inside: alone, with a std-1 bias, and at
+    1024/1024 with the unconditional model's sink of 2048; at the two big
+    d = 32 shapes on normalised rows (`norm_eps=None`), and at one ragged
+    shape with norm, bias and sink together. Its library call is SDPA on the
+    normalised rows: the same function without the norm, the core only with.
+    K10: every (fold_l, chains, prescale) of the lab at the lab's parity shape,
+    and the one the model's kernel uses (two chains, prescale) at 16384/32768;
+    SDPA computes the same function. K9 at [8, 64, 256, 256] with and without
+    the SiLU and at a ragged 30 x 50, against F.silu / 0.596 and F.conv2d, two
+    library calls timed together. Its weights are drawn at half the
+    magnitude-preserving scale: the output then has RMS 0.5 and stays below 4,
+    where one bf16 rounding is at most 7.8e-3, so the absolute limit the
+    attention outputs are held to can hold a convolution's too."""
+    import torch.nn.functional as F
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.tools import fused_conv_lab, nomax_attn_lab
+    dev = "cuda"
+    cases = []
+
+    def raw(b, h, s, d):
+        x = torch.randn(b, h, s, d, generator=gen, device=dev)
+        return (x * torch.exp(torch.randn(b, h, s, 1, generator=gen, device=dev))).bfloat16()
+
+    def one(fn):
+        return lambda: (fn(),)
+
+    def fused_case(q, k, v, bias, eps, sink, headline=False, plain_reps=20):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        qn, kn, vn = (q, k, v) if eps is None else (flash._rms_norm(t) for t in (q, k, v))
+        mask = None if bias is None else bias.to(q.dtype)
+        return dict(
+            name="flash_fused", d=d, headline=headline, plain_reps=plain_reps,
+            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} norm={eps is not None} "
+                  f"bias={bias is not None} sink={sink}",
+            kernel=one(lambda: flash.flash_fused(q, k, v, bias, eps, sink)),
+            plain32=one(lambda: flash.flash_fused_ref(q.float(), k.float(), v.float(), bias,
+                                                      eps, sink)),
+            plain=lambda: flash.flash_fused_ref(q, k, v, bias, eps, sink),
+            library=None if sink else (lambda: F.scaled_dot_product_attention(
+                qn, kn, vn, attn_mask=mask)),
+            library_is=SAME_FUNCTION if eps is None else CORE_ONLY,
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel())
+            + (4 * bias.numel() if bias is not None else 0),
+            flops=4 * b * h * sq * sk * d)
+
+    for i, (h, sq, sk) in enumerate(FUSED_SHAPES):
+        q, k, v = raw(BATCH, h, sq, 64), raw(BATCH, h, sk, 64), raw(BATCH, h, sk, 64)
+        bias = torch.randn(BATCH, h, sq, sk, generator=gen, device=dev)
+        cases.append(fused_case(q, k, v, None, 1e-4, 0, headline=i == 0))
+        cases.append(fused_case(q, k, v, bias, 1e-4, 0))
+    h, s = FUSED_SHAPES[0][:2]
+    cases.append(fused_case(raw(BATCH, h, s, 64), raw(BATCH, h, s, 64), raw(BATCH, h, s, 64),
+                            None, 1e-4, 2 * s))
+    cases.append(fused_case(raw(2, 3, 100, 32), raw(2, 3, 333, 32), raw(2, 3, 333, 32),
+                            torch.randn(2, 3, 100, 333, generator=gen, device=dev), 1e-4, 7))
+    for sq, sk, h, d in (NOMAX_SHAPES[0], NOMAX_SHAPES[2]):
+        q, k, v = (flash._rms_norm(raw(BATCH, h, n, d)) for n in (sq, sk, sk))
+        cases.append(fused_case(q, k, v, None, None, 0, plain_reps=3))
+
+    def lab_case(q, k, v, variant, triple, headline=False, plain_reps=20):
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        return dict(
+            name="nomax_lab_attention", d=d, headline=headline, plain_reps=plain_reps,
+            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} '{variant}'",
+            kernel=one(lambda: nomax_attn_lab.nomax_attention(q, k, v, *triple)),
+            plain32=one(lambda: nomax_attn_lab.nomax_attention_ref(
+                q.float(), k.float(), v.float(), *triple)),
+            plain=lambda: nomax_attn_lab.nomax_attention_ref(q, k, v, *triple),
+            library=lambda: F.scaled_dot_product_attention(q, k, v),
+            library_is=SAME_FUNCTION,
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * b * h * sq * sk * d)
+
+    b, h, sq, sk, d = nomax_attn_lab.PARITY_SHAPE
+    q, k, v = (flash._rms_norm(raw(b, h, n, d)) for n in (sq, sk, sk))
+    for variant, triple in nomax_attn_lab.VARIANTS.items():
+        cases.append(lab_case(q, k, v, variant, triple))
+    sq, sk, h, d = NOMAX_SHAPES[0]
+    q, k, v = (flash._rms_norm(raw(BATCH, h, n, d)) for n in (sq, sk, sk))
+    variant = "v6 chains2 prescale"
+    cases.append(lab_case(q, k, v, variant, nomax_attn_lab.VARIANTS[variant], headline=True,
+                          plain_reps=3))
+
+    c = fused_conv_lab.CHANNELS
+    for b, hh, ww, fuse in ((BATCH, 256, 256, True), (BATCH, 256, 256, False), (2, 30, 50, True)):
+        x = torch.randn(b, hh, ww, c, generator=gen, device=dev).bfloat16().permute(0, 3, 1, 2)
+        w = (0.5 / math.sqrt(9 * c) * torch.randn(c, c, 3, 3, generator=gen, device=dev)).bfloat16()
+
+        def nhwc(fn):   # [B, H, W, C], the memory's order: a pixel's channels are one vector
+            return lambda: (fn().permute(0, 2, 3, 1),)
+
+        cases.append(dict(
+            name="conv3x3_silu", d=c, headline=(b, hh, fuse) == (BATCH, 256, True),
+            label=f"B={b} {hh}x{ww} C={c} silu={fuse}",
+            kernel=nhwc(lambda x=x, w=w, fuse=fuse: fused_conv_lab.conv3x3_silu(x, w, fuse)),
+            plain32=nhwc(lambda x=x, w=w, fuse=fuse: fused_conv_lab.conv3x3_silu_ref(
+                x.float(), w.float(), fuse)),
+            plain=lambda x=x, w=w, fuse=fuse: fused_conv_lab.conv3x3_silu_ref(x, w, fuse),
+            library=lambda x=x, w=w, fuse=fuse: F.conv2d(
+                F.silu(x) / 0.596 if fuse else x, w, padding=1),
+            library_is=SAME_FUNCTION,
+            bytes=2 * (2 * x.numel() + w.numel()), flops=2 * b * hh * ww * 9 * c * c))
     return cases
 
 
@@ -383,7 +545,8 @@ def phase_kernels(table):
     gen = torch.Generator(device="cuda").manual_seed(0)
     _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
     _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
-    for case in _kernel_cases(torch, gen) + _big_s_cases(torch, gen):
+    for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
+                 + _fused_lab_conv_cases(torch, gen)):
         name, label = case["name"], case["label"]
         got = [t.float() for t in case["kernel"]()]
         again = case["kernel"]()
@@ -414,15 +577,16 @@ def phase_kernels(table):
                   f"{name} {label}: max |kernel - plain| = {err} (limit {TOL_KERNEL}), rel L2 "
                   f"{rel_l2} (limit {TOL_KERNEL_L2}), max err over RMS {rel_max} (limit "
                   f"{TOL_KERNEL_MAX}; output RMS {out_rms})")
-        vs_k6 = {}
-        if "against_k6" in case:
-            k6 = case["against_k6"]().float()
-            vs_k6 = dict(k6_rel_l2=_rel_l2(got[0], k6), k6_max_err_over_rms=(
-                (got[0] - k6).abs().max() / k6.square().mean().sqrt()).item())
-            check(vs_k6["k6_rel_l2"] <= TOL_KERNEL_L2
-                  and vs_k6["k6_max_err_over_rms"] <= TOL_KERNEL_MAX,
-                  f"{name} {label}: output against flash_nomax's: {vs_k6}")
-            del k6
+        vs_other = {}
+        if "against" in case:
+            tag, other = case["against"]
+            other = other()[0].float()
+            vs_other = {f"{tag}_rel_l2": _rel_l2(got[0], other), f"{tag}_max_err_over_rms": (
+                (got[0] - other).abs().max() / other.square().mean().sqrt()).item()}
+            check(vs_other[f"{tag}_rel_l2"] <= TOL_KERNEL_L2
+                  and vs_other[f"{tag}_max_err_over_rms"] <= TOL_KERNEL_MAX,
+                  f"{name} {label}: output against the other kernel's: {vs_other}")
+            del other
         del got, again, want
         ms = cuda_ms(case["kernel"])
         plain_ms = cuda_ms(case["plain"], case.get("plain_reps", 20))
@@ -436,7 +600,7 @@ def phase_kernels(table):
             out_rms=f"{out_rms:.3e}", rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}", ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
             **({} if library_ms is None else {"library_ms": f"{library_ms:.4f}"}),
-            **{k: f"{x:.3e}" for k, x in vs_k6.items()})
+            **{k: f"{x:.3e}" for k, x in vs_other.items()})
         row = table[name]
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
         if case["headline"]:
@@ -445,8 +609,7 @@ def phase_kernels(table):
             say("kernel", name=name, headline=f"'{label}'", bytes=case["bytes"],
                 flops=case["flops"], tflops=f"{case['flops'] / ms / 1e9:.1f}",
                 library_ms=f"{library_ms:.4f}",
-                library_computes="the_same_function" if name in BIG_S_KERNELS
-                else "the_attention_core_only")
+                library_computes=case.get("library_is", CORE_ONLY))
 
 
 def main():
@@ -486,23 +649,49 @@ def main():
             name="flash_attention_bwd", route="cuda",
             source="vivid_tpu_torch/csrc/flash_bwd.cu",
             replaces="vivid_tpu/kernels/attention.py:588"),
+        "flash_fused": dict(
+            name="flash_fused", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_fused.cu",
+            replaces="vivid_tpu/kernels/flash.py:791"),
+        "flash_nomax_packed": dict(
+            name="flash_nomax_packed", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_nomax_packed.cu",
+            replaces="vivid_tpu/kernels/flash.py:1155"),
+        "conv3x3_silu": dict(
+            name="conv3x3_silu", route="cuda",
+            source="vivid_tpu_torch/csrc/conv3x3_silu.cu",
+            replaces="tools/fused_conv_lab.py:134"),
+        "nomax_lab_attention": dict(
+            name="nomax_lab_attention", route="cuda",
+            source="vivid_tpu_torch/csrc/flash_nomax_lab.cu",
+            replaces="tools/nomax_attn_lab.py:123"),
     }
     card = phase_device()
     phase_build()
     phase_kernels(table)
     phase_model()
     phase_model_sr()
-    nets, launches, sr_launches = phase_slice(card)
+    phase_model(nomax=True)
+    phase_model_sr(nomax=True)
+    nets, launches, sr_launches, nomax_launches = phase_slice(card)
     for name, n in launches.items():
         if n:   # K1, K2: the guided 64px sampling path's count
             table[name]["launches"] = n
     table["flash_nomax"]["launches"] = sr_launches["flash_nomax"]   # the cascade's
+    # K7: the same 64px path under VIVID_NOMAX_PACKED=1
+    table["flash_nomax_packed"]["launches"] = nomax_launches["flash_nomax_packed"]
     for name, n in phase_train(card).items():
         if name.endswith("_bwd"):   # the packed backward kernels: the 64px training path's
             table[name]["launches"] = n
     for name, n in phase_train_sr(card).items():
         if name.startswith("flash_attention"):   # K8: the SR training path's
             table[name]["launches"] = n
+    for name, n in phase_labs().items():
+        if name in ("flash_fused", "conv3x3_silu", "nomax_lab_attention"):
+            table[name]["launches"] = n   # K5, K9, K10: the entries' and the labs' count
+    for row in table.values():
+        check(row.get("launches", 0) > 0 and "ms" in row,
+              f"{row['name']}: no launch on its path, or no headline case: {row}")
     phase_profile(*nets[:2])
     phase_profile_sr(nets[2])
     del nets
@@ -550,18 +739,22 @@ def _ulp_noise(y, gen):
     return (y32 + sign * ulp).to(y.dtype)
 
 
-def phase_model():
+def phase_model(nomax=False):
     """D_x of one NVPrecond call through the kernels against the same call
     through the plain versions. The network amplifies any rounding-level
     change of the attention outputs, so the reading is held against a
     control (the plain versions with one ulp of noise on every output) as
-    well as against TOL_MODEL; planted faults must fail the same gate."""
+    well as against TOL_MODEL; planted faults must fail the same gate. With
+    `nomax` the whole runs under VIVID_NOMAX_PACKED=1 (emb gains at 1 only):
+    every attention goes through the no-max packed kernel, the plain version
+    is that kernel's, and the faults are planted in it."""
     import contextlib
     from unittest import mock
     import torch
     from vivid_tpu_torch.kernels import flash
-    k1, k2 = flash.flash_fused_packed, flash.flash_fused_packed_xattn
-    k1_ref, k2_ref = flash.flash_fused_packed_ref, flash.flash_fused_packed_xattn_ref
+    names = ("flash_fused_packed", "flash_fused_packed_xattn", "flash_nomax_packed")
+    k1, k2, k7 = (getattr(flash, n) for n in names)
+    k1_ref, k2_ref, k7_ref = (getattr(flash, n + "_ref") for n in names)
     gen = torch.Generator(device="cuda").manual_seed(1)
     src = torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1)
     dst = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
@@ -569,19 +762,21 @@ def phase_model():
     sigma = torch.ones(BATCH, device="cuda")
     noise_gen = torch.Generator(device="cuda")
     variants = {
-        "plain": (k1_ref, k2_ref),
+        "plain": (k1_ref, k2_ref, k7_ref),
         "control": (lambda qkv, h, zero_sink=0: _ulp_noise(k1_ref(qkv, h, zero_sink), noise_gen),
-                    lambda qkv, feats, h, biases=(): _ulp_noise(k2_ref(qkv, feats, h, biases), noise_gen)),
-        "fault_one_source": (k1, lambda qkv, feats, h, biases=(): k2(qkv, feats[:1], h, biases[:1])),
-        "fault_no_sink": (lambda qkv, h, zero_sink=0: k1(qkv, h, 0), k2),
+                    lambda qkv, feats, h, biases=(): _ulp_noise(k2_ref(qkv, feats, h, biases), noise_gen),
+                    lambda qkv, feats, h, zero_sink=0: _ulp_noise(k7_ref(qkv, feats, h, zero_sink), noise_gen)),
+        "fault_one_source": (k1, lambda qkv, feats, h, biases=(): k2(qkv, feats[:1], h, biases[:1]),
+                             lambda qkv, feats, h, zero_sink=0: k7(qkv, feats[:1], h, zero_sink)),
+        "fault_no_sink": (lambda qkv, h, zero_sink=0: k1(qkv, h, 0), k2,
+                          lambda qkv, feats, h, zero_sink=0: k7(qkv, feats, h, 0)),
     }
 
     def run(net, variant=None):
         with contextlib.ExitStack() as stack:
-            if variant:
-                fn1, fn2 = variants[variant]
-                stack.enter_context(mock.patch.object(flash, "flash_fused_packed", fn1))
-                stack.enter_context(mock.patch.object(flash, "flash_fused_packed_xattn", fn2))
+            stack.enter_context(nomax_packed(nomax))
+            for name, fn in zip(names, variants.get(variant, ())):
+                stack.enter_context(mock.patch.object(flash, name, fn))
             noise_gen.manual_seed(2)
             with torch.no_grad():
                 return net(src, dst, sigma, geo)
@@ -591,27 +786,27 @@ def phase_model():
         label = "vivid-uncond" if uncond else "vivid-base"
         # The base model has no sink to drop; the uncond model has no cross source.
         fault = "fault_no_sink" if uncond else "fault_one_source"
-        for conditioned in (False, True):
+        for conditioned in (True,) if nomax else (False, True):
             net = _full_width(uncond, conditioned)
             n_params = sum(t.numel() for t in net.state_dict().values())
             check(round(n_params / 1e6, 2) == want_params[uncond],
                   f"{label}: {n_params} parameters, want {want_params[uncond]}M")
             before = dict(flash.launches)
             got = run(net)
-            used = {k: n - before[k] for k, n in flash.launches.items()}
+            used = {k: n - before[k] for k, n in flash.launches.items() if n - before[k]}
             want = run(net, "plain")
             control = _rel_l2(run(net, "control"), want)
             faulty = _rel_l2(run(net, fault), want)
             torch.cuda.synchronize()
-            check(used["flash_fused_packed"] and (uncond or used["flash_fused_packed_xattn"]),
-                  f"{label}: the forward launched {used}")
+            on_path = names[2:] if nomax else (names[:1] if uncond else names[:2])
+            check(set(used) == set(on_path), f"{label}: the forward launched {used}")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite D_x")
             err = _rel_l2(got, want)
             gate = TOL_CONTROL * control
             if not conditioned:
                 gate = min(gate, TOL_MODEL)
             weights = "emb_gains_1" if conditioned else "emb_gains_0"
-            say("model", net=label, weights=weights, params=n_params,
+            say("model", net=label, nomax_packed=nomax, weights=weights, params=n_params,
                 params_M=f"{n_params / 1e6:.2f}", kernel_launches=used,
                 d_x_rel_l2=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
                 ratio=f"{err / control:.3f}", gate=f"{gate:.3e}",
@@ -643,20 +838,21 @@ def _full_width_sr(train=False, remat=False):
     return net.train() if train else net.eval().requires_grad_(False)
 
 
-def phase_model_sr():
+def phase_model_sr(nomax=False):
     """`phase_model` for the 256px model: 57,550,915 parameters, and D_x of
     one NVPrecond call at batch 8 through K6, K1 and K2 against the same
     call through their plain versions, held to TOL_CONTROL times the one-ulp
     control. The planted fault: the cross segment's keys dropped from K6
-    wherever it is given more keys than queries."""
+    wherever it is given more keys than queries. With `nomax` the whole runs
+    under VIVID_NOMAX_PACKED=1: K7 takes the place of K1 and K2 at S = 1024."""
     import contextlib
     from unittest import mock
     import torch
     from vivid_tpu_torch.kernels import flash
-    names = ("flash_fused_packed", "flash_fused_packed_xattn", "flash_nomax")
+    names = ("flash_fused_packed", "flash_fused_packed_xattn", "flash_nomax",
+             "flash_nomax_packed")
     k6 = flash.flash_nomax
-    refs = (flash.flash_fused_packed_ref, flash.flash_fused_packed_xattn_ref,
-            flash.flash_nomax_ref)
+    refs = tuple(getattr(flash, n + "_ref") for n in names)
     noise_gen = torch.Generator(device="cuda")
 
     def self_keys_only(q, k, v, bias=None):
@@ -668,7 +864,7 @@ def phase_model_sr():
         "control": tuple((lambda *a, fn=fn, **kw: _ulp_noise(fn(*a, **kw), noise_gen))
                          for fn in refs),
         "fault_no_cross_keys": (flash.flash_fused_packed, flash.flash_fused_packed_xattn,
-                                self_keys_only),
+                                self_keys_only, flash.flash_nomax_packed),
     }
     gen = torch.Generator(device="cuda").manual_seed(8)
     src = torch.randn(BATCH, 1, 256, 256, 3, generator=gen, device="cuda").clamp(-1, 1)
@@ -685,6 +881,7 @@ def phase_model_sr():
 
     def run(variant=None):
         with contextlib.ExitStack() as stack:
+            stack.enter_context(nomax_packed(nomax))
             for name, fn in zip(names, variants.get(variant, ())):
                 stack.enter_context(mock.patch.object(flash, name, fn))
             noise_gen.manual_seed(2)
@@ -698,11 +895,12 @@ def phase_model_sr():
     control = _rel_l2(run("control"), want)
     faulty = _rel_l2(run("fault_no_cross_keys"), want)
     torch.cuda.synchronize()
-    check(used == SR_PER_EVAL, f"vivid-sr: one forward launched {used}, want {SR_PER_EVAL}")
+    per_eval = SR_PER_EVAL_NOMAX if nomax else SR_PER_EVAL
+    check(used == per_eval, f"vivid-sr: one forward launched {used}, want {per_eval}")
     check(bool(torch.isfinite(got).all()), "vivid-sr: non-finite D_x")
     err = _rel_l2(got, want)
     gate = TOL_CONTROL * control
-    say("model", net="vivid-sr", weights="emb_gains_1", params=n_params,
+    say("model", net="vivid-sr", nomax_packed=nomax, weights="emb_gains_1", params=n_params,
         params_M=f"{n_params / 1e6:.2f}", batch=BATCH, kernel_launches=used,
         d_x_rel_l2=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
         ratio=f"{err / control:.3f}", gate=f"{gate:.3e}",
@@ -737,32 +935,39 @@ def phase_slice(card):
         gnet = load_snapshot(paths[True], device="cuda")
         torch.cuda.synchronize()
         say("slice", load_s=f"{time.perf_counter() - t0:.2f}")
-        per_eval = {
-            "flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg))
-            + len(attention_feature_spec(gnet.cfg.unet_cfg)),
-            "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg)),
-            "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,   # no_grad
-            "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0,  # 64px only
-        }
+        # Per guided evaluation: the encoder's and the unconditional model's
+        # self-attentions, the denoiser's cross-attentions; nothing else
+        # (no_grad, 64px only). With VIVID_NOMAX_PACKED=1 K7 takes them all.
+        n_self = (len(attention_feature_spec(base.cfg.encoder_cfg))
+                  + len(attention_feature_spec(gnet.cfg.unet_cfg)))
+        n_cross = len(attention_feature_spec(base.cfg.unet_cfg))
+        per_eval_by_run = {
+            False: {"flash_fused_packed": n_self, "flash_fused_packed_xattn": n_cross},
+            True: {"flash_nomax_packed": n_self + n_cross}}
         evals = 2 * steps - 1
-        for run in ("cold", "warm"):
+        for run in ("cold", "warm", "nomax_packed"):
+            nomax = run == "nomax_packed"
+            per_eval = per_eval_by_run[nomax]
             outdir = os.path.join(tmp, f"out_{run}")
             for name in flash.launches:
                 flash.launches[name] = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            batches = list(generate_images_nvs(
-                net=base, gnet=gnet, guidance=1.5, seeds=seeds, max_batch_size=8,
-                num_steps=steps, outdir=outdir, datakwargs={"path": data},
-                device="cuda", verbose=False))
+            with nomax_packed(nomax):
+                batches = list(generate_images_nvs(
+                    net=base, gnet=gnet, guidance=1.5, seeds=seeds, max_batch_size=8,
+                    num_steps=steps, outdir=outdir, datakwargs={"path": data},
+                    device="cuda", verbose=False))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = dict(flash.launches)
             if run == "cold":
                 counted = dict(launches)
+            elif nomax:
+                nomax_counted = dict(launches)
             for name, n in launches.items():
-                check(n == per_eval[name] * evals,
-                      f"{name}: {n} launches, want {per_eval[name]} x {evals}")
+                check(n == per_eval.get(name, 0) * evals,
+                      f"{run}: {name}: {n} launches, want {per_eval.get(name, 0)} x {evals}")
             files = sorted(os.listdir(outdir))
             want_files = sorted(f"{p}_{s:06d}.png" for p in ("src", "tgt", "sample")
                                 for s in seeds)
@@ -775,7 +980,8 @@ def phase_slice(card):
             check(float(images[0].astype(float).std()) > 0, "constant images")
             say("slice", run=run, seconds=f"{seconds:.3f}",
                 images_per_s=f"{len(seeds) / seconds:.3f}", pngs=len(files),
-                launches=launches, per_eval=per_eval, evals=evals,
+                launches={k: n for k, n in launches.items() if n}, per_eval=per_eval,
+                evals=evals,
                 latents_absmax=f"{lat.abs().max().item():.3f}", card=f"'{card}'")
 
         # The base -> SR cascade on 256px scenes, nothing cut: the same guided
@@ -788,23 +994,28 @@ def phase_slice(card):
                                          num_views=8, imsize=256, seed=0)
         want_files = sorted(f"{p}_{s:06d}.png" for p in ("src", "tgt", "sample") for s in seeds)
         sr_only_steps = 4
-        runs = [("cascade_cold", steps, dict(net=base, gnet=gnet, guidance=1.5, sr_model=sr)),
-                ("cascade_warm", steps, dict(net=base, gnet=gnet, guidance=1.5, sr_model=sr)),
-                ("sr_only", sr_only_steps, dict(net=sr, vanilla_mode=True))]
+        cascade = dict(net=base, gnet=gnet, guidance=1.5, sr_model=sr)
+        runs = [("cascade_cold", steps, cascade), ("cascade_warm", steps, cascade),
+                ("sr_only", sr_only_steps, dict(net=sr, vanilla_mode=True)),
+                ("cascade_nomax_packed", sr_only_steps, cascade)]
         for run, n_steps, models in runs:
+            nomax = run == "cascade_nomax_packed"
             outdir = os.path.join(tmp, f"out_{run}")
             n_evals = 2 * n_steps - 1
-            want = {name: SR_PER_EVAL.get(name, 0) * n_evals for name in flash.launches}
+            per_sr_eval = SR_PER_EVAL_NOMAX if nomax else SR_PER_EVAL
+            per_eval = per_eval_by_run[nomax]
+            want = {name: per_sr_eval.get(name, 0) * n_evals for name in flash.launches}
             if run != "sr_only":
-                want = {name: n + per_eval[name] * n_evals for name, n in want.items()}
+                want = {name: n + per_eval.get(name, 0) * n_evals for name, n in want.items()}
             for name in flash.launches:
                 flash.launches[name] = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            batches = list(generate_images_nvs(
-                seeds=seeds, max_batch_size=8, num_steps=n_steps, outdir=outdir,
-                datakwargs={"path": data256}, device="cuda", verbose=False, **models))
+            with nomax_packed(nomax):
+                batches = list(generate_images_nvs(
+                    seeds=seeds, max_batch_size=8, num_steps=n_steps, outdir=outdir,
+                    datakwargs={"path": data256}, device="cuda", verbose=False, **models))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = dict(flash.launches)
@@ -823,10 +1034,10 @@ def phase_slice(card):
             say("slice", run=run, steps=n_steps, seconds=f"{seconds:.3f}",
                 images_per_s=f"{len(seeds) / seconds:.3f}", pngs=len(want_files),
                 png_size="256x256", launches={k: n for k, n in launches.items() if n},
-                per_sr_eval=SR_PER_EVAL, sr_evals=n_evals,
+                per_sr_eval=per_sr_eval, sr_evals=n_evals,
                 peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                 latents_absmax=f"{b.latents.abs().max().item():.3f}", card=f"'{card}'")
-    return (base.net, gnet.net, sr.net), counted, sr_counted
+    return (base.net, gnet.net, sr.net), counted, sr_counted, nomax_counted
 
 
 def phase_train(card):
@@ -836,7 +1047,9 @@ def phase_train(card):
     through the four kernels against the same through the plain versions,
     held against a control (plain versions with one bf16 ulp on every
     attention output and every attention gradient); two planted faults must
-    fail the gate. Then the trainer's entry point takes 4 steps of
+    fail the gate. The same gradient with VIVID_NOMAX_PACKED=1 (K7 forward,
+    K3/K4 backward) is held to its own plain version and control. Then the
+    trainer's entry point takes 4 steps of
     `vivid-base` and 2 of `vivid-uncond` with no learning-rate ramp-up, and
     the snapshots it wrote are sampled. Returns the kernels' launch counts
     of the `vivid-base` run."""
@@ -851,10 +1064,9 @@ def phase_train(card):
     from vivid_tpu_torch.train.snapshots import load_snapshot
 
     names = ("flash_fused_packed", "flash_fused_packed_xattn",
-             "flash_fused_packed_bwd", "flash_fused_packed_xattn_bwd")
-    k1, k2, k3, k4 = (getattr(flash, n) for n in names)
-    refs = (flash.flash_fused_packed_ref, flash.flash_fused_packed_xattn_ref,
-            flash.flash_fused_packed_bwd_ref, flash.flash_fused_packed_xattn_bwd_ref)
+             "flash_fused_packed_bwd", "flash_fused_packed_xattn_bwd", "flash_nomax_packed")
+    k1, k2, k3, k4, k7 = (getattr(flash, n) for n in names)
+    refs = tuple(getattr(flash, n + "_ref") for n in names)
     noise_gen = torch.Generator(device="cuda")
 
     def noisy(fn):
@@ -881,8 +1093,8 @@ def phase_train(card):
     variants = {
         "plain": (refs, None),
         "control": (tuple(noisy(fn) for fn in refs), None),
-        "fault_dfeats_zeroed": ((k1, k2, k3, k4_one_source_dropped), None),
-        "fault_norm_vjp": ((k1, k2, refs[2], refs[3]), rms_norm_without_projection),
+        "fault_dfeats_zeroed": ((k1, k2, k3, k4_one_source_dropped, k7), None),
+        "fault_norm_vjp": ((k1, k2, refs[2], refs[3], k7), rms_norm_without_projection),
     }
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -930,7 +1142,8 @@ def phase_train(card):
     faults = {name: _rel_l2(gradient(name)[1], want) for name in variants
               if name.startswith("fault")}
     torch.cuda.synchronize()
-    check(all(used[n] for n in names), f"train: the loss and its backward launched {used}")
+    check(all(used[n] for n in names[:4]) and not used[names[4]],
+          f"train: the loss and its backward launched {used}")
     check(bool(torch.isfinite(got).all()) and math.isfinite(loss_k), "train: non-finite gradient")
     err = _rel_l2(got, want)
     gate = TOL_GRAD_CONTROL * control
@@ -947,6 +1160,29 @@ def phase_train(card):
     for name, faulty in faults.items():
         check(faulty > gate, f"train: planted {name} gives {faulty}, which passes the gate {gate}")
     del want
+
+    # The same loss with VIVID_NOMAX_PACKED=1: K7 forward, K3/K4 backward,
+    # against K7's plain version forward and through the same control gate.
+    with nomax_packed():
+        loss_n, got_n, used_n, _ = measured()
+        loss_np, want_n = gradient("plain")
+        control_n = _rel_l2(gradient("control")[1], want_n)
+    torch.cuda.synchronize()
+    err_n = _rel_l2(got_n, want_n)
+    say("train", check="gradient", nomax_packed=True, net="vivid-base", batch=BATCH,
+        loss_kernels=f"{loss_n:.6f}", loss_plain=f"{loss_np:.6f}", grad_rel_l2=f"{err_n:.3e}",
+        control_rel_l2=f"{control_n:.3e}", ratio=f"{err_n / control_n:.3f}",
+        gate=f"{TOL_GRAD_CONTROL * control_n:.3e}",
+        vs_switch_off_rel_l2=f"{_rel_l2(got_n, got):.3e}", kernel_launches=used_n)
+    check(used_n["flash_nomax_packed"] == used["flash_fused_packed"] + used["flash_fused_packed_xattn"]
+          and not used_n["flash_fused_packed"] and not used_n["flash_fused_packed_xattn"]
+          and used_n["flash_fused_packed_bwd"] == used["flash_fused_packed_bwd"]
+          and used_n["flash_fused_packed_xattn_bwd"] == used["flash_fused_packed_xattn_bwd"],
+          f"train: with the no-max packed forward the loss and its backward launched {used_n}")
+    check(bool(torch.isfinite(got_n).all()) and err_n <= TOL_GRAD_CONTROL * control_n,
+          f"train: no-max packed forward: gradient kernels vs plain rel L2 {err_n} > "
+          f"{TOL_GRAD_CONTROL * control_n} (control {control_n})")
+    del got_n, want_n
 
     # Recompute in the backward pass: each mode gives the gradient of the
     # mode that keeps every activation, no further from it than the gate.
@@ -1263,6 +1499,99 @@ def phase_train_sr(card):
         say("train_sr", sampled_seeds=seeds, snapshot=os.path.basename(snapshot),
             latents_absmax=f"{lat.abs().max().item():.3f}",
             pngs=len(os.listdir(os.path.join(tmp, "out"))))
+    return launches
+
+
+def phase_labs():
+    """The [B, H, S, D] entries and the three kernel labs, as a user calls
+    them. `attention_from_raw` (K5 forward with the norm inside; backward the
+    gradient of the unfused composite, through K8 forward and backward) and
+    `fused_attention` (K8 both ways below 4096 queries, K6 + K8 from there
+    on) at the 64px model's cross-attention shape and at 4096/8192: outputs
+    by the forward limits and every gradient by TOL_GRAD_L2 against autograd
+    through the plain composite in fp32. Then each lab's `main` at one timing
+    case: parity first (a disagreement raises there), then its times. Returns
+    the launch counts of the whole phase."""
+    import torch
+    from vivid_tpu_torch.kernels import attention, flash
+    from vivid_tpu_torch.tools import bigs_attn_lab, fused_conv_lab, nomax_attn_lab
+    for name in flash.launches:
+        flash.launches[name] = 0
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def raw(b, h, s, d):
+        x = torch.randn(b, h, s, d, generator=gen, device="cuda")
+        return (x * torch.exp(torch.randn(b, h, s, 1, generator=gen, device="cuda"))).bfloat16()
+
+    def plain_from_raw(q, k, v, bias=None, zero_sink=0):
+        q, k, v = (t / (flash.NORM_EPS + t.norm(dim=-1, keepdim=True) / t.shape[-1] ** 0.5)
+                   for t in (q, k, v))
+        if zero_sink:
+            k = torch.cat([k, k.new_zeros(*k.shape[:2], zero_sink, k.shape[3])], 2)
+            v = torch.cat([v, v.new_zeros(*v.shape[:2], zero_sink, v.shape[3])], 2)
+        return attention.reference_attention(q, k, v, bias)
+
+    h, sq, sk = FUSED_SHAPES[0]
+    entries = [
+        ("attention_from_raw", attention.attention_from_raw, plain_from_raw, (BATCH, h, sq, sk, 64), {},
+         {"flash_fused": 1, "flash_attention": 1, "flash_attention_bwd": 1}),
+        ("attention_from_raw", attention.attention_from_raw, plain_from_raw, (BATCH, h, sq, sq, 64),
+         {"zero_sink": 2 * sq}, {"flash_fused": 1}),
+        ("attention_from_raw", attention.attention_from_raw, plain_from_raw, (2, h, sq, sk, 64),
+         {"bias": True}, {"flash_fused": 1, "flash_attention": 1, "flash_attention_bwd": 1}),
+        ("fused_attention", attention.fused_attention, attention.reference_attention,
+         (BATCH, h, sq, sk, 64), {}, {"flash_attention": 1, "flash_attention_bwd": 1}),
+        ("fused_attention", attention.fused_attention, attention.reference_attention,
+         (1, 6, 4096, 8192, 32), {}, {"flash_nomax": 1, "flash_attention": 1, "flash_attention_bwd": 1}),
+        ("fused_attention", attention.fused_attention, attention.reference_attention,
+         (2, 2, 64, 192, 64), {}, {}),
+    ]
+    for name, entry, plain, (b, hh, s, skk, d), kw, want_launches in entries:
+        q, k, v = raw(b, hh, s, d), raw(b, hh, skk, d), raw(b, hh, skk, d)
+        if entry is attention.fused_attention:
+            q, k, v = (flash._rms_norm(t) for t in (q, k, v))
+        kw = dict(kw)
+        if kw.get("bias"):
+            kw["bias"] = torch.randn(b, hh, s, skk, generator=gen, device="cuda")
+        g = torch.randn(b, hh, s, d, generator=gen, device="cuda").bfloat16()
+        given = [q, k, v] + ([kw["bias"]] if "bias" in kw else [])
+        leaves = [t.detach().requires_grad_() for t in given]
+        leaves32 = [t.detach().float().requires_grad_() for t in given]
+        before = dict(flash.launches)
+        call = lambda ts: entry(*ts[:3], **dict(kw, **({"bias": ts[3]} if "bias" in kw else {})))
+        out = call(leaves)
+        grads = torch.autograd.grad(out, leaves, g)
+        used = {k_: n - before[k_] for k_, n in flash.launches.items() if n - before[k_]}
+        want = plain(*leaves32[:3], **dict(kw, **({"bias": leaves32[3]} if "bias" in kw else {})))
+        want_grads = torch.autograd.grad(want, leaves32, g.float())
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        rel_max = err / want.square().mean().sqrt().item()
+        rel = _rel_l2(out, want)
+        grad_rel = max(_rel_l2(a, w) for a, w in zip(grads, want_grads))
+        say("labs", entry=name, shape=f"'B={b} H={hh} Sq={s} Sk={skk} d={d}'",
+            options={k_: (True if k_ == "bias" else x) for k_, x in kw.items()},
+            max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}", rel_l2=f"{rel:.3e}",
+            max_grad_rel_l2=f"{grad_rel:.3e}", kernel_launches=used)
+        check(used == want_launches, f"{name} {kw}: launched {used}, want {want_launches}")
+        check(err <= TOL_KERNEL and rel <= TOL_KERNEL_L2 and rel_max <= TOL_KERNEL_MAX
+              and grad_rel <= TOL_GRAD_L2,
+              f"{name} at B={b} H={hh} Sq={s} Sk={skk} d={d} {list(kw)}: max abs {err}, rel L2 "
+              f"{rel}, max err over RMS {rel_max}, gradients rel L2 {grad_rel}")
+        del q, k, v, g, given, leaves, leaves32, out, grads, want, want_grads
+    torch.cuda.empty_cache()
+
+    for lab, argv in ((nomax_attn_lab, ["--cases", "sr64"]), (fused_conv_lab, []),
+                      (bigs_attn_lab, ["--cases", "sr64"]), (bigs_attn_lab, ["--cases", "sr64", "--sweep"])):
+        print(f"[labs] python -m {lab.__name__} {' '.join(argv)}", flush=True)
+        results = lab.main(argv)
+        torch.cuda.synchronize()
+        times = [r for r in results if r["check"] == "time"]
+        check(times and all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in times),
+              f"{lab.__name__}: no times in {results}")
+    torch.cuda.empty_cache()
+    launches = dict(flash.launches)
+    say("labs", launches={k: n for k, n in launches.items() if n})
     return launches
 
 

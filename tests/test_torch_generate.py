@@ -158,9 +158,11 @@ def test_generate_writes_triplets(env):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Every port module imports, the trainer CLI takes one step and the
-    generation CLI samples a guided base -> SR cascade on the CPU, with jax
-    and vivid_tpu made unimportable."""
+    """Every port module imports (the kernel labs of `tools` among them), the
+    [B, H, S, D] attention entries, the no-max packed forward and the labs'
+    kernels' wrappers run, the trainer CLI takes one step and the generation
+    CLI samples a guided base -> SR cascade on the CPU, with jax and
+    vivid_tpu made unimportable."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
@@ -171,6 +173,15 @@ def test_port_runs_without_jax(tmp_path):
         import vivid_tpu_torch
         for m in pkgutil.walk_packages(vivid_tpu_torch.__path__, "vivid_tpu_torch."):
             importlib.import_module(m.name)
+        from vivid_tpu_torch.kernels import attention, flash
+        from vivid_tpu_torch.tools import bigs_attn_lab, fused_conv_lab, nomax_attn_lab
+        x = torch.randn(1, 2, 16, 16)
+        assert attention.attention_from_raw(x, x, x, zero_sink=4).shape == x.shape
+        assert attention.fused_attention(x, x, x).shape == x.shape
+        assert flash.flash_nomax_packed(torch.randn(1, 16, 96), (), 2).shape == (1, 16, 32)
+        assert nomax_attn_lab.nomax_attention(x, x, x, True, 2, True).shape == x.shape
+        assert len(fused_conv_lab.main(["--device", "cpu", "--batch", "1", "--res", "8"])) == 2
+        assert callable(bigs_attn_lab.main)
         from vivid_tpu_torch.data.scenes import make_synthetic_dataset
         from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
         from vivid_tpu_torch.train.snapshots import save_snapshot

@@ -20,7 +20,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu", "flash_bwd.cu")
+SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu", "flash_bwd.cu",
+           "flash_fused.cu", "flash_nomax_packed.cu", "flash_nomax_lab.cu", "conv3x3_silu.cu")
 HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -122,4 +123,23 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr,                # delta, dq, dk, dv, dbias
         i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream
     lib.vivid_flash_attn_bwd.restype = i32
+    lib.vivid_flash_fused_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,                # q, k, v, bias, out
+        i32, i32, i32, i32, i32,                # B, H, Sq, Sk, d
+        i32, f32, f32, ptr]                     # norm, eps, zero_sink, stream
+    lib.vivid_flash_fused_fwd.restype = i32
+    lib.vivid_flash_nomax_packed_fwd.argtypes = [
+        ptr, ptr, i32, i32, i32, i32, i32,      # qkv, out, B, S, H, d, n_src
+        ptr, i32, ptr, i32,                     # feats/len for 2 sources
+        f32, f32, ptr]                          # eps, zero_sink, stream
+    lib.vivid_flash_nomax_packed_fwd.restype = i32
+    lib.vivid_flash_nomax_lab_fwd.argtypes = [
+        ptr, ptr, ptr, ptr,                     # q, k, v, out
+        i32, i32, i32, i32, i32,                # B, H, Sq, Sk, d
+        i32, i32, i32, ptr]                     # fold_l, chains, prescale, stream
+    lib.vivid_flash_nomax_lab_fwd.restype = i32
+    lib.vivid_conv3x3_silu_fwd.argtypes = [
+        ptr, ptr, ptr, i32, i32, i32,           # x, w, y, B, H, W
+        i32, i32, ptr]                          # fuse_silu, blocks, stream
+    lib.vivid_conv3x3_silu_fwd.restype = i32
     return lib

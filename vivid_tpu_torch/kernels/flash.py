@@ -19,7 +19,14 @@ row log-sum-exp, and the backward kernels for dk/dv and for dq and the bias.
 `nomax_attention` is the differentiable big-S entry: forward `flash_nomax`,
 backward `flash_attention` again for the output and the statistics, then
 `flash_attention_bwd`, which is the JAX package's own schedule
-(`jax.vjp(_stock_flash)` behind the no-max forward).
+(`jax.vjp(_stock_flash)` behind the no-max forward). `flash_fused`
+(csrc/flash_fused.cu, counterpart of `flash_fused` there) is the forward on
+[B, H, S, D] with a running max that normalises its rows itself and takes a
+bias and a zero sink. `flash_nomax_packed` (csrc/flash_nomax_packed.cu,
+counterpart of `flash_nomax_packed`) computes what the unbiased packed
+forwards compute by the no-max schedule; `packed_self_attention` and
+`packed_xattn` take it as their forward when asked (`nomax=True`), with the
+same backward kernels.
 
 Layouts (packed kernels): qkv [B, S, 3*H*D] part-major (part, head, d); feats [B, Sf, 2*H*D]
 (k, v part-major); biases [B, H, S, Sf] unscaled fp32; output [B, S, H*D]
@@ -43,7 +50,10 @@ from vivid_tpu_torch.kernels import build
 NORM_EPS = 1e-4  # the pixel norm's eps, as in the TPU kernels
 launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,
-            "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+            "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_fused": 0, "flash_nomax_packed": 0,
+            # the kernels of vivid_tpu_torch/tools, counted here with the rest
+            "conv3x3_silu": 0, "nomax_lab_attention": 0}
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
 
 
@@ -254,30 +264,87 @@ def flash_fused_packed_xattn_bwd(qkv, feats, g, num_heads: int, biases=()):
     launches["flash_fused_packed_xattn_bwd"] += 1
     return grads
 
+def flash_nomax_packed_ref(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0):
+    """Plain version of K7, the kernel's arithmetic step for step: k and v
+    rows normalised in fp32 and rounded to the input's dtype; q rows times
+    (1 / sqrt(D)) / (eps + ||q|| / sqrt(D)) in fp32 and rounded once; fp32
+    logits over the self segment and every source; p = exp(s) with no maximum
+    (|s| <= sqrt(D) after the norm); fp32 row sums of the unrounded p plus
+    `zero_sink` (exp(0) a column); p rounded to the dtype for the second
+    product; one division."""
+    b, s, c3 = qkv.shape
+    h = num_heads
+    d = c3 // (3 * h)
+    y = qkv.view(b, s, 3, h, d)
+    ks, vs = [y[:, :, 1]], [y[:, :, 2]]
+    for f in feats:
+        z = f.view(b, f.shape[1], 2, h, d)
+        ks.append(z[:, :, 0])
+        vs.append(z[:, :, 1])
+    q32 = y[:, :, 0].float()
+    den = NORM_EPS + torch.linalg.vector_norm(q32, dim=-1, keepdim=True) / math.sqrt(d)
+    q = (q32 * ((1.0 / math.sqrt(d)) / den)).to(qkv.dtype).transpose(1, 2).float()
+    k = _rms_norm(torch.cat(ks, 1)).transpose(1, 2).float()      # [B,H,Sk,D]
+    v = _rms_norm(torch.cat(vs, 1)).transpose(1, 2)
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q, k))
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(qkv.dtype).float(), v.float())
+    out = acc / (p.sum(-1, keepdim=True) + zero_sink)
+    return out.transpose(1, 2).reshape(b, s, h * d).to(qkv.dtype)
+
+
+def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0):
+    """K7: what K1 (`feats` empty, optional `zero_sink`) and the unbiased K2
+    compute, by the no-max schedule: qkv [B, S, 3*H*D] and cross sources
+    [B, Sf, 2*H*D] -> [B, S, H*D]. Takes what K1/K2 take (any S and Sf, D 32
+    or 64 on the card), but no bias: a learned bias breaks the logit bound
+    that makes a maximum unnecessary. The forward alone: `packed_self_attention`
+    and `packed_xattn` with `nomax=True` are the entries with a gradient."""
+    feats = tuple(feats)
+    if qkv.device.type == "cpu":
+        return flash_nomax_packed_ref(qkv, feats, num_heads, zero_sink)
+    b, s, h, d, srcs = _checked(qkv, feats, (), num_heads, zero_sink)
+    out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=qkv.device)
+    lib = build.library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        rc = lib.vivid_flash_nomax_packed_fwd(
+            _ptr(qkv), _ptr(out), b, s, h, d, len(feats),
+            _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[1][0]), srcs[1][1],
+            ctypes.c_float(NORM_EPS), ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_nomax_packed kernel launch failed: CUDA error {rc}")
+    launches["flash_nomax_packed"] += 1
+    return out
+
 
 class _PackedSelfAttention(torch.autograd.Function):
-    """K1 forward, K3 backward; keeps qkv only."""
+    """K1 (with `nomax` K7) forward, K3 backward; keeps qkv only."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, zero_sink):
+    def forward(ctx, qkv, num_heads, zero_sink, nomax):
         ctx.save_for_backward(qkv)
         ctx.args = (num_heads, zero_sink)
+        if nomax:
+            return flash_nomax_packed(qkv, (), num_heads, zero_sink)
         return flash_fused_packed(qkv, num_heads, zero_sink)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None
+        return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None, None
 
 
 class _PackedXAttn(torch.autograd.Function):
-    """K2 forward, K4 backward; keeps qkv, the sources and the biases."""
+    """K2 (with `nomax` K7) forward, K4 backward; keeps qkv, the sources and
+    the biases."""
 
     @staticmethod
-    def forward(ctx, num_heads, n_src, qkv, *rest):
+    def forward(ctx, num_heads, n_src, nomax, qkv, *rest):
         ctx.save_for_backward(qkv, *rest)
         ctx.args = (num_heads, n_src)
+        if nomax:
+            return flash_nomax_packed(qkv, rest, num_heads)
         return flash_fused_packed_xattn(qkv, rest[:n_src], num_heads, rest[n_src:])
 
     @staticmethod
@@ -287,18 +354,22 @@ class _PackedXAttn(torch.autograd.Function):
         qkv, *rest = ctx.saved_tensors
         dqkv, dfeats, dbiases = flash_fused_packed_xattn_bwd(
             qkv, rest[:n_src], g, num_heads, rest[n_src:])
-        return None, None, dqkv, *dfeats, *dbiases
+        return None, None, None, dqkv, *dfeats, *dbiases
 
 
-def packed_self_attention(qkv, num_heads: int, zero_sink: int = 0):
-    """Differentiable K1: its gradient is K3."""
-    return _PackedSelfAttention.apply(qkv, num_heads, zero_sink)
+def packed_self_attention(qkv, num_heads: int, zero_sink: int = 0, nomax: bool = False):
+    """Differentiable K1: its gradient is K3. `nomax` swaps the forward for
+    K7; K3 recomputes the softmax from qkv alone, so the backward is the same."""
+    return _PackedSelfAttention.apply(qkv, num_heads, zero_sink, nomax)
 
 
-def packed_xattn(qkv, feats, num_heads: int, biases=()):
-    """Differentiable K2: its gradients are K4's."""
+def packed_xattn(qkv, feats, num_heads: int, biases=(), nomax: bool = False):
+    """Differentiable K2: its gradients are K4's. `nomax` swaps the forward
+    for K7, which takes no bias."""
     feats = tuple(feats)
-    return _PackedXAttn.apply(num_heads, len(feats), qkv, *feats, *biases)
+    if nomax and len(biases):
+        raise ValueError("the no-max packed forward takes no bias")
+    return _PackedXAttn.apply(num_heads, len(feats), nomax, qkv, *feats, *biases)
 
 
 def _nomax_shift(bias, d):
@@ -382,6 +453,66 @@ def flash_nomax(q, k, v, bias=None):
     if rc != 0:
         raise RuntimeError(f"flash_nomax kernel launch failed: CUDA error {rc}")
     launches["flash_nomax"] += 1
+    return out
+
+def flash_fused_ref(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
+    """Plain version of K5, the kernel's arithmetic step for step: with
+    `norm_eps` the q, k and v rows are pixel-normalised in fp32 and rounded to
+    their dtype; fp32 logits times 1/sqrt(D) plus the bias; softmax about the
+    row maximum (raised to 0 with a sink) with fp32 row sums of the unrounded
+    p plus zero_sink * exp(-max); p rounded to v's dtype for the second
+    product; one division. Walks the query rows in chunks of at most
+    REF_CHUNK_ELEMS logits."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if norm_eps is not None:
+        def norm(x):
+            x32 = x.float()
+            den = norm_eps + torch.linalg.vector_norm(x32, dim=-1, keepdim=True) / math.sqrt(d)
+            return (x32 / den).to(x.dtype)
+        q, k, v = norm(q), norm(k), norm(v)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    outs = []
+    for cut in _ref_chunks(b, h, sq, sk):
+        s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, cut], k32) * (1.0 / math.sqrt(d))
+        if bias is not None:
+            s = s + bias[:, :, cut].float()
+        m = s.amax(-1, keepdim=True)
+        if zero_sink:
+            m = m.clamp(min=0.0)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
+        if zero_sink:
+            l = l + zero_sink * torch.exp(-m)
+        acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v32)
+        outs.append((acc / l).to(v.dtype))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 2)
+
+
+def flash_fused(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
+    """K5: softmax(q k^T / sqrt(D) + bias) v with a running max, on q
+    [B, H, Sq, D] and k, v [B, H, Sk, D] (bf16 on the card, D 32 or 64, any Sq
+    and Sk), optional unscaled fp32 bias [B, H, Sq, Sk] -> [B, H, Sq, D]. With
+    `norm_eps` the kernel pixel-normalises the q, k and v rows itself (raw
+    projection outputs in); with None it takes them as normalised. `zero_sink`
+    all-zero key columns join the softmax in closed form. The forward alone:
+    `kernels.attention.attention_from_raw` is the entry with a gradient."""
+    if q.device.type == "cpu":
+        return flash_fused_ref(q, k, v, bias, norm_eps, zero_sink)
+    b, h, sq, sk, d = _checked_bhsd(q, k, v, bias)
+    if zero_sink < 0 or (norm_eps is not None and norm_eps <= 0):
+        raise ValueError(f"zero_sink {zero_sink} must be >= 0 and norm_eps {norm_eps} > 0 or None")
+    out = torch.empty_like(q)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vivid_flash_fused_fwd(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), b, h, sq, sk, d,
+            int(norm_eps is not None), ctypes.c_float(norm_eps or 0.0),
+            ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_fused kernel launch failed: CUDA error {rc}")
+    launches["flash_fused"] += 1
     return out
 
 
@@ -493,6 +624,31 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g):
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {rc}")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K8 forward, K8 backward; keeps the inputs, the output and the row
+    statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out, lse = flash_attention(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return flash_attention_bwd(*ctx.saved_tensors, g)
+
+
+def stock_attention(q, k, v, bias=None):
+    """Differentiable K8: `flash_attention`'s output, its gradients by
+    `flash_attention_bwd` (the role of `_stock_flash` in the JAX package). A
+    CPU tensor takes the plain version under ordinary autograd."""
+    if q.device.type == "cpu":
+        return flash_attention(q, k, v, bias)[0]
+    return _FlashAttention.apply(q, k, v, bias)
 
 
 class _NomaxAttention(torch.autograd.Function):

@@ -58,6 +58,19 @@ def _packed_linear(conv: MPConv, x, num_heads: int, parts: int):
     return F.linear(x, w.reshape(-1, w.shape[-1]))
 
 
+def attention_with_zero_sink(q, k, v, num_zero_cols: int):
+    """Attention over [k | zeros(num_zero_cols)] and [v | zeros] in closed
+    form, [B, H, S, D] in and out: every zero column has logit 0 and value 0,
+    a sink of mass num_zero_cols * exp(-m) in the denominator. The plain
+    composite that `kernels.attention.attention_from_raw` differentiates when
+    it is given a sink (the blocks themselves go through the packed kernels)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / q.shape[-1] ** 0.5
+    m = logits.amax(-1, keepdim=True).clamp(min=0.0)
+    e = torch.exp(logits - m)
+    probs = e / (e.sum(-1, keepdim=True) + num_zero_cols * torch.exp(-m))
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: BlockConfig, device=None):
         super().__init__()
