@@ -6,7 +6,8 @@
 It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
-  build    compiles csrc/ with nvcc (route: shared library + ctypes)
+  build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
+           flash attention kernels must hold wgmma and TMA instructions
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
@@ -14,7 +15,8 @@ its own:
            inside; the no-max packed forward; the fused SiLU + 3x3
            convolution; the lab variants of the no-max attention) against its
            plain PyTorch version at every shape the paths give it, with times
-           (CUDA events); a kernel run twice must give the same bits
+           (CUDA events); a kernel run twice must give the same bits; two
+           faults of a TMA ring, planted in the inputs, must fail the gates
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
            the plain versions, held against a one-ulp noise control; planted
@@ -76,6 +78,9 @@ TOL_GRAD_MAX = 5e-2    # ... and, over every D-vector of it (every row of a dbia
                        # an error is held to its own vector as well as to the whole
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, for the bounds
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak, same sheet
+EXPS_PER_S = 3.9e12         # 16 ex2 a clock and SM (NVIDIA's CUDA C++ programming manual,
+                            # table of arithmetic throughput, compute capability 9.0) x
+                            # 132 SMs x 1.83 GHz: an attention kernel pays one a logit
 TOL_MODEL = 1e-2       # relative L2 of D_x, kernels vs plain (emb gains at 0)
 TOL_CONTROL = 1.2      # ... and at most this multiple of the ulp-noise control
 TOL_GRAD_CONTROL = 1.2 # whole-model gradient, kernels vs plain: at most this multiple
@@ -166,6 +171,35 @@ def phase_build():
             print("  ptxas:", line.split("'")[1][:150], flush=True)
         elif "registers" in line or "spill" in line or "smem" in line:
             print("  ptxas:", line.strip(), flush=True)
+    _check_k8_machine_code(build, info["path"])
+
+
+def _check_k8_machine_code(build, lib_path):
+    """The three big-S flash attention kernels in the built library, read with
+    the toolkit's cuobjdump: every instance multiplies on wgmma (HGMMA), gets
+    its tiles by TMA (UTMALDG) and holds no mma.sync product (HMMA)."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
+    check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr[-2000:]}")
+    counts, current = {}, None
+    for line in dump.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernel = next((k for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                                       "flash_bwd_dq_kernel") if k in name), None)
+            current = counts.setdefault(name, dict(kernel=kernel, HGMMA=0, UTMALDG=0, HMMA=0)) \
+                if kernel else None
+        elif current is not None:
+            for op in ("HGMMA", "UTMALDG", "HMMA"):
+                current[op] += f" {op}." in line or f" {op} " in line
+    check(len(counts) == 12, f"expected 3 kernels x (d 32, 64) x (bias, none), found {len(counts)}")
+    for name, c in counts.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, f"{name}: {c}")
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
+        mine = [c for c in counts.values() if c["kernel"] == kernel]
+        say("build", kernel=kernel, instances=len(mine),
+            wgmma_instructions=[c["HGMMA"] for c in mine],
+            tma_loads=[c["UTMALDG"] for c in mine], mma_sync_instructions=0)
 
 
 def _sdpa_inputs(torch, qkv, feats, h):
@@ -233,7 +267,7 @@ def _kernel_cases(torch, gen):
                 plain32=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv.float(), h, sink)),
                 plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv, h, sink),
                 headline=head, library=lib, bytes=io_self,
-                flops=4 * BATCH * h * s * s * d))
+                flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
             cases.append(dict(
                 name="flash_nomax_packed", d=d, label=f"S={s} H={h} d={d} sink={sink}",
                 kernel=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed(qkv, (), h, sink)),
@@ -241,14 +275,14 @@ def _kernel_cases(torch, gen):
                 plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed_ref(qkv, (), h, sink),
                 against=("k1", tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed(qkv, h, zero_sink=sink))),
                 headline=False, library=lib, library_is=CORE_ONLY, bytes=io_self,
-                flops=4 * BATCH * h * s * s * d))
+                flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
             cases.append(dict(
                 name="flash_fused_packed_bwd", d=d, label=f"S={s} H={h} d={d} sink={sink}",
                 kernel=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd(qkv, g, h, sink)),
                 plain32=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h, sink)),
                 plain=lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv, g, h, sink),
                 headline=head, library=lib_bwd, bytes=io_self + 2 * qkv.numel(),
-                flops=10 * BATCH * h * s * s * d))
+                flops=10 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
         for biased in (False, True):
             bs = bias if biased else ()
             head = main_shape and not biased
@@ -264,7 +298,7 @@ def _kernel_cases(torch, gen):
                 plain32=tup(lambda qkv=qkv, h=h, bs=bs, f32=f32: flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h, bs)),
                 plain=lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_ref(qkv, feats, h, bs),
                 headline=head, library=lib, bytes=io_x + io_b,
-                flops=4 * BATCH * h * s * 3 * s * d))
+                flops=4 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s))
             if not biased:   # the table's row of K7: the 64px model's cross-attention
                 cases.append(dict(
                     name="flash_nomax_packed", d=d, label=f"S={s} H={h} d={d} n_src=2",
@@ -273,7 +307,7 @@ def _kernel_cases(torch, gen):
                     plain=lambda qkv=qkv, h=h, feats=feats: flash.flash_nomax_packed_ref(qkv, feats, h),
                     against=("k2", tup(lambda qkv=qkv, h=h, feats=feats: flash.flash_fused_packed_xattn(qkv, feats, h))),
                     headline=head, library=lib, library_is=CORE_ONLY, bytes=io_x,
-                    flops=4 * BATCH * h * s * 3 * s * d))
+                    flops=4 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s))
             cases.append(dict(
                 name="flash_fused_packed_xattn_bwd", d=d, label=f"S={s} H={h} d={d} n_src=2 bias={biased}",
                 kernel=tup(lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd(qkv, feats, g, h, bs)),
@@ -281,7 +315,7 @@ def _kernel_cases(torch, gen):
                 plain=lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd_ref(qkv, feats, g, h, bs),
                 headline=head, library=lib_bwd,
                 bytes=io_x + 2 * (qkv.numel() + sum(f.numel() for f in feats)) + 2 * io_b,
-                flops=10 * BATCH * h * s * 3 * s * d))
+                flops=10 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s))
     return cases
 
 
@@ -292,7 +326,9 @@ def _big_s_cases(torch, gen):
     query rows in chunks, so they fit at the full batch and head count even
     where the logits alone would take 68.7 GB), a ragged shape and a small
     d = 64 one; biased (std-1 bias, fp32) at 4096/8192 at batch 1 (its dbias
-    alone is 0.8 GB) and at the two small shapes. Rows are scaled by
+    alone is 0.8 GB) and at the two small shapes; with and without a bias at
+    1000/1500 (ragged against K8's tiles) and at 64/8192 (one query tile, many
+    stages of keys), d = 64. Rows are scaled by
     exp(N(0, 1)) before the pixel norm the caller applies. K8's backward gets
     the output and statistics of K8's forward. The library call is
     F.scaled_dot_product_attention (its backward for the backward) on the
@@ -313,6 +349,10 @@ def _big_s_cases(torch, gen):
     shapes += [(2, 3, 200, 333, 32, False, False), (2, 2, 256, 512, 64, False, False),
                (1, 6, 4096, 8192, 32, True, False), (2, 3, 200, 333, 32, True, False),
                (2, 2, 256, 512, 64, True, False)]
+    # K8's tiles: lengths that are no multiple of a block's rows or a stage's
+    # keys, and one query tile against many stages of keys.
+    shapes += [(2, 2, 1000, 1500, 64, biased, False) for biased in (False, True)]
+    shapes += [(1, 2, 64, 8192, 64, biased, False) for biased in (False, True)]
     cases = []
     for b, h, sq, sk, d, biased, on_path in shapes:
         q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
@@ -335,7 +375,7 @@ def _big_s_cases(torch, gen):
             plain32=lambda q=q, k=k, v=v, bias=bias: (
                 flash.flash_nomax_ref(q.float(), k.float(), v.float(), bias),),
             plain=lambda q=q, k=k, v=v, bias=bias: flash.flash_nomax_ref(q, k, v, bias),
-            library=fwd_lib, bytes=io, flops=4 * b * h * sq * sk * d))
+            library=fwd_lib, bytes=io, flops=4 * b * h * sq * sk * d, exps=b * h * sq * sk))
         cases.append(dict(
             common, name="flash_attention",
             kernel=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention(q, k, v, bias),
@@ -343,7 +383,8 @@ def _big_s_cases(torch, gen):
                 q.float(), k.float(), v.float(), bias),
             plain=lambda q=q, k=k, v=v, bias=bias: flash.flash_attention_ref(q, k, v, bias),
             against=("k6", lambda q=q, k=k, v=v, bias=bias: (flash.flash_nomax(q, k, v, bias),)),
-            library=fwd_lib, bytes=io + 4 * lse.numel(), flops=4 * b * h * sq * sk * d))
+            library=fwd_lib, bytes=io + 4 * lse.numel(), flops=4 * b * h * sq * sk * d,
+            exps=b * h * sq * sk))
         args = (q, k, v, bias, out, lse, g)
         cases.append(dict(
             common, name="flash_attention_bwd",
@@ -356,7 +397,7 @@ def _big_s_cases(torch, gen):
             # q, k, v, out, g read; dq, dk, dv written; lse; bias read, dbias written
             bytes=2 * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
             + (8 * bias.numel() if biased else 0),
-            flops=10 * b * h * sq * sk * d))
+            flops=10 * b * h * sq * sk * d, exps=b * h * sq * sk))
     return cases
 
 
@@ -409,7 +450,7 @@ def _fused_lab_conv_cases(torch, gen):
             library_is=SAME_FUNCTION if eps is None else CORE_ONLY,
             bytes=2 * (2 * q.numel() + k.numel() + v.numel())
             + (4 * bias.numel() if bias is not None else 0),
-            flops=4 * b * h * sq * sk * d)
+            flops=4 * b * h * sq * sk * d, exps=b * h * sq * sk)
 
     for i, (h, sq, sk) in enumerate(FUSED_SHAPES):
         q, k, v = raw(BATCH, h, sq, 64), raw(BATCH, h, sk, 64), raw(BATCH, h, sk, 64)
@@ -437,7 +478,8 @@ def _fused_lab_conv_cases(torch, gen):
             plain=lambda: nomax_attn_lab.nomax_attention_ref(q, k, v, *triple),
             library=lambda: F.scaled_dot_product_attention(q, k, v),
             library_is=SAME_FUNCTION,
-            bytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * b * h * sq * sk * d)
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * b * h * sq * sk * d,
+            exps=b * h * sq * sk)
 
     b, h, sq, sk, d = nomax_attn_lab.PARITY_SHAPE
     q, k, v = (flash._rms_norm(raw(b, h, n, d)) for n in (sq, sk, sk))
@@ -467,7 +509,8 @@ def _fused_lab_conv_cases(torch, gen):
             library=lambda x=x, w=w, fuse=fuse: F.conv2d(
                 F.silu(x) / 0.596 if fuse else x, w, padding=1),
             library_is=SAME_FUNCTION,
-            bytes=2 * (2 * x.numel() + w.numel()), flops=2 * b * hh * ww * 9 * c * c))
+            bytes=2 * (2 * x.numel() + w.numel()), flops=2 * b * hh * ww * 9 * c * c,
+            exps=x.numel() if fuse else 0))   # the SiLU's
     return cases
 
 
@@ -525,6 +568,77 @@ def _check_nomax_gate(torch, gen):
         max_err_over_rms=f"{rel_max:.3e}", rel_l2=f"{rel_l2:.3e}", fails_gate=True)
 
 
+def _built(name, case):
+    """What K8's kernels were built with, for its `kernel` lines: registers a
+    thread at launch and after the warpgroups have traded them, bytes of local
+    memory a thread (spills), dynamic shared memory."""
+    from vivid_tpu_torch.kernels import flash
+    if name not in ("flash_attention", "flash_attention_bwd"):
+        return {}
+    info = flash.flash_attention_info(case["d"], "bias=True" in case["label"])
+    out = {}
+    for kernel in (("fwd",) if name == "flash_attention" else ("dkv", "dq")):
+        k = info[kernel]
+        out.update({f"{kernel}_regs": f"{k['regs_at_launch']}/{k['consumer_regs']}/{k['producer_regs']}",
+                    f"{kernel}_spill_bytes": k["local_bytes"], f"{kernel}_smem": k["smem_bytes"]})
+    return out
+
+
+def _check_k8_faults(torch, gen):
+    """Two faults of a ring of TMA stages must fail K8's gates. The kernels
+    have no switch to break them, so each fault is planted in the inputs, as
+    the tensors a broken kernel would see: (1) the ring's last stage never
+    refreshed: every later K tile that lands in that stage is the stale first
+    one; (2) the key mask at the ragged edge dropped: the zero rows TMA fills
+    in past the end join the softmax (k and v padded with zero rows to a whole
+    stage). Forward and backward run on the faulty tensors and are held to
+    the plain versions on the true ones."""
+    from vivid_tpu_torch.kernels import flash
+    fwd = flash.flash_attention_info(64, False)["fwd"]
+    keys, stages = fwd["stage_rows"], fwd["stages"]
+
+    def rows(b, h, s, d):
+        x = torch.randn(b, h, s, d, generator=gen, device="cuda")
+        return flash._rms_norm((x * torch.exp(torch.randn(b, h, s, 1, generator=gen,
+                                                          device="cuda"))).bfloat16())
+
+    def gates(q, k, v, g, fk, fv, label):
+        out, lse = flash.flash_attention(q, fk, fv)
+        grads = flash.flash_attention_bwd(q, fk, fv, None, out, lse, g)
+        sk = k.shape[2]
+        want, want_lse = flash.flash_attention_ref(q.float(), k.float(), v.float())
+        want_grads = flash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None,
+                                                   want, want_lse, g.float())
+        err = (out.float() - want).abs().max().item()
+        rel_max = err / want.square().mean().sqrt().item()
+        rel_l2 = _rel_l2(out.float(), want)
+        grad_l2 = max(_rel_l2(a.float()[:, :, :w.shape[2]], w)
+                      for a, w in zip(grads[:3], want_grads[:3]))
+        fwd_fails = not (err <= TOL_KERNEL and rel_l2 <= TOL_KERNEL_L2
+                         and rel_max <= TOL_KERNEL_MAX)
+        check(fwd_fails and grad_l2 > TOL_GRAD_L2,
+              f"K8 with {label} passes a gate: forward max err {err}, rel L2 {rel_l2}, max err "
+              f"over RMS {rel_max}; backward rel L2 {grad_l2}")
+        say("kernel", name="flash_attention", fault=f"'{label}, Sq={q.shape[2]} Sk={sk}'",
+            max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}", rel_l2=f"{rel_l2:.3e}",
+            bwd_rel_l2=f"{grad_l2:.3e}", fails_gate=True)
+
+    b, h, sq, d = 1, 2, 256, 64
+    sk = 4 * stages * keys
+    q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
+    g = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+    stale = k.clone().view(b, h, sk // keys, keys, d)
+    stale[:, :, stages - 1::stages] = stale[:, :, stages - 1:stages]
+    gates(q, k, v, g, stale.view(b, h, sk, d), v,
+          f"stage {stages - 1} of {stages} never refreshed ({keys} keys a stage)")
+    sq, sk, d = 200, 333, 32
+    q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
+    g = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+    pad = torch.zeros(b, h, -sk % keys, d, dtype=k.dtype, device="cuda")
+    gates(q, k, v, g, torch.cat([k, pad], 2), torch.cat([v, pad], 2),
+          "the key mask at the ragged edge dropped")
+
+
 def phase_kernels(table):
     """Every kernel against its plain version at every path shape. A forward
     kernel (K6 `flash_nomax` and K8's forward `flash_attention`, output and
@@ -538,13 +652,17 @@ def phase_kernels(table):
     equal. Every case prints its bound: the larger of its bytes (each input
     read once, each output written once) over the memory rate and its
     operations over the bf16 peak. The headline case of each kernel fills
-    its row of the table and adds the library yardstick. K8's forward output
+    its row of the table and adds the library yardstick. The bound counts a
+    third term for every kernel with a softmax, its exponentials (one for
+    every logit) over EXPS_PER_S. K8's lines carry what was built: registers
+    a thread, spilled bytes and dynamic shared memory. K8's forward output
     is also held, by the forward limits, to K6's on the same inputs: the two
     differ by their rounding only."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
     _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
+    _check_k8_faults(torch, torch.Generator(device="cuda").manual_seed(9))
     for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
                  + _fused_lab_conv_cases(torch, gen)):
         name, label = case["name"], case["label"]
@@ -591,20 +709,26 @@ def phase_kernels(table):
         ms = cuda_ms(case["kernel"])
         plain_ms = cuda_ms(case["plain"], case.get("plain_reps", 20))
         library_ms = cuda_ms(case["library"]) if case["library"] else None
-        by_bytes = case["bytes"] / HBM_BYTES_PER_S * 1e3
-        by_ops = case["flops"] / BF16_FLOPS * 1e3
-        bound_ms = max(by_bytes, by_ops)
-        bound_by = "bytes" if by_bytes >= by_ops else "operations"
+        by = {"bytes": case["bytes"] / HBM_BYTES_PER_S * 1e3,
+              "operations": case["flops"] / BF16_FLOPS * 1e3,
+              "exponentials": case["exps"] / EXPS_PER_S * 1e3}
+        bound_by = max(by, key=by.get)
+        bound_ms = by[bound_by]
         say("kernel", name=name, case=f"'{label}'", outputs=n_out,
             max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
             out_rms=f"{out_rms:.3e}", rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}", ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
             **({} if library_ms is None else {"library_ms": f"{library_ms:.4f}"}),
-            **{k: f"{x:.3e}" for k, x in vs_other.items()})
+            **{k: f"{x:.3e}" for k, x in vs_other.items()}, **_built(name, case))
         row = table[name]
         row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
         if case["headline"]:
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            # The table's bound_by knows bytes and operations: an exponential
+            # is an operation, of the kind that operation_kind names.
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by="bytes" if bound_by == "bytes" else "operations",
+                       operation_kind={"operations": "bf16 tensor core",
+                                       "exponentials": "exponentials"}.get(bound_by),
                        library_ms=library_ms)
             say("kernel", name=name, headline=f"'{label}'", bytes=case["bytes"],
                 flops=case["flops"], tflops=f"{case['flops'] / ms / 1e9:.1f}",
@@ -1638,7 +1762,7 @@ def _profile(tag, fn, units, unit):
                 "idle_share_profiled": f"{1 - busy_ms / prof_wall_ms:.3f}"})
     kinds = {"attention_nomax": ("flash_nomax",),
              "attention_k8_fwd": ("flash_fwd_kernel",),
-             "attention_k8_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "bwd_delta_kernel"),
+             "attention_k8_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "bwd_prep_kernel"),
              "attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
              "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn"),
              "gemm": ("gemm", "nvjet", "cutlass"), "reduce": ("reduce_kernel",)}

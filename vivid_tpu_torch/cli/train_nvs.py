@@ -73,7 +73,8 @@ def setup_training_config(preset="vivid-base", **opts):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported to vivid_tpu_torch yet")
     for key, value in config_presets[preset].items():
-        if opts.get(key, None) in (None, False):
+        given = opts.get(key, None)
+        if given is None or given is False:   # an explicit 0 is a value, not an absence
             opts[key] = value
 
     c = EasyDict()
@@ -90,7 +91,7 @@ def setup_training_config(preset="vivid-base", **opts):
         super_res=bool(opts.get("sr_training")),
         no_time_enc=bool(opts.get("no_time_enc")),
         uncond=bool(opts.get("uncond")),
-        noisy_sr=opts.get("noisy_sr") or 0.25,
+        noisy_sr=0.25 if opts.get("noisy_sr") is None else opts["noisy_sr"],
         num_sources=num_sources,
         source_label_dim=20,
         target_label_dim=20 * num_sources,

@@ -1,5 +1,5 @@
 // Big-S flash attention with a running max, forward and backward, for
-// training the 256px super-resolution model (sm_90a).
+// training the 256px super-resolution model (sm_90a: wgmma, TMA, mbarriers).
 //
 // Replaces JAX's pallas.ops.tpu.flash_attention as _stock_flash calls it in
 // vivid_tpu/kernels/attention.py: the forward that returns the output with
@@ -24,61 +24,109 @@
 // feed the sums and dbias. delta comes from the output this forward wrote
 // (rounded to bf16), so forward and backward of this file are one
 // consistent pair whatever kernel made the output the model used.
+// Exponentials are exp2 of one fused multiply-add, s * log2(e) - m * log2(e);
+// the backward's pre-pass hands lse over as lse * log2(e).
 //
-// Design. Blocks share nothing and a training step must repeat bitwise, so
-// no sum crosses blocks by atomics; every output element has one owner:
-//   flash_fwd_kernel      one block of 8 warps per (b, h, 128 query rows);
-//                         q fragments in registers, K/V tiles of 64 keys
-//                         through a two-stage cp.async ring, ldmatrix
-//                         fragments (the no-max kernel's feeding), plus the
-//                         running max and one rescale per tile.
-//   bwd_delta_kernel      one warp per row: delta = sum(dO * o).
-//   flash_bwd_dkv_kernel  one block of 4 warps per (b, h, 64 keys); k and v
-//                         fragments in registers; Q and dO tiles of 64 rows
-//                         stream through the ring with their lse and delta.
-//                         It forms the transposed tiles S^T = k q^T and
-//                         dP^T = v dO^T, so P^T and dS^T come out in the
-//                         accumulator layout that is the A operand of the
-//                         products into dv and dk: nothing is transposed
-//                         through shared memory. Each thread scales the q
-//                         chunks it copied, in place, before the block meets.
-//   flash_bwd_dq_kernel   one block of 4 warps per (b, h, 64 query rows); q
-//                         and dO fragments in registers, K/V tiles through
-//                         the ring; writes dq and its rows of dbias.
+// Where q / sqrt(D) is rounded. The forward rounds it as it loads its query
+// fragments into registers, once per block. The backward's pre-pass
+// (bwd_prep_kernel) writes the rounded copy to scratch once, and both
+// backward kernels read that copy: the dk/dv kernel streams it through TMA,
+// which cannot scale what it copies. It is the rounding of the plain
+// versions (kernels/flash.py `flash_attention_ref`).
+//
+// Design. Every kernel is a block of four warpgroups. The last is the
+// producer: it gives its registers away and one thread of it keeps a ring of
+// shared-memory stages full by TMA (64-row boxes, swizzled by row width, rows
+// past the end zero-filled), waiting on each stage's "empty" mbarrier and
+// completing its "full" one. The first three are consumers on different 64-row
+// tiles, so one's exponentials run under the others' products; they never
+// issue a copy and meet no block-wide barrier. Products run on wgmma: the
+// logits tile with K (or the streamed rows) read K-major through a
+// descriptor, the second products with A from registers (the fp32
+// accumulator of the first, rounded, is the A fragment of the next) and the
+// same shared tile read MN-major through the transpose bit. Nothing is
+// transposed through shared memory.
+// Blocks share nothing and a training step must repeat bitwise, so no sum
+// crosses blocks by atomics; every output element has one owner:
+//   flash_fwd_kernel      one block per (b, h, 192 query rows), 64 per
+//                         consumer; q fragments in registers; stages of 128
+//                         keys (K and V), logits 64 x 128 a consumer.
+//   bwd_prep_kernel       one warp per row: delta = sum(dO * o),
+//                         lse * log2(e), both into rows padded to 64 (zeros
+//                         past the end), and the rounded q / sqrt(D).
+//   flash_bwd_dkv_kernel  one block per (b, h, 192 keys), 64 per consumer; K
+//                         and V stay in shared memory as the A operands;
+//                         stages of 64 query rows (q / sqrt(D), dO, and their
+//                         statistics by a bulk copy). It forms the transposed
+//                         tiles S^T = k q^T and dP^T = v dO^T, so P^T and dS^T
+//                         come out in the layout that is the A operand of the
+//                         products into dv and dk.
+//   flash_bwd_dq_kernel   one block per (b, h, 192 query rows), 64 per
+//                         consumer; q / sqrt(D) and dO fragments in
+//                         registers; stages of 64 keys (K and V); writes dq
+//                         and its rows of dbias.
 // Any Sq and Sk: rows past the end are zero-filled and not written; a key
-// past the end gets p = 0 (forward) or dS = 0 (backward).
+// past the end gets p = 0 (forward) or dS = 0 (backward). A consumer whose 64
+// rows all lie past the end only hands the stages back.
 //
-// What bounds it: operations. The backward needs 10 B H Sq Sk D operations
+// What bounds it: at d = 64 operations and exponentials alike, at d = 32
+// exponentials (the special-function unit makes 16 a clock and SM, and a
+// logit costs one whatever D is). The backward needs 10 B H Sq Sk D operations
 // (five Sq x Sk x D products) against inputs and outputs of a few tens of
-// MB, three orders of magnitude above the 295 operations a byte where the
-// tensor cores become the limit; with a bias the fp32 bias and dbias
-// (8 B H Sq Sk bytes) turn the bound to bytes. The two backward kernels each
-// recompute S and dP: seven products where five are needed. mma.sync cannot
-// reach the wgmma rate; wgmma + TMA and saving the no-max forward's row sums
-// are later work.
+// MB; with a bias the fp32 bias and dbias (8 B H Sq Sk bytes) turn the bound
+// to bytes. The two backward kernels each recompute S and dP: seven products
+// where five are needed, the price of one owner per element.
 
-#include "flash_common.cuh"
+#include <dlfcn.h>
+
+#include "flash_hopper.cuh"
 
 namespace {
 
 using namespace vivid;
 
-constexpr int kFwQ = 128;      // forward: query rows per block, 16 per warp
-constexpr int kFwK = 64;       // forward: keys per shared-memory tile
-constexpr int kFwWarps = 8;
-constexpr int kBwQ = 64;       // backward: query rows per tile
-constexpr int kBwK = 64;       // backward: keys per tile
-constexpr int kBwWarps = 4;
-constexpr int kBwThreads = kBwWarps * 32;
-constexpr int kBwChunk = 32;   // tile columns handled at a time
-constexpr int kBwCn = kBwChunk / 8;
-constexpr int kStages = 2;
-constexpr int kTileRows = 64;  // rows of every shared-memory tile
-static_assert(kFwK == kTileRows && kBwQ == kTileRows && kBwK == kTileRows, "copy_tile");
+constexpr int kRows = 64;        // rows of a TMA box and of a consumer's tile
+constexpr int kFwK = 128;        // forward: keys per stage (64 was 15-20 % slower)
+constexpr int kFwStages = 4;     // 2, 4 and 6 stages time alike: the producer is never late
+constexpr int kBwStages = 4;     // backward: 64 rows (dk/dv) or 64 keys (dq) per stage
+
+constexpr int kConsumers = 3;    // consumer warpgroups in a block
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kBlockRows = kConsumers * kRows;   // rows of the outputs a block owns
+// Registers a thread: 65536 / 512 = 128 at launch, then the warpgroups trade
+// them: 128 * 24 + 384 * 160 = 64512. (Two consumers of 232 and a producer of
+// 40 were slower at every path shape: three hide each other's waits better.)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+constexpr int kEmptyArrivals = kConsumers * 4;   // one lane of every consumer warp
 
 // 1/sqrt(D) as the nearest fp32, the value the plain version multiplies by.
 template <int D>
 constexpr float kScaleOf = D == 32 ? 0.17677669529663687f : 0.125f;
+
+// Dynamic shared memory starts at no particular alignment: tiles start at the
+// next multiple of 1024 bytes (kAlignSlack is asked for on top).
+constexpr int kAlignSlack = 1024;
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + ((1024u - (a & 1023u)) & 1023u);
+}
+
+template <int D>
+constexpr int kFwdSmemBytes = kAlignSlack + kFwStages * 2 * kFwK * 2 * D + 2 * kFwStages * 8;
+
+template <int D>
+constexpr int kDqSmemBytes = kAlignSlack + kBwStages * 2 * kRows * 2 * D + 2 * kBwStages * 8;
+
+// dk/dv: K and V of the block, then stages of q / sqrt(D), dO, lse * log2(e)
+// and delta (the statistics' 512 bytes, kept 1024-aligned).
+template <int D>
+constexpr int kDkvStageBytes = 2 * kRows * 2 * D + 1024;
+
+template <int D>
+constexpr int kDkvSmemBytes = kAlignSlack + 2 * kBlockRows * 2 * D
+    + kBwStages * kDkvStageBytes<D> + (2 * kBwStages + 1) * 8;
 
 // A-operand fragments of 16 rows starting at `row0` of a [rows, D] matrix in
 // device memory: this thread's rows r0 and r0 + 8, scaled by `scale` in fp32
@@ -104,471 +152,638 @@ __device__ __forceinline__ void load_a_global(const __nv_bfloat16* base, int row
   }
 }
 
-// Rows [r_first, r_first + kTileRows) of a [len, D] matrix into a padded tile;
-// rows at or past `len` are zero-filled.
-template <int D, int kThreads>
-__device__ __forceinline__ void copy_tile(__nv_bfloat16 (*tile)[D + 8],
-                                          const __nv_bfloat16* base, int r_first, int len) {
-  constexpr int kRowChunks = D / 8;   // 16-byte chunks in one row
-  for (int c = threadIdx.x; c < kTileRows * kRowChunks; c += kThreads) {
-    const int r = c / kRowChunks;
-    const int col = (c % kRowChunks) * 8;
-    const bool ok = r_first + r < len;
-    const long long off = static_cast<long long>(ok ? r_first + r : len - 1) * D + col;
-    cp_async16(&tile[r][col], base + off, ok ? 16 : 0);
-  }
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
-// acc[j] (16 x 8 each, kBwCn of them) = a (16 x D) . tile[row0 + j*8 ..][:]^T.
-template <int D>
-__device__ __forceinline__ void chunk_product(float (&acc)[kBwCn][4],
-                                              const uint32_t (&a)[D / 16][4],
-                                              const __nv_bfloat16 (*tile)[D + 8], int row0,
-                                              int lane) {
+// s (this thread's part of a 64 x kCols tile of logits) += the bias. brow[i]
+// is the thread's row i of the bias at the tile's first key plus c0, or null
+// past Sq; `cols` keys of the tile exist. `whole` says every pair of columns
+// exists and is 8-byte aligned: then the loads go out sixteen at a time with
+// no branch between them, so their latencies overlap. The next tile's lines
+// of these rows are asked into L2 meanwhile, one 128-byte line a thread of
+// the quad that shares the row.
+template <int kCols>
+__device__ __forceinline__ void add_bias(float (&s)[kCols / 2], const float* const (&brow)[2],
+                                         int cols, bool whole, int lane) {
 #pragma unroll
-  for (int j = 0; j < kBwCn; ++j) {
+  for (int i = 0; i < 2; ++i) {
+    if (brow[i] == nullptr) continue;
+    const int line = (lane % 4) * 32 - (lane % 4) * 2;   // from c0 to the quad's line
+    if ((lane % 4) * 32 < kCols && kCols + line < cols) prefetch_l2(brow[i] + kCols + line);
+  }
+  if (whole && brow[0] != nullptr && brow[1] != nullptr) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int j0 = 0; j0 < kCols / 8; j0 += 8) {
+      float2 b[8][2];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; kk += 2) {
-      uint32_t b[4];   // rows row0 + j*8 .., columns kk*16 .. kk*16 + 31
-      ldmatrix_x4(b, &tile[row0 + j * 8 + lane % 8][kk * 16 + (lane / 8) * 8]);
-      mma_16816(acc[j], a[kk], b[0], b[1]);
-      mma_16816(acc[j], a[kk + 1], b[2], b[3]);
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          b[j][i] = __ldg(reinterpret_cast<const float2*>(brow[i] + (j0 + j) * 8));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          s[4 * (j0 + j) + 2 * i] += b[j][i].x;
+          s[4 * (j0 + j) + 2 * i + 1] += b[j][i].y;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + (e & 1);   // past c0
+        if (brow[e >> 1] != nullptr && col < cols) s[4 * j + e] += __ldg(brow[e >> 1] + col);
+      }
     }
   }
 }
 
-// out (16 x D) += w (16 x kBwChunk, rounded to bf16) . tile[row0 ..][:]. The
-// accumulator layout of two n8 tiles is the A-fragment layout of a k16 step.
-template <int D>
-__device__ __forceinline__ void chunk_accumulate(float (&out)[D / 8][4],
-                                                 const float (&w)[kBwCn][4],
-                                                 const __nv_bfloat16 (*tile)[D + 8], int row0,
-                                                 int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kBwChunk / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(w[2 * kk][0], w[2 * kk][1]), pack_bf16(w[2 * kk][2], w[2 * kk][3]),
-        pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]),
-        pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3])};
-#pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
-      uint32_t b[4];   // rows row0 + kk*16 .. + 15, columns j*8 .. + 15
-      ldmatrix_x4_trans(b, &tile[row0 + kk * 16 + ((lane / 8) % 2) * 8 + lane % 8]
-                                [(j + lane / 16) * 8]);
-      mma_16816(out[j], a, b[0], b[1]);
-      mma_16816(out[j + 1], a, b[2], b[3]);
-    }
+// Two neighbouring fp32 values of a row of dbias: one 8-byte store where
+// `pair` says the address is even and both columns exist.
+__device__ __forceinline__ void store_pair(float* p, float2 x, bool pair, bool ok0, bool ok1) {
+  if (pair) {
+    *reinterpret_cast<float2*>(p) = x;
+  } else {
+    if (ok0) p[0] = x.x;
+    if (ok1) p[1] = x.y;
   }
 }
 
 template <int D, bool kBiased>
-__global__ void __launch_bounds__(kFwWarps * 32)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __nv_bfloat16* __restrict__ q, const float* __restrict__ bias,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk) {
-  constexpr int kPad = D + 8;         // +16 bytes a row: ldmatrix rows hit distinct banks
-  constexpr int kDk = D / 16;
-  constexpr int kDn = D / 8;
-  constexpr int kKn = kFwK / 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[kStages][kFwK][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kStages][kFwK][kPad];
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kTileBytes = kFwK * kRowBytes;   // one of K, V of a stage
+  constexpr int kBoxBytes = kRows * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kFwStages * 2 * kTileBytes);
+  uint64_t* empty = full + kFwStages;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kFwQ;
-  const long long bh = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const __nv_bfloat16* kb = k + bh * Sk * D;
-  const __nv_bfloat16* vb = v + bh * Sk * D;
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
   const int n_tiles = (Sk + kFwK - 1) / kFwK;
-
-  auto load_tile = [&](int tile, int stage) {
-    copy_tile<D, kFwWarps * 32>(ks[stage], kb, tile * kFwK, Sk);
-    copy_tile<D, kFwWarps * 32>(vs[stage], vb, tile * kFwK, Sk);
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  // This thread holds rows r0 and r0 + 8 of the warp's 16 query rows, and
-  // columns c0, c0 + 1 of every n8 tile.
-  const int r0 = warp * 16 + lane / 4;
-  const int c0 = (lane % 4) * 2;
-  uint32_t qf[kDk][4];
-  load_a_global<D>(q + bh * Sq * D, q0, Sq, r0, c0, kScaleOf<D>, qf);
-
-  float o[kDn][4];
-#pragma unroll
-  for (int j = 0; j < kDn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};   // per-thread partial sums; a quad holds a row
-  const float* brow[2] = {nullptr, nullptr};
-  if constexpr (kBiased) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + i * 8;
-      if (row < Sq) brow[i] = bias + (bh * Sq + row) * Sk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
     }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // every thread's part of tile t has landed
-
-    float s[kKn][4];
+  if (wg == kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kFwStages;
+        if (t >= kFwStages) mbar_wait(&empty[s], (t / kFwStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        uint8_t* kt = tiles + s * 2 * kTileBytes;
 #pragma unroll
-    for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDk; kk += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &ks[stage][j * 8 + lane % 8][kk * 16 + (lane / 8) * 8]);
-        mma_16816(s[j], qf[kk], kf[0], kf[1]);
-        mma_16816(s[j], qf[kk + 1], kf[2], kf[3]);
-      }
-    }
-
-    // Bias, the ragged edge, and the tile's row maxima.
-    const int k0 = t * kFwK;
-    const bool edge = k0 + kFwK > Sk;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + c0 + (e & 1);
-        float x = s[j][e];
-        if constexpr (kBiased) {
-          const float* br = brow[e >> 1];
-          if (br != nullptr && col < Sk) x += __ldg(br + col);
+        for (int h = 0; h < kFwK / kRows; ++h) {
+          tma_load_3d(kt + h * kBoxBytes, &k_map, &full[s], 0, t * kFwK + h * kRows, bh);
+          tma_load_3d(kt + kTileBytes + h * kBoxBytes, &v_map, &full[s], 0,
+                      t * kFwK + h * kRows, bh);
         }
-        if (edge && col >= Sk) x = -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = __expf(m[i] - mx[i]);   // 0 on the first tile (m = -inf)
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int q0 = blockIdx.x * kBlockRows + wg * kRows;
+    if (q0 >= Sq) {   // nothing to own: hand every stage back
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(&full[t % kFwStages], (t / kFwStages) & 1);
+        if (lane == 0) mbar_arrive(&empty[t % kFwStages]);
       }
-    }
+    } else {
+      // This thread holds rows r0 and r0 + 8 of the consumer's 64 query rows,
+      // and columns c0, c0 + 1 of every n8 group.
+      const int r0 = warp * 16 + lane / 4;
+      const int c0 = (lane % 4) * 2;
+      const long long qrow0 = static_cast<long long>(bh) * Sq;
+      uint32_t qf[D / 16][4];
+      load_a_global<D>(q + qrow0 * D, q0, Sq, r0, c0, kScaleOf<D>, qf);
 
-    // o += p v, with p rounded to bf16.
+      float o[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < kFwK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};
+      float l[2] = {0.f, 0.f};   // per-thread partial sums; a quad holds a row
+      const float* brow[2] = {nullptr, nullptr};
+      const bool pairs = Sk % 2 == 0;   // every pair of bias columns is 8-byte aligned
+      if constexpr (kBiased) {
 #pragma unroll
-      for (int j = 0; j < kDn; j += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &vs[stage][kk * 16 + ((lane / 8) % 2) * 8 + lane % 8]
-                                 [(j + lane / 16) * 8]);
-        mma_16816(o[j], a, vf[0], vf[1]);
-        mma_16816(o[j + 1], a, vf[2], vf[3]);
+        for (int i = 0; i < 2; ++i) {
+          const int row = q0 + r0 + i * 8;
+          if (row < Sq) brow[i] = bias + (qrow0 + row) * Sk;
+        }
       }
-    }
-    __syncthreads();   // every warp is done with this stage before it is refilled
-  }
+
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kFwStages;
+        mbar_wait(&full[stage], (t / kFwStages) & 1);
+        const uint8_t* kt = tiles + stage * 2 * kTileBytes;
+        const uint64_t kd = smem_desc<kRowBytes>(kt);
+        const uint64_t vd = smem_desc<kRowBytes>(kt + kTileBytes);
+
+        float s[kFwK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kFwK, true>::template run<0>(s, qf[kk], kd + kk * kDescStepK, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        // Bias, the ragged edge, and the tile's row maxima.
+        const int k0 = t * kFwK;
+        const bool edge = k0 + kFwK > Sk;
+        if constexpr (kBiased) {
+          const float* at[2] = {brow[0] == nullptr ? nullptr : brow[0] + k0 + c0,
+                                brow[1] == nullptr ? nullptr : brow[1] + k0 + c0};
+          add_bias<kFwK>(s, at, Sk - k0 - c0, pairs && !edge, lane);
+        }
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < kFwK / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (k0 + j * 8 + c0 + (e & 1) >= Sk) s[4 * j + e] = -INFINITY;
+            }
+          }
+        }
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < kFwK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+        }
+        float m2[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float alpha = fast_exp2((m[i] - mx[i]) * kLog2e);   // 0 on the first tile
+          m[i] = mx[i];
+          m2[i] = mx[i] * kLog2e;
+          l[i] *= alpha;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            o[4 * j + 2 * i] *= alpha;
+            o[4 * j + 2 * i + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kFwK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = fast_exp2(fmaf(s[4 * j + e], kLog2e, -m2[e >> 1]));
+            s[4 * j + e] = p;
+            l[e >> 1] += p;
+          }
+        }
+
+        // o += p v, with p rounded to bf16.
+        uint32_t pa[kFwK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kFwK / 16; ++kk) acc_to_a(s, kk, pa[kk]);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kFwK / 16; ++kk) {
+          Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with the stage
+      }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
+      for (int i = 0; i < 2; ++i) {
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + i * 8;
-    if (row >= Sq) continue;
-    __nv_bfloat16* orow = out + (bh * Sq + row) * D;
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + r0 + i * 8;
+        if (row >= Sq) continue;
+        __nv_bfloat16* orow = out + (qrow0 + row) * D;
+        const float inv = 1.f / l[i];
 #pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) =
-          __floats2bfloat162_rn(o[j][2 * i] / l[i], o[j][2 * i + 1] / l[i]);
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) =
+              __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+        }
+        if (lane % 4 == 0) lse[qrow0 + row] = m[i] + logf(l[i]);
+      }
     }
-    if (lane % 4 == 0) lse[bh * Sq + row] = m[i] + logf(l[i]);
   }
 }
 
-// delta[row] = sum_d dO[row, d] * o[row, d], one warp per row.
+// The backward's pre-pass, one warp per row of the padded statistics
+// [B * H, sq_pad] (sq_pad a multiple of 64): stats[row] = lse * log2(e),
+// stats[rows_pad + row] = delta = sum_d dO * o, zeros past Sq; and
+// qs = q / sqrt(D) rounded to bf16.
 template <int D>
 __global__ void __launch_bounds__(256)
-bwd_delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ g,
-                 float* __restrict__ delta, long long rows) {
+bwd_prep_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ o,
+                const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+                __nv_bfloat16* __restrict__ qs, float* __restrict__ stats, int Sq, int sq_pad,
+                long long rows_pad) {
   const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= rows) return;
+  if (row >= rows_pad) return;
   const int lane = threadIdx.x % 32;
+  const int r = static_cast<int>(row % sq_pad);
+  if (r >= Sq) {
+    if (lane == 0) stats[row] = stats[rows_pad + row] = 0.f;
+    return;
+  }
+  const long long src = (row / sq_pad) * Sq + r;
   float acc;
   if constexpr (D == 64) {
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(o + row * D + 2 * lane);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(g + row * D + 2 * lane);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(o + src * D + 2 * lane);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(g + src * D + 2 * lane);
     acc = __bfloat162float(a.x) * __bfloat162float(b.x)
         + __bfloat162float(a.y) * __bfloat162float(b.y);
+    const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(q + src * D + 2 * lane);
+    *reinterpret_cast<__nv_bfloat162*>(qs + src * D + 2 * lane) = __floats2bfloat162_rn(
+        __bfloat162float(x.x) * kScaleOf<D>, __bfloat162float(x.y) * kScaleOf<D>);
   } else {
-    acc = __bfloat162float(o[row * D + lane]) * __bfloat162float(g[row * D + lane]);
+    acc = __bfloat162float(o[src * D + lane]) * __bfloat162float(g[src * D + lane]);
+    qs[src * D + lane] = __float2bfloat16(__bfloat162float(q[src * D + lane]) * kScaleOf<D>);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+  if (lane == 0) {
+    stats[row] = lse[src] * kLog2e;
+    stats[rows_pad + row] = acc;
+  }
 }
 
-// dk and dv of one (b, h, 64-key tile).
+// dk and dv of one (b, h, 192-key block), 64 keys a consumer.
 template <int D, bool kBiased>
-__global__ void __launch_bounds__(kBwThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                     const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int Sq, int Sk) {
-  constexpr int kPad = D + 8;
-  constexpr int kDk = D / 16;
-  constexpr int kDn = D / 8;
-  constexpr int kRowChunks = D / 8;
-  static_assert(kBwThreads == 2 * kBwQ, "one thread per lse and per delta of a tile");
-  __shared__ __align__(16) __nv_bfloat16 qs[kStages][kBwQ][kPad];
-  __shared__ __align__(16) __nv_bfloat16 gs[kStages][kBwQ][kPad];
-  __shared__ float lse_s[kStages][kBwQ];
-  __shared__ float delta_s[kStages][kBwQ];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap qs_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const float* __restrict__ stats, const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                     int Sq, int Sk, int sq_pad, long long rows_pad) {
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kBoxBytes = kRows * kRowBytes;
+  constexpr int kStageBytes = kDkvStageBytes<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* kv = aligned_smem(smem_raw);           // K of the block, then V
+  uint8_t* stages = kv + 2 * kBlockRows * kRowBytes;   // qs, dO, lse2[64], delta[64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kBwStages * kStageBytes);
+  uint64_t* empty = full + kBwStages;
+  uint64_t* kv_full = empty + kBwStages;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * kBwK;
-  const long long bh = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const __nv_bfloat16* qb = q + bh * Sq * D;
-  const __nv_bfloat16* gb = g + bh * Sq * D;
-  const float* lse_b = lse + bh * Sq;
-  const float* delta_b = delta + bh * Sq;
-  const int n_tiles = (Sq + kBwQ - 1) / kBwQ;
-
-  auto load_tile = [&](int tile, int stage) {
-    const int q0 = tile * kBwQ;
-    copy_tile<D, kBwThreads>(qs[stage], qb, q0, Sq);
-    copy_tile<D, kBwThreads>(gs[stage], gb, q0, Sq);
-    // Statistics of rows past the end read as 0: with their zero q and dO
-    // rows they add nothing to dk or dv.
-    const int r = threadIdx.x % kBwQ;
-    const bool ok = q0 + r < Sq;
-    const int row = ok ? q0 + r : Sq - 1;
-    if (threadIdx.x < kBwQ) {
-      cp_async4(&lse_s[stage][r], lse_b + row, ok ? 4 : 0);
-    } else {
-      cp_async4(&delta_s[stage][r], delta_b + row, ok ? 4 : 0);
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int n_tiles = (Sq + kRows - 1) / kRows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
     }
-    cp_async_commit();
-  };
-  load_tile(0, 0);
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // This thread holds keys kr0 and kr0 + 8 of the warp's 16, and columns
-  // c0, c0 + 1 of every n8 tile.
-  const int kr0 = warp * 16 + lane / 4;
-  const int c0 = (lane % 4) * 2;
-  const int keys[2] = {k0 + kr0, k0 + kr0 + 8};
-  uint32_t kf[kDk][4], vf[kDk][4];
-  load_a_global<D>(k + bh * Sk * D, k0, Sk, kr0, c0, 1.f, kf);
-  load_a_global<D>(v + bh * Sk * D, k0, Sk, kr0, c0, 1.f, vf);
-
-  float dka[kDn][4], dva[kDn][4];
+  if (wg == kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(kv_full, 2 * kBlockRows * kRowBytes);
 #pragma unroll
-  for (int j = 0; j < kDn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // q / sqrt(D), rounded once: each thread scales the chunks it copied.
-    for (int c = threadIdx.x; c < kBwQ * kRowChunks; c += kBwThreads) {
-      uint4* p = reinterpret_cast<uint4*>(&qs[stage][c / kRowChunks][(c % kRowChunks) * 8]);
-      uint4 w = *p;
-      uint32_t* h = reinterpret_cast<uint32_t*>(&w);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&h[i]));
-        h[i] = pack_bf16(f.x * kScaleOf<D>, f.y * kScaleOf<D>);
+      for (int h = 0; h < kConsumers; ++h) {
+        const int row = blockIdx.x * kBlockRows + h * kRows;
+        tma_load_3d(kv + h * kBoxBytes, &k_map, kv_full, 0, row, bh);
+        tma_load_3d(kv + (kConsumers + h) * kBoxBytes, &v_map, kv_full, 0, row, bh);
       }
-      *p = w;
+      const float* lse2_b = stats + static_cast<long long>(bh) * sq_pad;
+      const float* delta_b = lse2_b + rows_pad;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwStages;
+        if (t >= kBwStages) mbar_wait(&empty[s], (t / kBwStages - 1) & 1);
+        uint8_t* st = stages + s * kStageBytes;
+        mbar_expect_tx(&full[s], 2 * kBoxBytes + 2 * kRows * 4);
+        tma_load_3d(st, &qs_map, &full[s], 0, t * kRows, bh);
+        tma_load_3d(st + kBoxBytes, &g_map, &full[s], 0, t * kRows, bh);
+        bulk_load(st + 2 * kBoxBytes, lse2_b + t * kRows, kRows * 4, &full[s]);
+        bulk_load(st + 2 * kBoxBytes + kRows * 4, delta_b + t * kRows, kRows * 4, &full[s]);
+      }
     }
-    __syncthreads();   // every thread's part of tile t has landed, scaled
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int k0 = blockIdx.x * kBlockRows + wg * kRows;
+    if (k0 >= Sk) {   // nothing to own: hand every stage back
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(&full[t % kBwStages], (t / kBwStages) & 1);
+        if (lane == 0) mbar_arrive(&empty[t % kBwStages]);
+      }
+    } else {
+      // This thread holds keys kr0 and kr0 + 8 of the consumer's 64, and query
+      // columns c0, c0 + 1 of every n8 group of a stage.
+      const int kr0 = warp * 16 + lane / 4;
+      const int c0 = (lane % 4) * 2;
+      const int keys[2] = {k0 + kr0, k0 + kr0 + 8};
+      const long long qrow0 = static_cast<long long>(bh) * Sq;
+      const uint64_t ka = smem_desc<kRowBytes>(kv + wg * kBoxBytes);
+      const uint64_t va = smem_desc<kRowBytes>(kv + (kConsumers + wg) * kBoxBytes);
 
-    const int q0 = t * kBwQ;
-#pragma unroll 1
-    for (int cc = 0; cc < kBwQ; cc += kBwChunk) {
-      // Transposed tiles: rows are this warp's keys, columns the queries.
-      float st[kBwCn][4], dpt[kBwCn][4];
-      chunk_product<D>(st, kf, qs[stage], cc, lane);
-      chunk_product<D>(dpt, vf, gs[stage], cc, lane);
+      float dka[D / 2], dva[D / 2];
 #pragma unroll
-      for (int j = 0; j < kBwCn; ++j) {
+      for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+      mbar_wait(kv_full, 0);
+
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kBwStages;
+        mbar_wait(&full[stage], (t / kBwStages) & 1);
+        const uint8_t* st = stages + stage * kStageBytes;
+        const uint64_t qd = smem_desc<kRowBytes>(st);
+        const uint64_t gd = smem_desc<kRowBytes>(st + kBoxBytes);
+        const float* lse2_s = reinterpret_cast<const float*>(st + 2 * kBoxBytes);
+        const float* delta_s = lse2_s + kRows;
+
+        // Transposed tiles: rows are this consumer's keys, columns the queries.
+        float sT[kRows / 2], dpT[kRows / 2];
+        wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = cc + j * 8 + c0 + (e & 1);
-          float sv = st[j][e];
-          if constexpr (kBiased) {
-            const int key = keys[e >> 1];
-            if (q0 + qc < Sq && key < Sk) {
-              sv += __ldg(bias + (bh * Sq + q0 + qc) * Sk + key);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kRows, false>::template run<0>(sT, ka + kk * kDescStepK, qd + kk * kDescStepK,
+                                               kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kRows, false>::template run<0>(dpT, va + kk * kDescStepK, gd + kk * kDescStepK,
+                                               kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sT);
+        fence_regs(dpT);
+
+        if constexpr (kBiased) {
+          // The bias transposed: this thread's two keys of sixteen query rows.
+          const int q0 = t * kRows;
+          const float* bp = bias + (qrow0 + q0 + c0) * Sk;
+          if (q0 + kRows <= Sq && keys[1] < Sk) {   // all there: loads sixteen at a time
+#pragma unroll
+            for (int j0 = 0; j0 < kRows / 8; j0 += 4) {
+              float b[4][4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  b[j][e] = __ldg(bp + static_cast<long long>((j0 + j) * 8 + (e & 1)) * Sk
+                                  + keys[e >> 1]);
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sT[4 * (j0 + j) + e] += b[j][e];
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qc = j * 8 + (e & 1);   // past q0 + c0
+                if (q0 + c0 + qc < Sq && keys[e >> 1] < Sk) {
+                  sT[4 * j + e] += __ldg(bp + static_cast<long long>(qc) * Sk + keys[e >> 1]);
+                }
+              }
             }
           }
-          const float pe = __expf(sv - lse_s[stage][qc]);
-          st[j][e] = pe;                                        // P^T
-          dpt[j][e] = pe * (dpt[j][e] - delta_s[stage][qc]);    // dS^T
+        }
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+          const float2 ls = *reinterpret_cast<const float2*>(lse2_s + j * 8 + c0);
+          const float2 de = *reinterpret_cast<const float2*>(delta_s + j * 8 + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float sv = sT[4 * j + e];
+            const float pe = fast_exp2(fmaf(sv, kLog2e, -((e & 1) ? ls.y : ls.x)));
+            sT[4 * j + e] = pe;                                              // P^T
+            dpT[4 * j + e] = pe * (dpT[4 * j + e] - ((e & 1) ? de.y : de.x));   // dS^T
+          }
+        }
+
+        uint32_t pa[kRows / 16][4], da[kRows / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          acc_to_a(sT, kk, pa[kk]);
+          acc_to_a(dpT, kk, da[kk]);
+        }
+        fence_regs(dva);
+        fence_regs(dka);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          Wgmma<D, true>::template run<1>(dva, pa[kk], gd + kk * kDescStepMN<kRowBytes>, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          Wgmma<D, true>::template run<1>(dka, da[kk], qd + kk * kDescStepMN<kRowBytes>, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dva);
+        fence_regs(dka);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+      }
+
+      // q was scaled before the product, so dk already carries 1/sqrt(D).
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (keys[i] >= Sk) continue;
+        const long long off = (static_cast<long long>(bh) * Sk + keys[i]) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8 + c0) =
+              __floats2bfloat162_rn(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8 + c0) =
+              __floats2bfloat162_rn(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
         }
       }
-      chunk_accumulate<D>(dva, st, gs[stage], cc, lane);
-      chunk_accumulate<D>(dka, dpt, qs[stage], cc, lane);
-    }
-    __syncthreads();   // every warp is done with this stage before it is refilled
-  }
-
-  // q was scaled before the product, so dk already carries 1/sqrt(D).
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (keys[i] >= Sk) continue;
-    const long long off = (bh * Sk + keys[i]) * D;
-#pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8 + c0) =
-          __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8 + c0) =
-          __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
     }
   }
 }
 
-// dq, and with a bias dbias = dS, of one (b, h, 64-row query tile).
+// dq, and with a bias dbias = dS, of one (b, h, 192-row query block), 64 rows
+// a consumer.
 template <int D, bool kBiased>
-__global__ void __launch_bounds__(kBwThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                    const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-                    float* __restrict__ dbias, int Sq, int Sk) {
-  constexpr int kPad = D + 8;
-  constexpr int kDk = D / 16;
-  constexpr int kDn = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[kStages][kBwK][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kStages][kBwK][kPad];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __nv_bfloat16* __restrict__ qs, const __nv_bfloat16* __restrict__ g,
+                    const float* __restrict__ stats, const float* __restrict__ bias,
+                    __nv_bfloat16* __restrict__ dq, float* __restrict__ dbias,
+                    int Sq, int Sk, int sq_pad, long long rows_pad) {
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kBoxBytes = kRows * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = aligned_smem(smem_raw);   // stage: K box, V box
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kBwStages * 2 * kBoxBytes);
+  uint64_t* empty = full + kBwStages;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kBwQ;
-  const long long bh = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const __nv_bfloat16* kb = k + bh * Sk * D;
-  const __nv_bfloat16* vb = v + bh * Sk * D;
-  const int n_tiles = (Sk + kBwK - 1) / kBwK;
-
-  auto load_tile = [&](int tile, int stage) {
-    copy_tile<D, kBwThreads>(ks[stage], kb, tile * kBwK, Sk);
-    copy_tile<D, kBwThreads>(vs[stage], vb, tile * kBwK, Sk);
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  const int r0 = warp * 16 + lane / 4;
-  const int c0 = (lane % 4) * 2;
-  const int rows[2] = {q0 + r0, q0 + r0 + 8};
-  uint32_t qf[kDk][4], gf[kDk][4];
-  load_a_global<D>(q + bh * Sq * D, q0, Sq, r0, c0, kScaleOf<D>, qf);
-  load_a_global<D>(g + bh * Sq * D, q0, Sq, r0, c0, 1.f, gf);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse_r[i] = rows[i] < Sq ? lse[bh * Sq + rows[i]] : 0.f;
-    delta_r[i] = rows[i] < Sq ? delta[bh * Sq + rows[i]] : 0.f;
-  }
-
-  float dqa[kDn][4];
-#pragma unroll
-  for (int j = 0; j < kDn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
+  const int n_tiles = (Sk + kRows - 1) / kRows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    const int k0 = t * kBwK;
-#pragma unroll 1
-    for (int cc = 0; cc < kBwK; cc += kBwChunk) {
-      float s[kBwCn][4], dp[kBwCn][4];
-      chunk_product<D>(s, qf, ks[stage], cc, lane);
-      chunk_product<D>(dp, gf, vs[stage], cc, lane);
+  if (wg == kConsumers) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kBwStages;
+        if (t >= kBwStages) mbar_wait(&empty[s], (t / kBwStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kBoxBytes);
+        tma_load_3d(tiles + s * 2 * kBoxBytes, &k_map, &full[s], 0, t * kRows, bh);
+        tma_load_3d(tiles + s * 2 * kBoxBytes + kBoxBytes, &v_map, &full[s], 0, t * kRows, bh);
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int q0 = blockIdx.x * kBlockRows + wg * kRows;
+    if (q0 >= Sq) {   // nothing to own: hand every stage back
+      for (int t = 0; t < n_tiles; ++t) {
+        mbar_wait(&full[t % kBwStages], (t / kBwStages) & 1);
+        if (lane == 0) mbar_arrive(&empty[t % kBwStages]);
+      }
+    } else {
+      const int r0 = warp * 16 + lane / 4;
+      const int c0 = (lane % 4) * 2;
+      const int rows[2] = {q0 + r0, q0 + r0 + 8};
+      const long long qrow0 = static_cast<long long>(bh) * Sq;
+      uint32_t qf[D / 16][4], gf[D / 16][4];
+      load_a_global<D>(qs + qrow0 * D, q0, Sq, r0, c0, 1.f, qf);
+      load_a_global<D>(g + qrow0 * D, q0, Sq, r0, c0, 1.f, gf);
+      // The padded statistics read as 0 past Sq.
+      const float* lse2_b = stats + static_cast<long long>(bh) * sq_pad;
+      const float lse2_r[2] = {lse2_b[rows[0]], lse2_b[rows[1]]};
+      const float delta_r[2] = {lse2_b[rows_pad + rows[0]], lse2_b[rows_pad + rows[1]]};
+      const bool pairs = Sk % 2 == 0;   // every pair of bias columns is 8-byte aligned
+      const float* brow[2] = {nullptr, nullptr};
+      if constexpr (kBiased) {
 #pragma unroll
-      for (int j = 0; j < kBwCn; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int col = k0 + cc + j * 8 + c0 + (e & 1);
-          const bool live = rows[i] < Sq && col < Sk;
-          float x = s[j][e];
-          long long at = 0;
-          if constexpr (kBiased) {
-            at = (bh * Sq + rows[i]) * Sk + col;
-            if (live) x += __ldg(bias + at);
-          }
-          float ds = __expf(x - lse_r[i]) * (dp[j][e] - delta_r[i]);
-          if (col >= Sk) ds = 0.f;   // a key past the end: p is not 0 there
-          s[j][e] = ds;
-          if constexpr (kBiased) {
-            if (live) dbias[at] = ds;
-          }
+        for (int i = 0; i < 2; ++i) {
+          if (rows[i] < Sq) brow[i] = bias + (qrow0 + rows[i]) * Sk;
         }
       }
-      chunk_accumulate<D>(dqa, s, ks[stage], cc, lane);
-    }
-    __syncthreads();
-  }
+
+      float dqa[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kBwStages;
+        mbar_wait(&full[stage], (t / kBwStages) & 1);
+        const uint8_t* kt = tiles + stage * 2 * kBoxBytes;
+        const uint64_t kd = smem_desc<kRowBytes>(kt);
+        const uint64_t vd = smem_desc<kRowBytes>(kt + kBoxBytes);
+
+        float s[kRows / 2], dp[kRows / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kRows, true>::template run<0>(s, qf[kk], kd + kk * kDescStepK, kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          Wgmma<kRows, true>::template run<0>(dp, gf[kk], vd + kk * kDescStepK, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        const int k0 = t * kRows;
+        const bool edge = k0 + kRows > Sk;
+        if constexpr (kBiased) {
+          const float* at[2] = {brow[0] == nullptr ? nullptr : brow[0] + k0 + c0,
+                                brow[1] == nullptr ? nullptr : brow[1] + k0 + c0};
+          add_bias<kRows>(s, at, Sk - k0 - c0, pairs && !edge, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+          const int col = k0 + j * 8 + c0;
+          const bool ok0 = col < Sk, ok1 = col + 1 < Sk;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float x0 = s[4 * j + 2 * i], x1 = s[4 * j + 2 * i + 1];
+            const bool live = rows[i] < Sq;
+            const long long at = (qrow0 + rows[i]) * Sk + col;
+            float ds0 = fast_exp2(fmaf(x0, kLog2e, -lse2_r[i])) * (dp[4 * j + 2 * i] - delta_r[i]);
+            float ds1 = fast_exp2(fmaf(x1, kLog2e, -lse2_r[i]))
+                * (dp[4 * j + 2 * i + 1] - delta_r[i]);
+            if (edge) {   // a key past the end: p is not 0 there
+              if (!ok0) ds0 = 0.f;
+              if (!ok1) ds1 = 0.f;
+            }
+            s[4 * j + 2 * i] = ds0;
+            s[4 * j + 2 * i + 1] = ds1;
+            if constexpr (kBiased) {
+              if (live) store_pair(dbias + at, make_float2(ds0, ds1), pairs && ok1, ok0, ok1);
+            }
+          }
+        }
+
+        uint32_t da[kRows / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) acc_to_a(s, kk, da[kk]);
+        fence_regs(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          Wgmma<D, true>::template run<1>(dqa, da[kk], kd + kk * kDescStepMN<kRowBytes>, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        if (lane == 0) mbar_arrive(&empty[stage]);
+      }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= Sq) continue;
-    __nv_bfloat16* row = dq + (bh * Sq + rows[i]) * D;
+      for (int i = 0; i < 2; ++i) {
+        if (rows[i] >= Sq) continue;
+        __nv_bfloat16* row = dq + (qrow0 + rows[i]) * D;
 #pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + c0) = __floats2bfloat162_rn(
-          dqa[j][2 * i] * kScaleOf<D>, dqa[j][2 * i + 1] * kScaleOf<D>);
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + c0) = __floats2bfloat162_rn(
+              dqa[4 * j + 2 * i] * kScaleOf<D>, dqa[4 * j + 2 * i + 1] * kScaleOf<D>);
+        }
+      }
     }
   }
 }
@@ -577,40 +792,143 @@ bool bad_shape(int B, int H, int Sq, int Sk, int d) {
   return B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || (d != 32 && d != 64);
 }
 
+// Errors of the tensor-map encoder come back above this offset.
+constexpr int kEncodeError = 10000;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (the process that
+// launches kernels has it loaded), so the library links without it.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    void* p = lib == nullptr ? nullptr : dlsym(lib, "cuTensorMapEncodeTiled");
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Map of a contiguous [n_bh, len, d] bf16 tensor for boxes of 64 rows of one
+// (b, h), swizzled by the row's width. The base must be 16-byte aligned.
+int rows_map(CUtensorMap* map, const void* base, int n_bh, int len, int d) {
+  if (encoder() == nullptr) return kEncodeError;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(n_bh)};
+  const cuuint64_t strides[2] = {2ull * d, 2ull * d * len};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(d), kRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult rc = encoder()(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(rc);
+}
+
+// More than 48 KB of dynamic shared memory has to be asked for, on the
+// device the launch goes to: before every launch.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+int blocks_of(int len) { return (len + kBlockRows - 1) / kBlockRows; }
+
+template <int D, bool kBiased>
+int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+               const float* bias, __nv_bfloat16* out, float* lse, int B, int H, int Sq, int Sk,
+               cudaStream_t st) {
+  CUtensorMap k_map, v_map;
+  int rc = rows_map(&k_map, k, B * H, Sk, D);
+  if (rc == 0) rc = rows_map(&v_map, v, B * H, Sk, D);
+  if (rc == 0) rc = allow_smem(flash_fwd_kernel<D, kBiased>, kFwdSmemBytes<D>);
+  if (rc != 0) return rc;
+  flash_fwd_kernel<D, kBiased><<<dim3(blocks_of(Sq), H, B), kThreads, kFwdSmemBytes<D>, st>>>(
+      k_map, v_map, q, bias, out, lse, Sq, Sk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kBiased>
 int launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                const float* bias, const __nv_bfloat16* out, const float* lse,
-               const __nv_bfloat16* g, float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk,
-               __nv_bfloat16* dv, float* dbias, int B, int H, int Sq, int Sk,
+               const __nv_bfloat16* g, __nv_bfloat16* qs, float* stats, __nv_bfloat16* dq,
+               __nv_bfloat16* dk, __nv_bfloat16* dv, float* dbias, int B, int H, int Sq, int Sk,
                cudaStream_t st) {
-  const long long rows = static_cast<long long>(B) * H * Sq;
-  bwd_delta_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(out, g, delta, rows);
+  CUtensorMap k_map, v_map, qs_map, g_map;
+  int rc = rows_map(&k_map, k, B * H, Sk, D);
+  if (rc == 0) rc = rows_map(&v_map, v, B * H, Sk, D);
+  if (rc == 0) rc = rows_map(&qs_map, qs, B * H, Sq, D);
+  if (rc == 0) rc = rows_map(&g_map, g, B * H, Sq, D);
+  if (rc == 0) rc = allow_smem(flash_bwd_dkv_kernel<D, kBiased>, kDkvSmemBytes<D>);
+  if (rc == 0) rc = allow_smem(flash_bwd_dq_kernel<D, kBiased>, kDqSmemBytes<D>);
+  if (rc != 0) return rc;
+
+  const int sq_pad = (Sq + kRows - 1) / kRows * kRows;
+  const long long rows_pad = static_cast<long long>(B) * H * sq_pad;
+  bwd_prep_kernel<D><<<static_cast<unsigned>((rows_pad + 7) / 8), 256, 0, st>>>(
+      q, out, g, lse, qs, stats, Sq, sq_pad, rows_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_k((Sk + kBwK - 1) / kBwK, H, B);
-  flash_bwd_dkv_kernel<D, kBiased><<<grid_k, kBwThreads, 0, st>>>(
-      q, k, v, bias, g, lse, delta, dk, dv, Sq, Sk);
+  flash_bwd_dkv_kernel<D, kBiased>
+      <<<dim3(blocks_of(Sk), H, B), kThreads, kDkvSmemBytes<D>, st>>>(
+          k_map, v_map, qs_map, g_map, stats, bias, dk, dv, Sq, Sk, sq_pad, rows_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((Sq + kBwQ - 1) / kBwQ, H, B);
-  flash_bwd_dq_kernel<D, kBiased><<<grid_q, kBwThreads, 0, st>>>(
-      q, k, v, bias, g, lse, delta, dq, dbias, Sq, Sk);
+  flash_bwd_dq_kernel<D, kBiased>
+      <<<dim3(blocks_of(Sq), H, B), kThreads, kDqSmemBytes<D>, st>>>(
+          k_map, v_map, qs, g, stats, bias, dq, dbias, Sq, Sk, sq_pad, rows_pad);
   return static_cast<int>(cudaGetLastError());
+}
+
+// info[0..2]: registers a thread at launch, bytes of local memory a thread
+// (spills) and dynamic shared memory of one kernel, as the runtime reports
+// them; info[3..8]: what the kernel was built with.
+template <typename Kernel>
+int describe(Kernel kernel, int smem_bytes, int stage_rows, int stages, int* info) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = smem_bytes;
+  info[3] = kBlockRows;
+  info[4] = stage_rows;
+  info[5] = stages;
+  info[6] = kConsumerRegs;
+  info[7] = kProducerRegs;
+  info[8] = kThreads;
+  return 0;
+}
+
+template <int D, bool kBiased>
+int describe_all(int which, int* info) {
+  if (which == 0) {
+    return describe(flash_fwd_kernel<D, kBiased>, kFwdSmemBytes<D>, kFwK, kFwStages, info);
+  }
+  if (which == 1) {
+    return describe(flash_bwd_dkv_kernel<D, kBiased>, kDkvSmemBytes<D>, kRows, kBwStages, info);
+  }
+  return describe(flash_bwd_dq_kernel<D, kBiased>, kDqSmemBytes<D>, kRows, kBwStages, info);
 }
 
 }  // namespace
 
-// C entries for ctypes. All tensors are contiguous: q, out, g, dq
-// [B, H, Sq, d] bf16; k, v, dk, dv [B, H, Sk, d] bf16; lse, delta [B, H, Sq]
-// fp32; bias, dbias [B, H, Sq, Sk] fp32 or both null. d is 32 or 64. Each
-// returns the first launch error (0 on success); the caller checks it.
+// C entries for ctypes. All tensors are contiguous and 16-byte aligned: q,
+// out, g, dq, qs [B, H, Sq, d] bf16; k, v, dk, dv [B, H, Sk, d] bf16; lse
+// [B, H, Sq] fp32; bias, dbias [B, H, Sq, Sk] fp32 or both null. d is 32 or
+// 64. Each returns the first error (0 on success; 10000 and above: the
+// tensor-map encoder was not found or refused); the caller checks it.
 
 // out and lse are written.
 extern "C" int vivid_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,
     int B, int H, int Sq, int Sk, int d, void* stream) {
   if (bad_shape(B, H, Sq, Sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Sq + kFwQ - 1) / kFwQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
@@ -618,29 +936,21 @@ extern "C" int vivid_flash_attn_fwd(
   const auto* bp = static_cast<const float*>(bias);
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* lp = static_cast<float*>(lse);
-  constexpr int kThreads = kFwWarps * 32;
   if (d == 64) {
-    if (bias != nullptr) {
-      flash_fwd_kernel<64, true><<<grid, kThreads, 0, st>>>(qp, kp, vp, bp, op, lp, Sq, Sk);
-    } else {
-      flash_fwd_kernel<64, false><<<grid, kThreads, 0, st>>>(qp, kp, vp, bp, op, lp, Sq, Sk);
-    }
-  } else {
-    if (bias != nullptr) {
-      flash_fwd_kernel<32, true><<<grid, kThreads, 0, st>>>(qp, kp, vp, bp, op, lp, Sq, Sk);
-    } else {
-      flash_fwd_kernel<32, false><<<grid, kThreads, 0, st>>>(qp, kp, vp, bp, op, lp, Sq, Sk);
-    }
+    return bias != nullptr ? launch_fwd<64, true>(qp, kp, vp, bp, op, lp, B, H, Sq, Sk, st)
+                           : launch_fwd<64, false>(qp, kp, vp, bp, op, lp, B, H, Sq, Sk, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return bias != nullptr ? launch_fwd<32, true>(qp, kp, vp, bp, op, lp, B, H, Sq, Sk, st)
+                         : launch_fwd<32, false>(qp, kp, vp, bp, op, lp, B, H, Sq, Sk, st);
 }
 
-// out and lse are this file's forward's; delta is scratch; dq, dk, dv and
-// (with a bias) every element of dbias are written.
+// out and lse are this file's forward's. Scratch: qs [B, H, Sq, d] bf16 and
+// stats [2, B * H, Sq rounded up to 64] fp32. dq, dk, dv and (with a bias)
+// every element of dbias are written.
 extern "C" int vivid_flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* out,
-    const void* lse, const void* g, void* delta, void* dq, void* dk, void* dv, void* dbias,
-    int B, int H, int Sq, int Sk, int d, void* stream) {
+    const void* lse, const void* g, void* qs, void* stats, void* dq, void* dk, void* dv,
+    void* dbias, int B, int H, int Sq, int Sk, int d, void* stream) {
   if (bad_shape(B, H, Sq, Sk, d) || (bias == nullptr) != (dbias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -652,17 +962,33 @@ extern "C" int vivid_flash_attn_bwd(
   const auto* op = static_cast<const __nv_bfloat16*>(out);
   const auto* lp = static_cast<const float*>(lse);
   const auto* gp = static_cast<const __nv_bfloat16*>(g);
-  auto* dl = static_cast<float*>(delta);
+  auto* qsp = static_cast<__nv_bfloat16*>(qs);
+  auto* sp = static_cast<float*>(stats);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   auto* dbp = static_cast<float*>(dbias);
   if (d == 64) {
     return bias != nullptr
-        ? launch_bwd<64, true>(qp, kp, vp, bp, op, lp, gp, dl, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st)
-        : launch_bwd<64, false>(qp, kp, vp, bp, op, lp, gp, dl, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st);
+        ? launch_bwd<64, true>(qp, kp, vp, bp, op, lp, gp, qsp, sp, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st)
+        : launch_bwd<64, false>(qp, kp, vp, bp, op, lp, gp, qsp, sp, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st);
   }
   return bias != nullptr
-      ? launch_bwd<32, true>(qp, kp, vp, bp, op, lp, gp, dl, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st)
-      : launch_bwd<32, false>(qp, kp, vp, bp, op, lp, gp, dl, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st);
+      ? launch_bwd<32, true>(qp, kp, vp, bp, op, lp, gp, qsp, sp, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st)
+      : launch_bwd<32, false>(qp, kp, vp, bp, op, lp, gp, qsp, sp, dqp, dkp, dvp, dbp, B, H, Sq, Sk, st);
+}
+
+// What was built: `kernel` 0 the forward, 1 dk/dv, 2 dq. info[0..2]: registers
+// a thread at launch, local-memory bytes a thread, dynamic shared memory;
+// info[3..8]: rows of the outputs a block owns, rows (dk/dv) or keys a stage,
+// stages, and the registers of a consumer and of the producer thread after
+// the warpgroups have traded them, threads a block.
+extern "C" int vivid_flash_attn_info(int kernel, int d, int biased, int* info) {
+  if ((d != 32 && d != 64) || kernel < 0 || kernel > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (d == 64) {
+    return biased ? describe_all<64, true>(kernel, info) : describe_all<64, false>(kernel, info);
+  }
+  return biased ? describe_all<32, true>(kernel, info) : describe_all<32, false>(kernel, info);
 }

@@ -73,12 +73,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
-// 4 bytes global -> shared; src_bytes = 0 writes a zero.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -85,9 +85,13 @@ class SceneDataset:
     """Infinite shuffled iteration over scene .npz files (one process).
 
     path: directory containing *.npz scene files (searched recursively).
+    Any other keyword raises ValueError, so a caller's dataset arguments are
+    either honoured or refused, never dropped.
     """
 
-    def __init__(self, path: str, seed: int = 0):
+    def __init__(self, path: str, seed: int = 0, **unknown):
+        if unknown:
+            raise ValueError(f"SceneDataset takes path and seed, not {sorted(unknown)}")
         self.path = path
         self.files = sorted(glob(os.path.join(path, "**", "*.npz"), recursive=True))
         if not self.files:

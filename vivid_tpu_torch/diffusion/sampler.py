@@ -70,14 +70,19 @@ def edm_sampler(denoise: Callable, noise: torch.Tensor,
 
 
 def make_denoiser(net, src=None, geometry=None, conditioning_image=None,
-                  generator=None, cond_noise=None):
+                  generator=None, cond_noise=None,
+                  precompute_features: Optional[bool] = None):
     """Bind an NVPrecond and its conditioning into `denoise(x, t)`. For a
     super-resolution model, `conditioning_image` [B, H, W, C] is the
     low-resolution sample at the model's resolution. The noise on it
     (noisy_sr > 0) is one draw for the whole sampling run, from `generator`
     unless the caller passes the unit noise `cond_noise`: every evaluation
     sees the same noisy image, as the JAX package's closure over one key
-    gives it."""
+    gives it. A model trained with `no_time_enc` has encoder features that
+    do not depend on sigma: they are computed once here (without a graph, on
+    a zero target at sigma 1, as the JAX package does) and injected into
+    every evaluation. `precompute_features` overrides that default
+    (`no_time_enc and not uncond`)."""
     if (conditioning_image is not None and cond_noise is None
             and net.cfg.super_res and net.cfg.noisy_sr > 0):
         if generator is None:
@@ -85,7 +90,16 @@ def make_denoiser(net, src=None, geometry=None, conditioning_image=None,
         cond_noise = torch.randn(conditioning_image.shape, generator=generator,
                                  device=conditioning_image.device)
 
+    features = None
+    if precompute_features is None:
+        precompute_features = net.cfg.no_time_enc and not net.cfg.uncond
+    if precompute_features:
+        zero_dst = torch.zeros(src.shape[:1] + src.shape[2:], device=src.device)
+        with torch.no_grad():
+            features = net(src, zero_dst, torch.ones(src.shape[0], device=src.device),
+                           geometry, return_features=True)
+
     def denoise(x, t):
         return net(src, x, t, geometry, conditioning_image=conditioning_image,
-                   cond_noise=cond_noise)
+                   cond_noise=cond_noise, inject_features=features)
     return denoise

@@ -53,12 +53,15 @@ def resolve_model(model, device):
     return model
 
 
-def open_scene_dataset(path: str, seed: int = 0):
+def open_scene_dataset(path: str, seed: int = 0, **kwargs):
+    """The scene dataset under `path`. Every other key of a caller's dataset
+    arguments arrives in `kwargs` and goes on to `SceneDataset`, which raises
+    ValueError on one it does not take: nothing is dropped in silence."""
     if os.path.basename(os.path.normpath(path)) == "RealEstate10K" or \
             os.path.isdir(os.path.join(path, "RealEstate10K")):
         raise NotImplementedError("the RealEstate10K txt+png reader is not ported; "
                                   "use a directory of scene .npz files")
-    return SceneDataset(path, seed=seed)
+    return SceneDataset(path, seed=seed, **kwargs)
 
 
 def generate_images_nvs(
@@ -110,7 +113,9 @@ def generate_images_nvs(
     batches = np.array_split(np.arange(len(seeds)), num_batches)
 
     datakwargs = dict(datakwargs or {})
-    dataset = open_scene_dataset(datakwargs["path"], seed=rng_seed)
+    dataset = open_scene_dataset(
+        datakwargs["path"], seed=rng_seed,
+        **{k: v for k, v in datakwargs.items() if k not in ("path", "class_name")})
     use_gnet = gnet is not None and guidance != 1
     if verbose:
         print(f"Generating {len(seeds)} images on {device}...")
@@ -130,7 +135,8 @@ def generate_images_nvs(
                 loader.close()
 
         def _batch(self, loader, batch_idx, indices):
-            r = EasyDict(images=None, latents=None, src=None, tgt=None, batch_idx=batch_idx,
+            r = EasyDict(images=None, latents=None, src=None, tgt=None, labels=None,
+                         noise=None, batch_idx=batch_idx,
                          num_batches=len(batches), indices=indices,
                          seeds=[seeds[int(i)] for i in indices])
             if not r.seeds:

@@ -55,6 +55,7 @@ launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             # the kernels of vivid_tpu_torch/tools, counted here with the rest
             "conv3x3_silu": 0, "nomax_lab_attention": 0}
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
+BWD_ROWS = 64   # csrc/flash_bwd.cu pads the backward's row statistics to its 64-row tiles
 
 
 def _rms_norm(x):
@@ -135,8 +136,8 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
 
-def _check(t, name, dtype, shape, device):
-    if not t.is_cuda or t.device != device:
+def _check(t, name, dtype, shape, device, on_card=True):
+    if (on_card and not t.is_cuda) or t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
@@ -385,8 +386,12 @@ def _ref_chunks(b, h, sq, sk):
     return [slice(i, i + rows) for i in range(0, sq, rows)]
 
 
-def _checked_bhsd(q, k, v, bias):
-    """Raise on anything the big-S kernels do not take -> (b, h, sq, sk, d)."""
+def _checked_bhsd(q, k, v, bias, on_card=True):
+    """Raise on anything the big-S kernels do not take -> (b, h, sq, sk, d):
+    D other than 32 or 64, a tensor that is not contiguous or whose base is not
+    16-byte aligned (the tensor maps and the vector loads want both), a wrong
+    shape or dtype, a tensor off q's device. `on_card=False` lets tensors that
+    are not on a card through, so the checks run where there is none."""
     if q.dim() != 4 or q.shape[-1] not in (32, 64):
         raise ValueError(f"q must be [B, H, Sq, D] with D 32 or 64, got {tuple(q.shape)}")
     b, h, sq, d = q.shape
@@ -394,11 +399,11 @@ def _checked_bhsd(q, k, v, bias):
         raise ValueError(f"k must be [B, H, Sk >= 1, D], got {tuple(k.shape)}")
     sk = k.shape[2]
     dev = q.device
-    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev)
-    _check(k, "k", torch.bfloat16, (b, h, sk, d), dev)
-    _check(v, "v", torch.bfloat16, (b, h, sk, d), dev)
+    _check(q, "q", torch.bfloat16, (b, h, sq, d), dev, on_card)
+    _check(k, "k", torch.bfloat16, (b, h, sk, d), dev, on_card)
+    _check(v, "v", torch.bfloat16, (b, h, sk, d), dev, on_card)
     if bias is not None:
-        _check(bias, "bias", torch.float32, (b, h, sq, sk), dev)
+        _check(bias, "bias", torch.float32, (b, h, sq, sk), dev, on_card)
     return b, h, sq, sk, d
 
 
@@ -600,8 +605,10 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g):
     """K8 backward: the gradients of `flash_attention` for the cotangent g
     [B, H, Sq, D], from the output and row statistics that forward returned ->
     (dq, dk, dv, dbias): dbias fp32 [B, H, Sq, Sk], None without a bias. Two
-    kernels (dk/dv per key tile, dq and dbias per query tile) after a small
-    pass for delta = rowsum(g * out); no atomics, so two runs give the same bits."""
+    kernels (dk/dv per key block, dq and dbias per query block) after a small
+    pass that writes, into scratch allocated here, delta = rowsum(g * out) and
+    lse * log2(e) (rows padded to 64) and q / sqrt(D) rounded to bf16 once; no
+    atomics, so two runs give the same bits."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, bias, out, lse, g)
     b, h, sq, sk, d = _checked_bhsd(q, k, v, bias)
@@ -611,19 +618,40 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g):
     _check(out, "out", torch.bfloat16, (b, h, sq, d), dev)
     _check(lse, "lse", torch.float32, (b, h, sq), dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty_like(lse)
+    qs = torch.empty_like(q)
+    stats = torch.empty(2, b * h, -(-sq // BWD_ROWS) * BWD_ROWS, dtype=torch.float32, device=dev)
     dbias = None if bias is None else torch.empty_like(bias)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vivid_flash_attn_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), _ptr(g),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias),
+            _ptr(qs), _ptr(stats), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dbias),
             b, h, sq, sk, d, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {rc}")
     launches["flash_attention_bwd"] += 1
     return dq, dk, dv, dbias
+
+
+def flash_attention_info(d: int, biased: bool = False):
+    """What K8's three kernels were built with, from the loaded library (so
+    only where there is a card): {"fwd" | "dkv" | "dq": dict(regs_at_launch,
+    local_bytes (spills), smem_bytes (dynamic shared memory), block_rows (rows
+    of the outputs one block owns), stage_rows (keys, or for dk/dv query rows,
+    in one stage of the ring), stages, consumer_regs and producer_regs (a
+    thread's registers after the warpgroups have traded them), threads)}."""
+    lib = build.library()
+    keys = ("regs_at_launch", "local_bytes", "smem_bytes", "block_rows", "stage_rows",
+            "stages", "consumer_regs", "producer_regs", "threads")
+    out = {}
+    for i, kernel in enumerate(("fwd", "dkv", "dq")):
+        info = (ctypes.c_int * len(keys))()
+        rc = lib.vivid_flash_attn_info(i, d, int(biased), ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"flash_attn_info failed: CUDA error {rc}")
+        out[kernel] = dict(zip(keys, info))
+    return out
 
 
 class _FlashAttention(torch.autograd.Function):

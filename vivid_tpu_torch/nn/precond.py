@@ -130,12 +130,17 @@ class NVPrecond(nn.Module):
         return [f.reshape((b, s) + f.shape[1:]) for f in feats]
 
     def forward(self, src, dst, sigma, geometry=None, return_logvar: bool = False,
-                generator=None, conditioning_image=None, cond_noise=None):
+                generator=None, conditioning_image=None, cond_noise=None,
+                return_features: bool = False, inject_features=None):
         """D_x [B, H, W, C] in fp32 (and logvar [B, 1, 1, 1] on request).
         `generator` feeds the dropout masks in training mode. A `super_res`
         model needs `conditioning_image`, and with noisy_sr > 0 its unit noise
         `cond_noise` (same shape): the caller draws it, once per sampling run
-        (`diffusion.sampler.make_denoiser`), never this call."""
+        (`diffusion.sampler.make_denoiser`), never this call.
+        `return_features` returns the encoder's feature list in place of D_x
+        (it does not depend on `dst` or the conditioning image);
+        `inject_features` takes such a list and skips the encoder, which is
+        how a `no_time_enc` model is sampled with one encoder pass."""
         cfg = self.cfg
         b = dst.shape[0]
         x = dst.float()
@@ -153,6 +158,15 @@ class NVPrecond(nn.Module):
         c_noise = torch.log(sigma.reshape(b)) / 4.0
         x_in = (c_in * x).to(dtype)
 
+        if inject_features is not None:
+            features = inject_features
+        elif cfg.uncond:
+            features = "zeros"
+        else:
+            features = self.encode_sources(src.to(dtype), c_noise, geometry, generator)
+        if return_features:
+            return features
+
         if cfg.super_res:
             if conditioning_image is None:
                 raise ValueError("a super_res model requires conditioning_image")
@@ -163,10 +177,6 @@ class NVPrecond(nn.Module):
                 cond = cond + cfg.noisy_sr * cond_noise
             x_in = torch.cat([x_in, cond.to(dtype)], dim=-1)
 
-        if cfg.uncond:
-            features = "zeros"
-        else:
-            features = self.encode_sources(src.to(dtype), c_noise, geometry, generator)
         src_geometries = ([geometry[:, i] for i in range(cfg.num_sources)]
                           if cfg.epipolar_attention_bias else None)
         F_x = self.unet(x_in, c_noise, geometry.reshape(b, -1), features=features,

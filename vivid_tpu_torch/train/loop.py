@@ -89,7 +89,9 @@ def training_loop(
             f"sr_training={sr_training}")
 
     dataset_kwargs = dict(dataset_kwargs or {})
-    dataset = open_scene_dataset(dataset_kwargs["path"], seed=seed)
+    dataset = open_scene_dataset(
+        dataset_kwargs["path"], seed=seed,
+        **{k: v for k, v in dataset_kwargs.items() if k not in ("path", "class_name")})
     collate_cls = VanillaCollate if vanilla_mode else DualSourceCollate
     collate = collate_cls(imsize=model_cfg.img_resolution, seed=seed)
     encoder = StandardRGBEncoder()
@@ -151,10 +153,11 @@ def training_loop(
                             learning_rate=mean("Loss/learning_rate"),
                             grad_norm=mean("Grad/global_norm"), seconds=now - tick_start)
                 ticks.append(tick)
-                say(f"Status: kimg {cur_nimg / 1e3:<9.3f} loss {tick['loss']:<8.4f} "
-                    f"gnorm {tick['grad_norm']:<10.4f} lr {tick['learning_rate']:<10.3e} "
+                # The JAX package's fields first, at its widths; the port's after.
+                say(f"Status: kimg {cur_nimg / 1e3:<9.1f} loss {tick['loss']:<8.4f} "
                     f"time {format_time(now - start_time):<12s} "
-                    f"sec/tick {tick['seconds']:<8.2f}")
+                    f"sec/tick {tick['seconds']:<8.2f} "
+                    f"gnorm {tick['grad_norm']:<10.4f} lr {tick['learning_rate']:<10.3e}")
                 pending = []
                 tick_start = now
             if interval_hit(snapshot_nimg, cur_nimg, prev_nimg) and cur_nimg != 0:
