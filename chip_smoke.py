@@ -7,7 +7,8 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
-           flash attention kernels must hold wgmma and TMA instructions
+           attention kernels (K8's three, K6) must hold wgmma and TMA
+           instructions and no mma.sync
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
@@ -171,13 +172,18 @@ def phase_build():
             print("  ptxas:", line.split("'")[1][:150], flush=True)
         elif "registers" in line or "spill" in line or "smem" in line:
             print("  ptxas:", line.strip(), flush=True)
-    _check_k8_machine_code(build, info["path"])
+    _check_wgmma_machine_code(build, info["path"])
 
 
-def _check_k8_machine_code(build, lib_path):
-    """The three big-S flash attention kernels in the built library, read with
-    the toolkit's cuobjdump: every instance multiplies on wgmma (HGMMA), gets
-    its tiles by TMA (UTMALDG) and holds no mma.sync product (HMMA)."""
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",   # K8
+                 "flash_nomax_kernel")                                                 # K6
+
+
+def _check_wgmma_machine_code(build, lib_path):
+    """The big-S attention kernels in the built library (K8's three and K6),
+    read with the toolkit's cuobjdump: every instance multiplies on wgmma
+    (HGMMA), gets its tiles by TMA (UTMALDG) and holds no mma.sync product
+    (HMMA)."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
     check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr[-2000:]}")
@@ -185,17 +191,17 @@ def _check_k8_machine_code(build, lib_path):
     for line in dump.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            kernel = next((k for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
-                                       "flash_bwd_dq_kernel") if k in name), None)
+            kernel = next((k for k in WGMMA_KERNELS if k in name), None)
             current = counts.setdefault(name, dict(kernel=kernel, HGMMA=0, UTMALDG=0, HMMA=0)) \
                 if kernel else None
         elif current is not None:
             for op in ("HGMMA", "UTMALDG", "HMMA"):
                 current[op] += f" {op}." in line or f" {op} " in line
-    check(len(counts) == 12, f"expected 3 kernels x (d 32, 64) x (bias, none), found {len(counts)}")
+    check(len(counts) == 4 * len(WGMMA_KERNELS),
+          f"expected {len(WGMMA_KERNELS)} kernels x (d 32, 64) x (bias, none), found {len(counts)}")
     for name, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, f"{name}: {c}")
-    for kernel in ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"):
+    for kernel in WGMMA_KERNELS:
         mine = [c for c in counts.values() if c["kernel"] == kernel]
         say("build", kernel=kernel, instances=len(mine),
             wgmma_instructions=[c["HGMMA"] for c in mine],
@@ -328,7 +334,9 @@ def _big_s_cases(torch, gen):
     d = 64 one; biased (std-1 bias, fp32) at 4096/8192 at batch 1 (its dbias
     alone is 0.8 GB) and at the two small shapes; with and without a bias at
     1000/1500 (ragged against K8's tiles) and at 64/8192 (one query tile, many
-    stages of keys), d = 64. Rows are scaled by
+    stages of keys), d = 64, and at the edges of the forward tiles (Sq 191
+    and 193 against 192 rows a block, Sk 127 and 129 against 128 keys a
+    stage), d = 32 and 64. Rows are scaled by
     exp(N(0, 1)) before the pixel norm the caller applies. K8's backward gets
     the output and statistics of K8's forward. The library call is
     F.scaled_dot_product_attention (its backward for the backward) on the
@@ -353,6 +361,12 @@ def _big_s_cases(torch, gen):
     # keys, and one query tile against many stages of keys.
     shapes += [(2, 2, 1000, 1500, 64, biased, False) for biased in (False, True)]
     shapes += [(1, 2, 64, 8192, 64, biased, False) for biased in (False, True)]
+    # The edges of K6's and K8's forward tiles (192 query rows a block, 128
+    # keys a stage): Sq one short of and one past a block's rows, Sk one
+    # short of and one past a stage.
+    shapes += [(2, 2, sq, sk, d, biased, False)
+               for sq, sk, d in ((191, 127, 32), (193, 129, 32), (191, 129, 64), (193, 127, 64))
+               for biased in (False, True)]
     cases = []
     for b, h, sq, sk, d, biased, on_path in shapes:
         q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
@@ -569,74 +583,88 @@ def _check_nomax_gate(torch, gen):
 
 
 def _built(name, case):
-    """What K8's kernels were built with, for its `kernel` lines: registers a
-    thread at launch and after the warpgroups have traded them, bytes of local
-    memory a thread (spills), dynamic shared memory."""
+    """What K8's and K6's kernels were built with, for their `kernel` lines:
+    registers a thread at launch and after the warpgroups have traded them,
+    bytes of local memory a thread (spills), dynamic shared memory."""
     from vivid_tpu_torch.kernels import flash
-    if name not in ("flash_attention", "flash_attention_bwd"):
+    biased = "bias=True" in case["label"]
+    if name == "flash_nomax":
+        info = {"k6": flash.flash_nomax_info(case["d"], biased)}
+    elif name in ("flash_attention", "flash_attention_bwd"):
+        info = flash.flash_attention_info(case["d"], biased)
+    else:
         return {}
-    info = flash.flash_attention_info(case["d"], "bias=True" in case["label"])
     out = {}
-    for kernel in (("fwd",) if name == "flash_attention" else ("dkv", "dq")):
+    for kernel in {"flash_nomax": ("k6",), "flash_attention": ("fwd",)}.get(name, ("dkv", "dq")):
         k = info[kernel]
         out.update({f"{kernel}_regs": f"{k['regs_at_launch']}/{k['consumer_regs']}/{k['producer_regs']}",
                     f"{kernel}_spill_bytes": k["local_bytes"], f"{kernel}_smem": k["smem_bytes"]})
     return out
 
 
-def _check_k8_faults(torch, gen):
-    """Two faults of a ring of TMA stages must fail K8's gates. The kernels
-    have no switch to break them, so each fault is planted in the inputs, as
-    the tensors a broken kernel would see: (1) the ring's last stage never
-    refreshed: every later K tile that lands in that stage is the stale first
-    one; (2) the key mask at the ragged edge dropped: the zero rows TMA fills
-    in past the end join the softmax (k and v padded with zero rows to a whole
-    stage). Forward and backward run on the faulty tensors and are held to
+def _check_ring_faults(torch, gen):
+    """Two faults of a ring of TMA stages must fail the gates of K8 (forward
+    and backward) and of K6. The kernels have no switch to break them, so
+    each fault is planted in the inputs, as the tensors a broken kernel would
+    see, sized by what each kernel was built with: (1) the ring's last stage
+    never refreshed: every later K tile that lands in that stage is the stale
+    first one; (2) the key mask at the ragged edge dropped: the zero rows TMA
+    fills in past the end join the softmax (k and v padded with zero rows to
+    a whole stage). The kernels run on the faulty tensors and are held to
     the plain versions on the true ones."""
     from vivid_tpu_torch.kernels import flash
-    fwd = flash.flash_attention_info(64, False)["fwd"]
-    keys, stages = fwd["stage_rows"], fwd["stages"]
+    rings = {"flash_attention": flash.flash_attention_info(64, False)["fwd"],
+             "flash_nomax": flash.flash_nomax_info(64, False)}
 
     def rows(b, h, s, d):
         x = torch.randn(b, h, s, d, generator=gen, device="cuda")
         return flash._rms_norm((x * torch.exp(torch.randn(b, h, s, 1, generator=gen,
                                                           device="cuda"))).bfloat16())
 
-    def gates(q, k, v, g, fk, fv, label):
-        out, lse = flash.flash_attention(q, fk, fv)
-        grads = flash.flash_attention_bwd(q, fk, fv, None, out, lse, g)
-        sk = k.shape[2]
-        want, want_lse = flash.flash_attention_ref(q.float(), k.float(), v.float())
-        want_grads = flash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None,
-                                                   want, want_lse, g.float())
-        err = (out.float() - want).abs().max().item()
+    def fwd_fails(got, want):
+        err = (got.float() - want).abs().max().item()
         rel_max = err / want.square().mean().sqrt().item()
-        rel_l2 = _rel_l2(out.float(), want)
-        grad_l2 = max(_rel_l2(a.float()[:, :, :w.shape[2]], w)
-                      for a, w in zip(grads[:3], want_grads[:3]))
-        fwd_fails = not (err <= TOL_KERNEL and rel_l2 <= TOL_KERNEL_L2
-                         and rel_max <= TOL_KERNEL_MAX)
-        check(fwd_fails and grad_l2 > TOL_GRAD_L2,
-              f"K8 with {label} passes a gate: forward max err {err}, rel L2 {rel_l2}, max err "
-              f"over RMS {rel_max}; backward rel L2 {grad_l2}")
-        say("kernel", name="flash_attention", fault=f"'{label}, Sq={q.shape[2]} Sk={sk}'",
-            max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}", rel_l2=f"{rel_l2:.3e}",
-            bwd_rel_l2=f"{grad_l2:.3e}", fails_gate=True)
+        rel_l2 = _rel_l2(got.float(), want)
+        return (not (err <= TOL_KERNEL and rel_l2 <= TOL_KERNEL_L2 and rel_max <= TOL_KERNEL_MAX),
+                dict(max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
+                     rel_l2=f"{rel_l2:.3e}"))
 
-    b, h, sq, d = 1, 2, 256, 64
-    sk = 4 * stages * keys
-    q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
-    g = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
-    stale = k.clone().view(b, h, sk // keys, keys, d)
-    stale[:, :, stages - 1::stages] = stale[:, :, stages - 1:stages]
-    gates(q, k, v, g, stale.view(b, h, sk, d), v,
-          f"stage {stages - 1} of {stages} never refreshed ({keys} keys a stage)")
-    sq, sk, d = 200, 333, 32
-    q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
-    g = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
-    pad = torch.zeros(b, h, -sk % keys, d, dtype=k.dtype, device="cuda")
-    gates(q, k, v, g, torch.cat([k, pad], 2), torch.cat([v, pad], 2),
-          "the key mask at the ragged edge dropped")
+    def gates(name, q, k, v, g, fk, fv, label):
+        sk = k.shape[2]
+        if name == "flash_nomax":
+            fails, shown = fwd_fails(flash.flash_nomax(q, fk, fv),
+                                     flash.flash_nomax_ref(q.float(), k.float(), v.float()))
+        else:
+            out, lse = flash.flash_attention(q, fk, fv)
+            grads = flash.flash_attention_bwd(q, fk, fv, None, out, lse, g)
+            want, want_lse = flash.flash_attention_ref(q.float(), k.float(), v.float())
+            want_grads = flash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None,
+                                                       want, want_lse, g.float())
+            fails, shown = fwd_fails(out, want)
+            grad_l2 = max(_rel_l2(a.float()[:, :, :w.shape[2]], w)
+                          for a, w in zip(grads[:3], want_grads[:3]))
+            fails = fails and grad_l2 > TOL_GRAD_L2
+            shown["bwd_rel_l2"] = f"{grad_l2:.3e}"
+        check(fails, f"{name} with {label} passes a gate: {shown}")
+        say("kernel", name=name, fault=f"'{label}, Sq={q.shape[2]} Sk={sk}'", **shown,
+            fails_gate=True)
+
+    for name, ring in rings.items():
+        keys, stages = ring["stage_rows"], ring["stages"]
+        b, h, sq, d = 1, 2, 256, 64
+        sk = 4 * stages * keys
+        q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
+        g = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+        stale = k.clone().view(b, h, sk // keys, keys, d)
+        stale[:, :, stages - 1::stages] = stale[:, :, stages - 1:stages]
+        gates(name, q, k, v, g, stale.view(b, h, sk, d), v,
+              f"stage {stages - 1} of {stages} never refreshed ({keys} keys a stage)")
+        sq, sk, d = 200, 333, 32
+        q, k, v = rows(b, h, sq, d), rows(b, h, sk, d), rows(b, h, sk, d)
+        g = torch.randn(b, h, sq, d, generator=gen, device="cuda").bfloat16()
+        pad = torch.zeros(b, h, -sk % keys, d, dtype=k.dtype, device="cuda")
+        gates(name, q, k, v, g, torch.cat([k, pad], 2), torch.cat([v, pad], 2),
+              "the key mask at the ragged edge dropped")
 
 
 def phase_kernels(table):
@@ -654,15 +682,15 @@ def phase_kernels(table):
     operations over the bf16 peak. The headline case of each kernel fills
     its row of the table and adds the library yardstick. The bound counts a
     third term for every kernel with a softmax, its exponentials (one for
-    every logit) over EXPS_PER_S. K8's lines carry what was built: registers
-    a thread, spilled bytes and dynamic shared memory. K8's forward output
+    every logit) over EXPS_PER_S. K8's and K6's lines carry what was built:
+    registers a thread, spilled bytes and dynamic shared memory. K8's forward output
     is also held, by the forward limits, to K6's on the same inputs: the two
     differ by their rounding only."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
     _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
-    _check_k8_faults(torch, torch.Generator(device="cuda").manual_seed(9))
+    _check_ring_faults(torch, torch.Generator(device="cuda").manual_seed(9))
     for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
                  + _fused_lab_conv_cases(torch, gen)):
         name, label = case["name"], case["label"]

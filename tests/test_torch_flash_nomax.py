@@ -80,6 +80,27 @@ def test_nomax_ref_biased_matches_pallas(shape, blocks, chains, dtype):
                                atol=ATOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("shape", [
+    (1, 2, 191, 129, 32),   # the edges of the card kernel's tiles: 192 query rows
+    (1, 1, 193, 127, 64),   # a block, 128 keys a stage
+])
+def test_nomax_ref_tile_edges_match_pallas(shape, biased, dtype):
+    """Sq one short of or one past a block's rows of the CUDA kernel, Sk one
+    past or one short of a stage: the Pallas kernel takes them as one block
+    each, in interpret mode."""
+    b, h, s, sk, d = shape
+    bias = (np.random.RandomState(13).randn(b, h, s, sk).astype(np.float32)
+            if biased else None)
+    jt, tt = _both(_qkv(*shape, seed=17), dtype)
+    want = j_nomax(*jt, None if bias is None else jnp.asarray(bias), interpret=True)
+    got = flash.flash_nomax(*tt, None if bias is None else torch.from_numpy(bias))
+    assert got.dtype == tt[2].dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=ATOL[dtype], rtol=0)
+
+
 @pytest.mark.parametrize("biased", [False, True])
 def test_nomax_ref_ragged_matches_reference_attention(biased, monkeypatch):
     """Lengths no block divides (the TPU kernel refuses them), against the
@@ -115,6 +136,22 @@ def test_nomax_cpu_takes_plain_version_and_counts_nothing():
     before = dict(flash.launches)
     torch.testing.assert_close(flash.flash_nomax(q, k, v), flash.flash_nomax_ref(q, k, v))
     assert flash.launches == before and "flash_nomax" in before
+
+
+def test_nomax_info_needs_a_card(monkeypatch):
+    """What the kernel was built with comes from the built library alone: a
+    head dim the kernel lacks raises first, and with no card the call raises
+    before it builds or loads anything."""
+    def no_library():
+        raise AssertionError("flash_nomax_info reached the library")
+
+    monkeypatch.setattr(flash.build, "library", no_library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="32 or 64"):
+        flash.flash_nomax_info(16)
+    for d in (32, 64):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            flash.flash_nomax_info(d, biased=True)
 
 
 @pytest.mark.parametrize("shape,match", [

@@ -50,7 +50,8 @@
 // crosses blocks by atomics; every output element has one owner:
 //   flash_fwd_kernel      one block per (b, h, 192 query rows), 64 per
 //                         consumer; q fragments in registers; stages of 128
-//                         keys (K and V), logits 64 x 128 a consumer.
+//                         keys (K and V), logits 64 x 128 a consumer. Its
+//                         body is flash_fwd.cuh's, which K6 shares.
 //   bwd_prep_kernel       one warp per row: delta = sum(dO * o),
 //                         lse * log2(e), both into rows padded to 64 (zeros
 //                         past the end), and the rounded q / sqrt(D).
@@ -77,44 +78,13 @@
 // to bytes. The two backward kernels each recompute S and dP: seven products
 // where five are needed, the price of one owner per element.
 
-#include <dlfcn.h>
-
-#include "flash_hopper.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
 using namespace vivid;
 
-constexpr int kRows = 64;        // rows of a TMA box and of a consumer's tile
-constexpr int kFwK = 128;        // forward: keys per stage (64 was 15-20 % slower)
-constexpr int kFwStages = 4;     // 2, 4 and 6 stages time alike: the producer is never late
 constexpr int kBwStages = 4;     // backward: 64 rows (dk/dv) or 64 keys (dq) per stage
-
-constexpr int kConsumers = 3;    // consumer warpgroups in a block
-constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kBlockRows = kConsumers * kRows;   // rows of the outputs a block owns
-// Registers a thread: 65536 / 512 = 128 at launch, then the warpgroups trade
-// them: 128 * 24 + 384 * 160 = 64512. (Two consumers of 232 and a producer of
-// 40 were slower at every path shape: three hide each other's waits better.)
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 160;
-constexpr int kEmptyArrivals = kConsumers * 4;   // one lane of every consumer warp
-
-// 1/sqrt(D) as the nearest fp32, the value the plain version multiplies by.
-template <int D>
-constexpr float kScaleOf = D == 32 ? 0.17677669529663687f : 0.125f;
-
-// Dynamic shared memory starts at no particular alignment: tiles start at the
-// next multiple of 1024 bytes (kAlignSlack is asked for on top).
-constexpr int kAlignSlack = 1024;
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  const uint32_t a = smem_addr(raw);
-  return raw + ((1024u - (a & 1023u)) & 1023u);
-}
-
-template <int D>
-constexpr int kFwdSmemBytes = kAlignSlack + kFwStages * 2 * kFwK * 2 * D + 2 * kFwStages * 8;
 
 template <int D>
 constexpr int kDqSmemBytes = kAlignSlack + kBwStages * 2 * kRows * 2 * D + 2 * kBwStages * 8;
@@ -128,82 +98,6 @@ template <int D>
 constexpr int kDkvSmemBytes = kAlignSlack + 2 * kBlockRows * 2 * D
     + kBwStages * kDkvStageBytes<D> + (2 * kBwStages + 1) * 8;
 
-// A-operand fragments of 16 rows starting at `row0` of a [rows, D] matrix in
-// device memory: this thread's rows r0 and r0 + 8, scaled by `scale` in fp32
-// and rounded once. Rows at or past `len` read as zeros.
-template <int D>
-__device__ __forceinline__ void load_a_global(const __nv_bfloat16* base, int row0, int len,
-                                              int r0, int c0, float scale,
-                                              uint32_t (&f)[D / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + r0 + (i & 1) * 8;
-      const int col = kk * 16 + c0 + (i >> 1) * 8;
-      if (row < len) {
-        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-            base + static_cast<long long>(row) * D + col);
-        f[kk][i] = pack_bf16(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
-      } else {
-        f[kk][i] = 0u;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
-}
-
-// s (this thread's part of a 64 x kCols tile of logits) += the bias. brow[i]
-// is the thread's row i of the bias at the tile's first key plus c0, or null
-// past Sq; `cols` keys of the tile exist. `whole` says every pair of columns
-// exists and is 8-byte aligned: then the loads go out sixteen at a time with
-// no branch between them, so their latencies overlap. The next tile's lines
-// of these rows are asked into L2 meanwhile, one 128-byte line a thread of
-// the quad that shares the row.
-template <int kCols>
-__device__ __forceinline__ void add_bias(float (&s)[kCols / 2], const float* const (&brow)[2],
-                                         int cols, bool whole, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (brow[i] == nullptr) continue;
-    const int line = (lane % 4) * 32 - (lane % 4) * 2;   // from c0 to the quad's line
-    if ((lane % 4) * 32 < kCols && kCols + line < cols) prefetch_l2(brow[i] + kCols + line);
-  }
-  if (whole && brow[0] != nullptr && brow[1] != nullptr) {
-#pragma unroll
-    for (int j0 = 0; j0 < kCols / 8; j0 += 8) {
-      float2 b[8][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          b[j][i] = __ldg(reinterpret_cast<const float2*>(brow[i] + (j0 + j) * 8));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          s[4 * (j0 + j) + 2 * i] += b[j][i].x;
-          s[4 * (j0 + j) + 2 * i + 1] += b[j][i].y;
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + (e & 1);   // past c0
-        if (brow[e >> 1] != nullptr && col < cols) s[4 * j + e] += __ldg(brow[e >> 1] + col);
-      }
-    }
-  }
-}
-
 // Two neighbouring fp32 values of a row of dbias: one 8-byte store where
 // `pair` says the address is even and both columns exist.
 __device__ __forceinline__ void store_pair(float* p, float2 x, bool pair, bool ok0, bool ok1) {
@@ -215,183 +109,14 @@ __device__ __forceinline__ void store_pair(float* p, float2 x, bool pair, bool o
   }
 }
 
+// The forward (flash_fwd.cuh: the body it shares with K6).
 template <int D, bool kBiased>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map,
                  const __nv_bfloat16* __restrict__ q, const float* __restrict__ bias,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq, int Sk) {
-  constexpr int kRowBytes = 2 * D;
-  constexpr int kTileBytes = kFwK * kRowBytes;   // one of K, V of a stage
-  constexpr int kBoxBytes = kRows * kRowBytes;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* tiles = aligned_smem(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kFwStages * 2 * kTileBytes);
-  uint64_t* empty = full + kFwStages;
-
-  const int wg = threadIdx.x / 128;
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;
-  const int n_tiles = (Sk + kFwK - 1) / kFwK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kFwStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kEmptyArrivals);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wg == kConsumers) {
-    reg_dealloc<kProducerRegs>();
-    if (threadIdx.x == kConsumers * 128) {
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kFwStages;
-        if (t >= kFwStages) mbar_wait(&empty[s], (t / kFwStages - 1) & 1);
-        mbar_expect_tx(&full[s], 2 * kTileBytes);
-        uint8_t* kt = tiles + s * 2 * kTileBytes;
-#pragma unroll
-        for (int h = 0; h < kFwK / kRows; ++h) {
-          tma_load_3d(kt + h * kBoxBytes, &k_map, &full[s], 0, t * kFwK + h * kRows, bh);
-          tma_load_3d(kt + kTileBytes + h * kBoxBytes, &v_map, &full[s], 0,
-                      t * kFwK + h * kRows, bh);
-        }
-      }
-    }
-  } else {
-    reg_alloc<kConsumerRegs>();
-    const int warp = (threadIdx.x % 128) / 32;
-    const int lane = threadIdx.x % 32;
-    const int q0 = blockIdx.x * kBlockRows + wg * kRows;
-    if (q0 >= Sq) {   // nothing to own: hand every stage back
-      for (int t = 0; t < n_tiles; ++t) {
-        mbar_wait(&full[t % kFwStages], (t / kFwStages) & 1);
-        if (lane == 0) mbar_arrive(&empty[t % kFwStages]);
-      }
-    } else {
-      // This thread holds rows r0 and r0 + 8 of the consumer's 64 query rows,
-      // and columns c0, c0 + 1 of every n8 group.
-      const int r0 = warp * 16 + lane / 4;
-      const int c0 = (lane % 4) * 2;
-      const long long qrow0 = static_cast<long long>(bh) * Sq;
-      uint32_t qf[D / 16][4];
-      load_a_global<D>(q + qrow0 * D, q0, Sq, r0, c0, kScaleOf<D>, qf);
-
-      float o[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-      float m[2] = {-INFINITY, -INFINITY};
-      float l[2] = {0.f, 0.f};   // per-thread partial sums; a quad holds a row
-      const float* brow[2] = {nullptr, nullptr};
-      const bool pairs = Sk % 2 == 0;   // every pair of bias columns is 8-byte aligned
-      if constexpr (kBiased) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = q0 + r0 + i * 8;
-          if (row < Sq) brow[i] = bias + (qrow0 + row) * Sk;
-        }
-      }
-
-      for (int t = 0; t < n_tiles; ++t) {
-        const int stage = t % kFwStages;
-        mbar_wait(&full[stage], (t / kFwStages) & 1);
-        const uint8_t* kt = tiles + stage * 2 * kTileBytes;
-        const uint64_t kd = smem_desc<kRowBytes>(kt);
-        const uint64_t vd = smem_desc<kRowBytes>(kt + kTileBytes);
-
-        float s[kFwK / 2];
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          Wgmma<kFwK, true>::template run<0>(s, qf[kk], kd + kk * kDescStepK, kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-
-        // Bias, the ragged edge, and the tile's row maxima.
-        const int k0 = t * kFwK;
-        const bool edge = k0 + kFwK > Sk;
-        if constexpr (kBiased) {
-          const float* at[2] = {brow[0] == nullptr ? nullptr : brow[0] + k0 + c0,
-                                brow[1] == nullptr ? nullptr : brow[1] + k0 + c0};
-          add_bias<kFwK>(s, at, Sk - k0 - c0, pairs && !edge, lane);
-        }
-        if (edge) {
-#pragma unroll
-          for (int j = 0; j < kFwK / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (k0 + j * 8 + c0 + (e & 1) >= Sk) s[4 * j + e] = -INFINITY;
-            }
-          }
-        }
-        float mx[2] = {m[0], m[1]};
-#pragma unroll
-        for (int j = 0; j < kFwK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
-        }
-        float m2[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-          const float alpha = fast_exp2((m[i] - mx[i]) * kLog2e);   // 0 on the first tile
-          m[i] = mx[i];
-          m2[i] = mx[i] * kLog2e;
-          l[i] *= alpha;
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            o[4 * j + 2 * i] *= alpha;
-            o[4 * j + 2 * i + 1] *= alpha;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kFwK / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = fast_exp2(fmaf(s[4 * j + e], kLog2e, -m2[e >> 1]));
-            s[4 * j + e] = p;
-            l[e >> 1] += p;
-          }
-        }
-
-        // o += p v, with p rounded to bf16.
-        uint32_t pa[kFwK / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < kFwK / 16; ++kk) acc_to_a(s, kk, pa[kk]);
-        fence_regs(o);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kFwK / 16; ++kk) {
-          Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(o);
-        if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with the stage
-      }
-
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = q0 + r0 + i * 8;
-        if (row >= Sq) continue;
-        __nv_bfloat16* orow = out + (qrow0 + row) * D;
-        const float inv = 1.f / l[i];
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) =
-              __floats2bfloat162_rn(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
-        }
-        if (lane % 4 == 0) lse[qrow0 + row] = m[i] + logf(l[i]);
-      }
-    }
-  }
+  attn_fwd<D, kBiased, false, false>(&k_map, &v_map, q, bias, nullptr, out, lse, Sq, Sk);
 }
 
 // The backward's pre-pass, one warp per row of the padded statistics
@@ -788,57 +513,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-bool bad_shape(int B, int H, int Sq, int Sk, int d) {
-  return B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 || (d != 32 && d != 64);
-}
-
-// Errors of the tensor-map encoder come back above this offset.
-constexpr int kEncodeError = 10000;
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (the process that
-// launches kernels has it loaded), so the library links without it.
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    void* p = lib == nullptr ? nullptr : dlsym(lib, "cuTensorMapEncodeTiled");
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// Map of a contiguous [n_bh, len, d] bf16 tensor for boxes of 64 rows of one
-// (b, h), swizzled by the row's width. The base must be 16-byte aligned.
-int rows_map(CUtensorMap* map, const void* base, int n_bh, int len, int d) {
-  if (encoder() == nullptr) return kEncodeError;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(len),
-                              static_cast<cuuint64_t>(n_bh)};
-  const cuuint64_t strides[2] = {2ull * d, 2ull * d * len};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(d), kRows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult rc = encoder()(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(rc);
-}
-
-// More than 48 KB of dynamic shared memory has to be asked for, on the
-// device the launch goes to: before every launch.
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-int blocks_of(int len) { return (len + kBlockRows - 1) / kBlockRows; }
-
 template <int D, bool kBiased>
 int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                const float* bias, __nv_bfloat16* out, float* lse, int B, int H, int Sq, int Sk,
@@ -883,26 +557,6 @@ int launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat
       <<<dim3(blocks_of(Sq), H, B), kThreads, kDqSmemBytes<D>, st>>>(
           k_map, v_map, qs, g, stats, bias, dq, dbias, Sq, Sk, sq_pad, rows_pad);
   return static_cast<int>(cudaGetLastError());
-}
-
-// info[0..2]: registers a thread at launch, bytes of local memory a thread
-// (spills) and dynamic shared memory of one kernel, as the runtime reports
-// them; info[3..8]: what the kernel was built with.
-template <typename Kernel>
-int describe(Kernel kernel, int smem_bytes, int stage_rows, int stages, int* info) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = smem_bytes;
-  info[3] = kBlockRows;
-  info[4] = stage_rows;
-  info[5] = stages;
-  info[6] = kConsumerRegs;
-  info[7] = kProducerRegs;
-  info[8] = kThreads;
-  return 0;
 }
 
 template <int D, bool kBiased>

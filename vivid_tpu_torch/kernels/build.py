@@ -22,7 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu", "flash_bwd.cu",
            "flash_fused.cu", "flash_nomax_packed.cu", "flash_nomax_lab.cu", "conv3x3_silu.cu")
-HEADERS = ("flash_common.cuh", "flash_hopper.cuh")
+HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "flash_fwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvivid_kernels.so"
@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, bias, shift, out
         i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream
     lib.vivid_flash_nomax_fwd.restype = i32
+    lib.vivid_flash_nomax_info.argtypes = [i32, i32, ptr]   # d, biased, info[9]
+    lib.vivid_flash_nomax_info.restype = i32
     lib.vivid_flash_attn_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, bias, out, lse
         i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream

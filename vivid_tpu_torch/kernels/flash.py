@@ -460,6 +460,30 @@ def flash_nomax(q, k, v, bias=None):
     launches["flash_nomax"] += 1
     return out
 
+
+# What a big-S kernel was built with, in the order its C info entry fills them.
+_INFO_KEYS = ("regs_at_launch", "local_bytes", "smem_bytes", "block_rows", "stage_rows",
+              "stages", "consumer_regs", "producer_regs", "threads")
+
+
+def flash_nomax_info(d: int, biased: bool = False):
+    """What K6's kernel for head dim `d` (32 or 64) was built with, from the
+    loaded library, so only where there is a card: dict(regs_at_launch,
+    local_bytes (spills), smem_bytes (dynamic shared memory), block_rows
+    (query rows one block owns), stage_rows (keys in one stage of the ring),
+    stages, consumer_regs and producer_regs (a thread's registers after the
+    warpgroups have traded them), threads)."""
+    if d not in (32, 64):
+        raise ValueError(f"d must be 32 or 64, got {d}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("flash_nomax_info reads the built kernel: it needs a CUDA card")
+    info = (ctypes.c_int * len(_INFO_KEYS))()
+    rc = build.library().vivid_flash_nomax_info(d, int(biased), ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"flash_nomax_info failed: CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, info))
+
+
 def flash_fused_ref(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
     """Plain version of K5, the kernel's arithmetic step for step: with
     `norm_eps` the q, k and v rows are pixel-normalised in fp32 and rounded to
@@ -642,15 +666,13 @@ def flash_attention_info(d: int, biased: bool = False):
     in one stage of the ring), stages, consumer_regs and producer_regs (a
     thread's registers after the warpgroups have traded them), threads)}."""
     lib = build.library()
-    keys = ("regs_at_launch", "local_bytes", "smem_bytes", "block_rows", "stage_rows",
-            "stages", "consumer_regs", "producer_regs", "threads")
     out = {}
     for i, kernel in enumerate(("fwd", "dkv", "dq")):
-        info = (ctypes.c_int * len(keys))()
+        info = (ctypes.c_int * len(_INFO_KEYS))()
         rc = lib.vivid_flash_attn_info(i, d, int(biased), ctypes.cast(info, ctypes.c_void_p))
         if rc != 0:
             raise RuntimeError(f"flash_attn_info failed: CUDA error {rc}")
-        out[kernel] = dict(zip(keys, info))
+        out[kernel] = dict(zip(_INFO_KEYS, info))
     return out
 
 

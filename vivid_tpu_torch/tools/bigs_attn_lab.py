@@ -1,12 +1,15 @@
-"""Big-S attention lab: the 256px model attends at S = 16384 (H = 4) and
-S = 4096 (H = 6) with 32 channels a head.
+"""Big-S attention lab: the 256px model's denoiser attends at S = 16384
+(H = 4) and S = 4096 (H = 6) with 32 channels a head, its encoder at the
+same lengths with 64 (H = 2 and 3).
 
 Counterpart of tools/bigs_attn_lab.py. The default mode times the dispatch
 the model uses, `fused_attention` (the no-max kernel from S = 4096 on, the
 flash attention kernel with a running max below), against the plain einsum
 composite `reference_attention` at the model's shapes, plus the 64px
-model's cross-attention shape for scale. `--sweep` times the two forwards
-with a running max against each other at the two big shapes:
+model's cross-attention shape for scale. `--sweep` times the forwards
+against each other at the SR model's four big shapes (its denoiser's
+cross-attention and its encoder's self-attention at 128x128 and 64x64):
+the no-max kernel `flash.flash_nomax`, and the two with a running max,
 `flash.flash_attention` (it also writes the row statistics) and
 `flash.flash_fused` on normalised rows (`norm_eps=None`) and on raw ones
 (`norm_eps=1e-4`, the norm inside the kernel). The TPU lab swept block
@@ -31,6 +34,8 @@ SHAPES = {             # name -> (label, Sq, Sk, H, D); the SR model's KV is sel
     "sr128": ("SR 128x128 xattn", 16384, 32768, 4, 32),
     "sr64": ("SR 64x64 xattn", 4096, 8192, 6, 32),
     "sr32": ("SR 32x32 xattn", 1024, 2048, 8, 32),
+    "enc128": ("SR encoder 128x128 self", 16384, 16384, 2, 64),   # the encoder: 64 a head
+    "enc64": ("SR encoder 64x64 self", 4096, 4096, 3, 64),
     "base32": ("base 32x32 xattn (d=64, for scale)", 1024, 3072, 2, 64),
 }
 EINSUM_MAX_LOGITS = 4096 * 8192   # per (b, h): above this the composite's logits do not fit
@@ -49,7 +54,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--cases", default="sr128,sr64,base32")
     ap.add_argument("--sweep", action="store_true",
-                    help="flash_attention against flash_fused at the two d=32 shapes")
+                    help="flash_nomax, flash_attention and flash_fused at the SR model's four shapes")
     ap.add_argument("--device", default=None, help="cpu: the parity checks alone")
     args = ap.parse_args(argv)
     device = lab_device(args.device)
@@ -70,12 +75,13 @@ def main(argv=None):
     if device.type == "cpu":
         return results
 
-    for case in ("sr128", "sr64") if args.sweep else args.cases.split(","):
+    for case in ("sr128", "sr64", "enc128", "enc64") if args.sweep else args.cases.split(","):
         label, sq, sk, h, d = SHAPES[case]
         q, k, v = _raw(b, h, sq, sk, d, device, gen)
         qn, kn = normalize_rows(q), normalize_rows(k)
         if args.sweep:
-            fns = {"flash_attention": lambda: flash.flash_attention(qn, kn, v),
+            fns = {"flash_nomax": lambda: flash.flash_nomax(qn, kn, v),
+                   "flash_attention": lambda: flash.flash_attention(qn, kn, v),
                    "flash_fused(normalised)": lambda: flash.flash_fused(qn, kn, v),
                    "flash_fused(norm inside)": lambda: flash.flash_fused(q, k, v, norm_eps=1e-4)}
         else:

@@ -14,6 +14,9 @@ ways to spend what that saves, each a variant of one CUDA kernel
   v5  v1 with two chains
   v6  v5 with the softmax scale folded into q (`prescale`)
 
+and beside them K6 itself, `flash.flash_nomax` (csrc/flash_nomax.cu: the
+same function on wgmma and TMA), the kernel the model runs.
+
 (The TPU lab's v3b and v7 differ from v3 and v6 by block sizes only, which
 this kernel does not have.) Every variant is first held against
 `reference_attention` at a small shape; a variant that disagrees raises.
@@ -131,7 +134,8 @@ def main(argv=None):
         label, sq, sk, h, d = SHAPES[case]
         q, k, v = _inputs(args.batch, h, sq, sk, d, device, gen)
         flops = 4 * args.batch * h * sq * sk * d
-        fns = {"v0 flash_fused": lambda: flash.flash_fused(q, k, v)}
+        fns = {"v0 flash_fused": lambda: flash.flash_fused(q, k, v),
+               "K6 flash_nomax": lambda: flash.flash_nomax(q, k, v)}
         fns.update({name: (lambda t=t: nomax_attention(q, k, v, *t))
                     for name, t in VARIANTS.items()})
         for name, fn in fns.items():
