@@ -7,17 +7,18 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
-           attention kernels (K8's three, K6) must hold wgmma and TMA
+           attention kernels (K8's three, K6, K5) must hold wgmma and TMA
            instructions and no mma.sync
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
-           its backward; the [B, H, S, D] forward with the norm and the sink
-           inside; the no-max packed forward; the fused SiLU + 3x3
-           convolution; the lab variants of the no-max attention) against its
-           plain PyTorch version at every shape the paths give it, with times
-           (CUDA events); a kernel run twice must give the same bits; two
-           faults of a TMA ring, planted in the inputs, must fail the gates
+           its backward; the [B, H, S, D] forward with the norm and the sink,
+           and its norm pre-pass alone; the no-max packed forward; the fused
+           SiLU + 3x3 convolution; the lab variants of the no-max attention)
+           against its plain PyTorch version at every shape the paths give
+           it, with times (CUDA events); a kernel run twice must give the same
+           bits; two faults of a TMA ring, planted in the inputs, must fail
+           the gates
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
            the plain versions, held against a one-ulp noise control; planted
@@ -100,7 +101,7 @@ SR_PER_EVAL_NOMAX = {"flash_nomax": 8, "flash_nomax_packed": 6}   # VIVID_NOMAX_
 BATCH = 8
 SAME_FUNCTION = "the_same_function"             # what a case's library call computes
 CORE_ONLY = "the_attention_core_only"
-# The [B, H, S, D] forward with the norm inside, (H, Sq, Sk) at d = 64: the 64px
+# The [B, H, S, D] forward on raw rows, (H, Sq, Sk) at d = 64: the 64px
 # model's cross-attention (self + 2 sources) at its three resolutions.
 FUSED_SHAPES = [(4, 1024, 3072), (6, 256, 768), (8, 64, 192)]
 
@@ -176,11 +177,12 @@ def phase_build():
 
 
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",   # K8
-                 "flash_nomax_kernel")                                                 # K6
+                 "flash_nomax_kernel",                                                 # K6
+                 "flash_fused_kernel")                                                 # K5
 
 
 def _check_wgmma_machine_code(build, lib_path):
-    """The big-S attention kernels in the built library (K8's three and K6),
+    """The big-S attention kernels in the built library (K8's three, K6, K5),
     read with the toolkit's cuobjdump: every instance multiplies on wgmma
     (HGMMA), gets its tiles by TMA (UTMALDG) and holds no mma.sync product
     (HMMA)."""
@@ -420,11 +422,14 @@ def _fused_lab_conv_cases(torch, gen):
     K9 (the conv lab's `conv3x3_silu`), same keys as `_kernel_cases`.
 
     K5 at the 64px model's three cross-attention shapes in [B, H, S, D] at
-    batch 8, raw rows with the norm inside: alone, with a std-1 bias, and at
-    1024/1024 with the unconditional model's sink of 2048; at the two big
-    d = 32 shapes on normalised rows (`norm_eps=None`), and at one ragged
-    shape with norm, bias and sink together. Its library call is SDPA on the
-    normalised rows: the same function without the norm, the core only with.
+    batch 8, raw rows with the norm (its pre-pass): alone, with a std-1 bias,
+    and at 1024/1024 with the unconditional model's sink of 2048; at the two
+    big d = 32 shapes on normalised rows (`norm_eps=None`), at one ragged
+    shape with norm, bias and sink together, and at the edges of its forward
+    tiles (Sq 191 and 193 against 192 rows a block, Sk 127 and 129 against
+    128 keys a stage; d 32 and 64, raw and normalised rows, with and without
+    a bias; one with a sink). Its library call is SDPA on the normalised
+    rows: the same function without the norm, the core only with.
     K10: every (fold_l, chains, prescale) of the lab at the lab's parity shape,
     and the one the model's kernel uses (two chains, prescale) at 16384/32768;
     SDPA computes the same function. K9 at [8, 64, 256, 256] with and without
@@ -479,6 +484,16 @@ def _fused_lab_conv_cases(torch, gen):
     for sq, sk, h, d in (NOMAX_SHAPES[0], NOMAX_SHAPES[2]):
         q, k, v = (flash._rms_norm(raw(BATCH, h, n, d)) for n in (sq, sk, sk))
         cases.append(fused_case(q, k, v, None, None, 0, plain_reps=3))
+    for sq, sk, d in ((191, 127, 32), (193, 129, 32), (191, 129, 64), (193, 127, 64)):
+        for eps in (None, 1e-4):
+            for biased in (False, True):
+                q, k, v = raw(2, 2, sq, d), raw(2, 2, sk, d), raw(2, 2, sk, d)
+                if eps is None:
+                    q, k, v = (flash._rms_norm(t) for t in (q, k, v))
+                bias = torch.randn(2, 2, sq, sk, generator=gen, device=dev) if biased else None
+                cases.append(fused_case(q, k, v, bias, eps, 0))
+    cases.append(fused_case(raw(2, 2, 193, 64), raw(2, 2, 129, 64), raw(2, 2, 129, 64),
+                            None, 1e-4, 50))
 
     def lab_case(q, k, v, variant, triple, headline=False, plain_reps=20):
         b, h, sq, d = q.shape
@@ -582,20 +597,74 @@ def _check_nomax_gate(torch, gen):
         max_err_over_rms=f"{rel_max:.3e}", rel_l2=f"{rel_l2:.3e}", fails_gate=True)
 
 
+def _bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (their bit patterns on one ordered integer line; +0 and -0 are one)."""
+    import torch
+
+    def line(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i >= 0, i, -(i + 32768))
+    return (line(a) - line(b)).abs()
+
+
+def _check_fused_norm(torch, gen):
+    """K5's norm pre-pass alone (`flash_fused_norm`) against its plain
+    version `flash._rms_norm` on the card, on raw rows (every D-vector scaled
+    by exp(N(0, 1))) at the shapes the path and the lab give K5: the 64px
+    model's cross-attention (H 4, 1024/3072, d 64) and the SR model's
+    (H 4, 16384/32768, d 32), batch 8, and one ragged shape. Every element
+    within one bf16 ulp (the sum of squares is added up in another order);
+    the share off by one is printed; two runs give the same bits. Bound:
+    its bytes, each row read once and written once."""
+    from vivid_tpu_torch.kernels import flash
+
+    def raw(b, h, s, d):
+        x = torch.randn(b, h, s, d, generator=gen, device="cuda")
+        return (x * torch.exp(torch.randn(b, h, s, 1, generator=gen, device="cuda"))).bfloat16()
+
+    h, sq, sk = FUSED_SHAPES[0]
+    sq2, sk2, h2, d2 = NOMAX_SHAPES[0]
+    for b, h, sq, sk, d in ((BATCH, h, sq, sk, 64), (BATCH, h2, sq2, sk2, d2), (2, 3, 100, 333, 32)):
+        q, k, v = raw(b, h, sq, d), raw(b, h, sk, d), raw(b, h, sk, d)
+        got = flash.flash_fused_norm(q, k, v)
+        again = flash.flash_fused_norm(q, k, v)
+        want = tuple(flash._rms_norm(t) for t in (q, k, v))
+        ulps = [_bf16_ulps(a, w) for a, w in zip(got, want)]
+        n = sum(u.numel() for u in ulps)
+        max_ulp = max(u.max().item() for u in ulps)
+        off_by_one = sum((u == 1).sum().item() for u in ulps) / n
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        check(max_ulp <= 1 and same, f"flash_fused_norm at B={b} H={h} Sq={sq} Sk={sk} d={d}: "
+              f"max {max_ulp} bf16 ulps from _rms_norm (limit 1), two runs equal: {same}")
+        del got, again, want, ulps
+        ms = cuda_ms(lambda: flash.flash_fused_norm(q, k, v))
+        plain_ms = cuda_ms(lambda: tuple(flash._rms_norm(t) for t in (q, k, v)))
+        nbytes = 2 * 2 * (q.numel() + k.numel() + v.numel())
+        say("kernel", name="flash_fused_norm", case=f"'B={b} H={h} Sq={sq} Sk={sk} d={d}'",
+            max_ulp=max_ulp, share_off_by_one=f"{off_by_one:.3e}", same_bits=same,
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f}", bound_by="bytes")
+        del q, k, v
+
+
 def _built(name, case):
-    """What K8's and K6's kernels were built with, for their `kernel` lines:
+    """What K8's, K6's and K5's kernels were built with, for their `kernel` lines:
     registers a thread at launch and after the warpgroups have traded them,
     bytes of local memory a thread (spills), dynamic shared memory."""
     from vivid_tpu_torch.kernels import flash
     biased = "bias=True" in case["label"]
     if name == "flash_nomax":
         info = {"k6": flash.flash_nomax_info(case["d"], biased)}
+    elif name == "flash_fused":
+        info = {"k5": flash.flash_fused_info(case["d"], biased)}
     elif name in ("flash_attention", "flash_attention_bwd"):
         info = flash.flash_attention_info(case["d"], biased)
     else:
         return {}
     out = {}
-    for kernel in {"flash_nomax": ("k6",), "flash_attention": ("fwd",)}.get(name, ("dkv", "dq")):
+    for kernel in {"flash_nomax": ("k6",), "flash_fused": ("k5",),
+                   "flash_attention": ("fwd",)}.get(name, ("dkv", "dq")):
         k = info[kernel]
         out.update({f"{kernel}_regs": f"{k['regs_at_launch']}/{k['consumer_regs']}/{k['producer_regs']}",
                     f"{kernel}_spill_bytes": k["local_bytes"], f"{kernel}_smem": k["smem_bytes"]})
@@ -604,9 +673,10 @@ def _built(name, case):
 
 def _check_ring_faults(torch, gen):
     """Two faults of a ring of TMA stages must fail the gates of K8 (forward
-    and backward) and of K6. The kernels have no switch to break them, so
-    each fault is planted in the inputs, as the tensors a broken kernel would
-    see, sized by what each kernel was built with: (1) the ring's last stage
+    and backward), of K6 and of K5 (with its norm pre-pass). The kernels have
+    no switch to break them, so each fault is planted in the inputs, as the
+    tensors a broken kernel would see, sized by what each kernel was built
+    with: (1) the ring's last stage
     never refreshed: every later K tile that lands in that stage is the stale
     first one; (2) the key mask at the ragged edge dropped: the zero rows TMA
     fills in past the end join the softmax (k and v padded with zero rows to
@@ -614,7 +684,8 @@ def _check_ring_faults(torch, gen):
     the plain versions on the true ones."""
     from vivid_tpu_torch.kernels import flash
     rings = {"flash_attention": flash.flash_attention_info(64, False)["fwd"],
-             "flash_nomax": flash.flash_nomax_info(64, False)}
+             "flash_nomax": flash.flash_nomax_info(64, False),
+             "flash_fused": flash.flash_fused_info(64, False)}
 
     def rows(b, h, s, d):
         x = torch.randn(b, h, s, d, generator=gen, device="cuda")
@@ -634,6 +705,10 @@ def _check_ring_faults(torch, gen):
         if name == "flash_nomax":
             fails, shown = fwd_fails(flash.flash_nomax(q, fk, fv),
                                      flash.flash_nomax_ref(q.float(), k.float(), v.float()))
+        elif name == "flash_fused":
+            eps = flash.NORM_EPS
+            fails, shown = fwd_fails(flash.flash_fused(q, fk, fv, None, eps),
+                                     flash.flash_fused_ref(q.float(), k.float(), v.float(), None, eps))
         else:
             out, lse = flash.flash_attention(q, fk, fv)
             grads = flash.flash_attention_bwd(q, fk, fv, None, out, lse, g)
@@ -682,7 +757,7 @@ def phase_kernels(table):
     operations over the bf16 peak. The headline case of each kernel fills
     its row of the table and adds the library yardstick. The bound counts a
     third term for every kernel with a softmax, its exponentials (one for
-    every logit) over EXPS_PER_S. K8's and K6's lines carry what was built:
+    every logit) over EXPS_PER_S. K8's, K6's and K5's lines carry what was built:
     registers a thread, spilled bytes and dynamic shared memory. K8's forward output
     is also held, by the forward limits, to K6's on the same inputs: the two
     differ by their rounding only."""
@@ -691,6 +766,7 @@ def phase_kernels(table):
     _check_zero_rows(torch, torch.Generator(device="cuda").manual_seed(7))
     _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
     _check_ring_faults(torch, torch.Generator(device="cuda").manual_seed(9))
+    _check_fused_norm(torch, torch.Generator(device="cuda").manual_seed(10))
     for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
                  + _fused_lab_conv_cases(torch, gen)):
         name, label = case["name"], case["label"]
@@ -1656,7 +1732,7 @@ def phase_train_sr(card):
 
 def phase_labs():
     """The [B, H, S, D] entries and the three kernel labs, as a user calls
-    them. `attention_from_raw` (K5 forward with the norm inside; backward the
+    them. `attention_from_raw` (K5 forward with its norm pre-pass; backward the
     gradient of the unfused composite, through K8 forward and backward) and
     `fused_attention` (K8 both ways below 4096 queries, K6 + K8 from there
     on) at the 64px model's cross-attention shape and at 4096/8192: outputs

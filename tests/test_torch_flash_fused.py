@@ -59,6 +59,53 @@ def test_fused_ref_matches_pallas(shape, with_bias, eps, zs, dtype):
                                atol=ATOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,with_bias,eps,zs", [
+    # the edges of the card kernel's tiles: 192 query rows a block, 128 keys a stage
+    ((1, 2, 191, 129, 32), False, None, 0),
+    ((1, 2, 191, 129, 32), True, 1e-4, 0),
+    ((1, 1, 193, 127, 64), False, 1e-4, 0),
+    ((1, 1, 193, 127, 64), True, None, 0),
+    ((1, 1, 193, 129, 32), True, 1e-4, 50),   # bias and sink together
+    ((1, 2, 191, 127, 64), False, 1e-4, 300),
+])
+def test_fused_ref_tile_edges_match_pallas(shape, with_bias, eps, zs, dtype):
+    """Sq one short of or one past a block's rows of the CUDA kernel, Sk one
+    past or one short of a stage, d 32 and 64, with and without the norm, the
+    bias and the sink: the Pallas kernel takes each length as one block, in
+    interpret mode."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(b, h, sq, sk, d, seed=20)
+    bias = 0.3 * _x(b, h, sq, sk, seed=23) if with_bias else None
+    if eps is None:   # rows the caller has normalised
+        q, k, v = (x / (1e-4 + np.linalg.norm(x, axis=-1, keepdims=True) / np.sqrt(d))
+                   for x in (q, k, v))
+    want = j_fused(*(jnp.asarray(a).astype(dtype) for a in (q, k, v)),
+                   None if bias is None else jnp.asarray(bias), norm_eps=eps, zero_sink=zs,
+                   interpret=True)
+    got = flash.flash_fused(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+                            None if bias is None else torch.from_numpy(bias), eps, zs)
+    assert got.shape == want.shape and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("d,with_bias,zs", [(32, False, 0), (64, True, 0), (32, True, 40),
+                                            (64, False, 300)])
+def test_fused_ref_of_the_prepass_rows_is_the_norm_inside(d, with_bias, zs):
+    """The card kernel normalises in a pre-pass and then takes the rows as
+    normalised: on bf16 inputs that gives the same bits as the plain version
+    with the norm inside, and the pre-pass's plain version is `_rms_norm`."""
+    b, h, sq, sk = 2, 2, 37, 70
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(b, h, sq, sk, d, seed=30))
+    bias = torch.from_numpy(_x(b, h, sq, sk, seed=33)) if with_bias else None
+    rows = flash.flash_fused_norm(q, k, v, 1e-4)
+    for got, x in zip(rows, (q, k, v)):
+        assert torch.equal(got, flash._rms_norm(x)) and got.dtype == torch.bfloat16
+    assert torch.equal(flash.flash_fused_ref(*rows, bias, None, zs),
+                       flash.flash_fused_ref(q, k, v, bias, 1e-4, zs))
+
+
 def test_fused_ref_ragged_and_chunked(monkeypatch):
     """Lengths no block divides (the TPU kernel refuses them), bias and sink
     together (the kernel takes both), against the sink as zero key columns;
@@ -95,6 +142,29 @@ def test_fused_off_the_cpu_never_takes_the_plain_version(shape, match):
         flash.flash_fused(q, q, q, norm_eps=1e-4)
     with pytest.raises(ValueError, match=match):
         attention.attention_from_raw(q, q, q)
+
+
+def test_fused_norm_off_the_cpu_never_takes_the_plain_version():
+    q = torch.empty(1, 2, 64, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="must be on"):
+        flash.flash_fused_norm(q, q, q)
+
+
+def test_fused_info_needs_a_card(monkeypatch):
+    """What K5's forward was built with comes from the built library alone: a
+    head dim the kernel lacks raises first, and with no card the call raises
+    before it builds or loads anything."""
+    def no_library():
+        raise AssertionError("flash_fused_info reached the library")
+
+    monkeypatch.setattr(flash.build, "library", no_library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="32 or 64"):
+        flash.flash_fused_info(16)
+    for d in (32, 64):
+        for biased in (False, True):
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                flash.flash_fused_info(d, biased)
 
 
 # ---- the entries ------------------------------------------------------------

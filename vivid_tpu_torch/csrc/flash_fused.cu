@@ -1,5 +1,5 @@
 // Blocked online-softmax attention on [B, H, S, D] with the pixel norm and
-// the zero sink inside the kernel (sm_90a).
+// the zero sink (sm_90a: wgmma, TMA, mbarriers).
 //
 // Replaces the TPU kernel flash_fused (_kernel) in vivid_tpu/kernels/flash.py.
 // Inputs are q [B, H, Sq, D] and k, v [B, H, Sk, D] in bf16 and an optional
@@ -18,239 +18,145 @@
 //     the max is raised to max(m, 0) and zero_sink * exp(-m) joins the
 //     denominator. A bias and a sink may come together.
 //
-// Design for this card: the big-S forward's (flash_bwd.cu flash_fwd_kernel):
-// one block of 8 warps per (b, h, 128 query rows), 16 rows a warp, q
-// fragments in registers, K and V tiles of 64 keys through a two-stage
-// cp.async ring, ldmatrix fragments. The norm is added where the data
-// already is: a q row's D values lie in one quad's registers, so its sum of
-// squares meets in two shuffles; a K or V tile is normalised in place in
-// shared memory once it has landed, one warp a row, which costs one more
-// block-wide barrier a tile. Any Sq and Sk: rows past the end are zero-filled
-// and not written, a key past the end gets logit -inf.
+// Design for this card, two kernels:
+//   fused_norm_kernel   the norm as a pre-pass: one launch writes the
+//                       normalised rows of q, k and v into scratch the caller
+//                       gives. D / 8 threads a row, 16 bytes each, the sum of
+//                       squares met by shuffles, fp32 math, one rounding.
+//   flash_fused_kernel  the forward body K8's and K6's kernels share
+//                       (flash_fwd.cuh, kFused): a TMA producer warpgroup
+//                       keeps a four-stage ring of 128-key stages (K and V)
+//                       full, three consumer warpgroups on 64-row query tiles
+//                       multiply on wgmma. It differs from K8's forward by
+//                       compile-time branches alone: q is loaded unscaled,
+//                       1/sqrt(D) multiplies the fp32 logits (folded into the
+//                       exponentials' fused multiply-add without a bias, into
+//                       the one that adds the bias with one), the sink joins
+//                       in the epilogue, and no row statistics are written.
+// In the TPU kernel every query tile normalises the K and V tiles it reads;
+// here that would be Sq / 192 times the norm's work, where the pre-pass
+// reads and writes each row once. Any Sq and Sk: the tensor maps zero-fill
+// past a (b, h)'s end, a key past the end gets p = 0, a query row past the
+// end is not written.
 //
-// What bounds it: operations at the lab's shapes (4 B H Sq Sk D over the
-// tensor-core peak, the inputs being a few tens of MB), bytes at the 64px
-// path's shapes with a bias (4 B H Sq Sk bytes of it). Every query tile
-// normalises the same K and V rows again: Sq / 128 times the norm's work,
-// which a pre-pass (one more pass over device memory) would save. mma.sync
-// cannot reach the wgmma rate.
+// What bounds it: at D = 32 the exponentials (the special-function unit
+// makes 16 a clock and SM, one a logit), at D = 64 operations and
+// exponentials alike (4 B H Sq Sk D over the tensor-core peak); with a bias
+// its fp32 bytes (4 B H Sq Sk) at the 64px model's shapes. The pre-pass is
+// bound by bytes: 2 (Sq + 2 Sk) D bytes a (b, h), read once and written once.
 
-#include "flash_common.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
 using namespace vivid;
 
-constexpr int kFfQ = 128;      // query rows per block, 16 per warp
-constexpr int kFfK = 64;       // keys per shared-memory tile
-constexpr int kFfWarps = 8;
-constexpr int kFfThreads = kFfWarps * 32;
+constexpr int kNormThreads = 256;
 
-template <int D, bool kBiased, bool kNorm>
-__global__ void __launch_bounds__(kFfThreads)
-flash_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                   __nv_bfloat16* __restrict__ out, int Sq, int Sk, float eps,
-                   float zero_sink) {
-  constexpr int kDk = D / 16;
-  constexpr int kDn = D / 8;
-  constexpr int kKn = kFfK / 8;
-  // 1/sqrt(D) as the nearest fp32, the value the plain version multiplies by.
-  constexpr float kScale = D == 32 ? 0.17677669529663687f : 0.125f;
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kFfK][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kFfK][D + 8];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kFfQ;
-  const long long bh = static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
-  const __nv_bfloat16* kb = k + bh * Sk * D;
-  const __nv_bfloat16* vb = v + bh * Sk * D;
-  const int n_tiles = (Sk + kFfK - 1) / kFfK;
-
-  auto load_tile = [&](int tile, int stage) {
-    copy_rows<D, kFfK, kFfThreads>(ks[stage], kb, D, tile * kFfK, Sk);
-    copy_rows<D, kFfK, kFfThreads>(vs[stage], vb, D, tile * kFfK, Sk);
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-
-  // This thread holds rows r0 and r0 + 8 of the warp's 16 query rows, and
-  // columns c0, c0 + 1 of every n8 tile.
-  const int r0 = warp * 16 + lane / 4;
-  const int c0 = (lane % 4) * 2;
-  uint32_t qf[kDk][4];
-  load_q_fragments<D, kNorm, true>(q + bh * Sq * D, D, q0, Sq, r0, c0, eps, 1.0f, qf);
-
-  float o[kDn][4];
-#pragma unroll
-  for (int j = 0; j < kDn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};   // per-thread partial sums; a quad holds a row
-  const float* brow[2] = {nullptr, nullptr};
-  if constexpr (kBiased) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + i * 8;
-      if (row < Sq) brow[i] = bias + (bh * Sq + row) * Sk;
+// Rows [0, q_rows) of the pre-pass are q's, the next kv_rows k's, the last
+// kv_rows v's; each row x becomes x / (eps + ||x|| / sqrt(D)), rounded once.
+template <int D>
+__global__ void __launch_bounds__(kNormThreads)
+fused_norm_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ qn,
+                  __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
+                  long long q_rows, long long kv_rows, float eps) {
+  constexpr int kLanes = D / 8;   // threads a row, 8 values each
+  const long long t = static_cast<long long>(blockIdx.x) * kNormThreads + threadIdx.x;
+  long long row = t / kLanes;
+  const bool ok = row < q_rows + 2 * kv_rows;   // the grid's last threads lie past v's end
+  const int col = static_cast<int>(t % kLanes) * 8;
+  const __nv_bfloat16* src = q;
+  __nv_bfloat16* dst = qn;
+  if (row >= q_rows) {
+    row -= q_rows;
+    src = k;
+    dst = kn;
+    if (row >= kv_rows) {
+      row -= kv_rows;
+      src = v;
+      dst = vn;
     }
   }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // every thread's part of tile t has landed
-    if constexpr (kNorm) {
-      normalize_tile<D, kFfK, kFfWarps>(ks[stage], eps);
-      normalize_tile<D, kFfK, kFfWarps>(vs[stage], eps);
-      __syncthreads();
-    }
-
-    float s[kKn][4];
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  if (ok) raw = *reinterpret_cast<const uint4*>(src + row * D + col);
+  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  float x[8];
+  float ss = 0.f;
 #pragma unroll
-    for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kDk; kk += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, &ks[stage][j * 8 + lane % 8][kk * 16 + (lane / 8) * 8]);
-        mma_16816(s[j], qf[kk], kf[0], kf[1]);
-        mma_16816(s[j], qf[kk + 1], kf[2], kf[3]);
-      }
-    }
-
-    // Scale, bias, the ragged edge, and the tile's row maxima.
-    const int k0 = t * kFfK;
-    const bool edge = k0 + kFfK > Sk;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + c0 + (e & 1);
-        float x = s[j][e] * kScale;
-        if constexpr (kBiased) {
-          const float* br = brow[e >> 1];
-          if (br != nullptr && col < Sk) x += __ldg(br + col);
-        }
-        if (edge && col >= Sk) x = -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = __expf(m[i] - mx[i]);   // 0 on the first tile (m = -inf)
-      m[i] = mx[i];
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-
-    // o += p v, with p rounded to bf16 (the accumulator layout of two n8
-    // logit tiles is the A-fragment layout of one k16 step).
-#pragma unroll
-    for (int kk = 0; kk < kFfK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kDn; j += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, &vs[stage][kk * 16 + ((lane / 8) % 2) * 8 + lane % 8]
-                                 [(j + lane / 16) * 8]);
-        mma_16816(o[j], a, vf[0], vf[1]);
-        mma_16816(o[j + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage before it is refilled
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __bfloat162float(pairs[i].x);
+    x[2 * i + 1] = __bfloat162float(pairs[i].y);
+    ss += x[2 * i] * x[2 * i] + x[2 * i + 1] * x[2 * i + 1];
   }
-
-  // The quad's partial sums meet; the sink; one division.
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    float corr = 1.f;
-    if (zero_sink > 0.f) {
-      const float m0 = fmaxf(m[i], 0.f);
-      corr = __expf(m[i] - m0);
-      l[i] = l[i] * corr + zero_sink * __expf(-m0);
-    }
-    const int row = q0 + r0 + i * 8;
-    if (row >= Sq) continue;
-    __nv_bfloat16* orow = out + (bh * Sq + row) * D;
+  for (int off = 1; off < kLanes; off <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  // Rounded as flash._rms_norm rounds it: product, then sum (no contraction).
+  const float den = __fadd_rn(eps, __fmul_rn(1.0f / sqrtf(static_cast<float>(D)), sqrtf(ss)));
+  uint4 y;
+  uint32_t* packed = reinterpret_cast<uint32_t*>(&y);
 #pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) = __floats2bfloat162_rn(
-          o[j][2 * i] * corr / l[i], o[j][2 * i + 1] * corr / l[i]);
-    }
-  }
+  for (int i = 0; i < 4; ++i) packed[i] = pack_bf16(x[2 * i] / den, x[2 * i + 1] / den);
+  if (ok) *reinterpret_cast<uint4*>(dst + row * D + col) = y;
 }
 
 template <int D>
+int launch_norm(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                __nv_bfloat16* qn, __nv_bfloat16* kn, __nv_bfloat16* vn, int B, int H, int Sq,
+                int Sk, float eps, cudaStream_t st) {
+  const long long q_rows = static_cast<long long>(B) * H * Sq;
+  const long long kv_rows = static_cast<long long>(B) * H * Sk;
+  const long long threads = (q_rows + 2 * kv_rows) * (D / 8);
+  fused_norm_kernel<D><<<static_cast<unsigned>((threads + kNormThreads - 1) / kNormThreads),
+                         kNormThreads, 0, st>>>(q, k, v, qn, kn, vn, q_rows, kv_rows, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kBiased>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fused_kernel(const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __nv_bfloat16* __restrict__ q, const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out, int Sq, int Sk, float zero_sink) {
+  attn_fwd<D, kBiased, false, false, /*kFused=*/true>(&k_map, &v_map, q, bias, nullptr, out,
+                                                      nullptr, Sq, Sk, zero_sink);
+}
+
+// With qn, kn and vn (scratch shaped as q, k, v) the pre-pass normalises into
+// them and the forward reads them; with null ones it reads q, k and v.
+template <int D, bool kBiased>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           const float* bias, __nv_bfloat16* out, int B, int H, int Sq, int Sk, bool norm,
-           float eps, float zero_sink, cudaStream_t st) {
-  const dim3 grid((Sq + kFfQ - 1) / kFfQ, H, B);
-  if (bias != nullptr) {
-    if (norm) {
-      flash_fused_kernel<D, true, true><<<grid, kFfThreads, 0, st>>>(
-          q, k, v, bias, out, Sq, Sk, eps, zero_sink);
-    } else {
-      flash_fused_kernel<D, true, false><<<grid, kFfThreads, 0, st>>>(
-          q, k, v, bias, out, Sq, Sk, eps, zero_sink);
-    }
-  } else {
-    if (norm) {
-      flash_fused_kernel<D, false, true><<<grid, kFfThreads, 0, st>>>(
-          q, k, v, bias, out, Sq, Sk, eps, zero_sink);
-    } else {
-      flash_fused_kernel<D, false, false><<<grid, kFfThreads, 0, st>>>(
-          q, k, v, bias, out, Sq, Sk, eps, zero_sink);
-    }
-  }
+           const float* bias, __nv_bfloat16* out, __nv_bfloat16* qn, __nv_bfloat16* kn,
+           __nv_bfloat16* vn, int B, int H, int Sq, int Sk, float eps, float zero_sink,
+           cudaStream_t st) {
+  const bool norm = qn != nullptr;
+  CUtensorMap k_map, v_map;
+  int rc = rows_map(&k_map, norm ? kn : k, B * H, Sk, D);
+  if (rc == 0) rc = rows_map(&v_map, norm ? vn : v, B * H, Sk, D);
+  if (rc == 0) rc = allow_smem(flash_fused_kernel<D, kBiased>, kFwdSmemBytes<D>);
+  if (rc == 0 && norm) rc = launch_norm<D>(q, k, v, qn, kn, vn, B, H, Sq, Sk, eps, st);
+  if (rc != 0) return rc;
+  flash_fused_kernel<D, kBiased><<<dim3(blocks_of(Sq), H, B), kThreads, kFwdSmemBytes<D>, st>>>(
+      k_map, v_map, norm ? qn : q, bias, out, Sq, Sk, zero_sink);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry for ctypes. All tensors are contiguous: q, out [B, H, Sq, d] bf16;
-// k, v [B, H, Sk, d] bf16; bias [B, H, Sq, Sk] fp32 or null. d is 32 or 64.
-// norm != 0 normalises q, k and v rows with `eps`; zero_sink >= 0. Returns
-// the launch's cudaGetLastError() (0 on success); the caller checks it.
+// C entries for ctypes. All tensors are contiguous and 16-byte aligned: q,
+// out, qn [B, H, Sq, d] bf16; k, v, kn, vn [B, H, Sk, d] bf16; bias
+// [B, H, Sq, Sk] fp32 or null. d is 32 or 64. Each returns the first error
+// (0 on success; 10000 and above: the tensor-map encoder was not found or
+// refused); the caller checks it.
+
+// out is written. norm != 0 normalises q, k and v rows with `eps` > 0 into
+// the scratch qn, kn, vn first (otherwise they may be null); zero_sink >= 0.
 extern "C" int vivid_flash_fused_fwd(
-    const void* q, const void* k, const void* v, const void* bias, void* out,
-    int B, int H, int Sq, int Sk, int d, int norm, float eps, float zero_sink, void* stream) {
-  if (B < 1 || H < 1 || Sq < 1 || Sk < 1 || B > 65535 || H > 65535 ||
-      (d != 32 && d != 64) || zero_sink < 0.f) {
+    const void* q, const void* k, const void* v, const void* bias, void* out, void* qn,
+    void* kn, void* vn, int B, int H, int Sq, int Sk, int d, int norm, float eps,
+    float zero_sink, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, d) || !(zero_sink >= 0.f) ||
+      (norm && (qn == nullptr || kn == nullptr || vn == nullptr || !(eps > 0.f)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -259,6 +165,46 @@ extern "C" int vivid_flash_fused_fwd(
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   const auto* bp = static_cast<const float*>(bias);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  return d == 64 ? launch<64>(qp, kp, vp, bp, op, B, H, Sq, Sk, norm != 0, eps, zero_sink, st)
-                 : launch<32>(qp, kp, vp, bp, op, B, H, Sq, Sk, norm != 0, eps, zero_sink, st);
+  auto* qnp = norm ? static_cast<__nv_bfloat16*>(qn) : nullptr;
+  auto* knp = norm ? static_cast<__nv_bfloat16*>(kn) : nullptr;
+  auto* vnp = norm ? static_cast<__nv_bfloat16*>(vn) : nullptr;
+  if (d == 64) {
+    return bias != nullptr
+        ? launch<64, true>(qp, kp, vp, bp, op, qnp, knp, vnp, B, H, Sq, Sk, eps, zero_sink, st)
+        : launch<64, false>(qp, kp, vp, bp, op, qnp, knp, vnp, B, H, Sq, Sk, eps, zero_sink, st);
+  }
+  return bias != nullptr
+      ? launch<32, true>(qp, kp, vp, bp, op, qnp, knp, vnp, B, H, Sq, Sk, eps, zero_sink, st)
+      : launch<32, false>(qp, kp, vp, bp, op, qnp, knp, vnp, B, H, Sq, Sk, eps, zero_sink, st);
+}
+
+// The pre-pass alone: qn, kn, vn are written.
+extern "C" int vivid_flash_fused_norm(
+    const void* q, const void* k, const void* v, void* qn, void* kn, void* vn,
+    int B, int H, int Sq, int Sk, int d, float eps, void* stream) {
+  if (bad_shape(B, H, Sq, Sk, d) || !(eps > 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* qnp = static_cast<__nv_bfloat16*>(qn);
+  auto* knp = static_cast<__nv_bfloat16*>(kn);
+  auto* vnp = static_cast<__nv_bfloat16*>(vn);
+  return d == 64 ? launch_norm<64>(qp, kp, vp, qnp, knp, vnp, B, H, Sq, Sk, eps, st)
+                 : launch_norm<32>(qp, kp, vp, qnp, knp, vnp, B, H, Sq, Sk, eps, st);
+}
+
+// What the forward was built with, as vivid_flash_nomax_info says it for K6:
+// info[0..2] registers a thread at launch, local-memory bytes a thread,
+// dynamic shared memory; info[3..8] rows of the output a block owns, keys a
+// stage, stages, the registers of a consumer and of the producer thread after
+// the warpgroups have traded them, threads a block.
+extern "C" int vivid_flash_fused_info(int d, int biased, int* info) {
+  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64) {
+    return biased ? describe(flash_fused_kernel<64, true>, kFwdSmemBytes<64>, kFwK, kFwStages, info)
+                  : describe(flash_fused_kernel<64, false>, kFwdSmemBytes<64>, kFwK, kFwStages, info);
+  }
+  return biased ? describe(flash_fused_kernel<32, true>, kFwdSmemBytes<32>, kFwK, kFwStages, info)
+                : describe(flash_fused_kernel<32, false>, kFwdSmemBytes<32>, kFwK, kFwStages, info);
 }

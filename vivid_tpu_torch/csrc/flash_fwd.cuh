@@ -1,12 +1,16 @@
 // The forward of the big-S attention kernels on wgmma and TMA (sm_90a), one
-// body for two kernels, chosen at compile time by kNoMax:
+// body for three kernels, chosen at compile time by kNoMax and kFused:
 //   K8's forward  (flash_bwd.cu `flash_fwd_kernel`): softmax about a running
 //                 row maximum, the output and lse = max + log(sum) written;
 //   K6            (flash_nomax.cu `flash_nomax_kernel`): no maximum, p =
-//                 exp(s) or exp(s + bias - shift), the output alone.
-// Beside it, the block layout and the pieces both files' kernels and launches
-// use: q fragments from device memory, the bias of a tile, the tensor-map
-// encoder, the shared-memory opt-in and what a kernel was built with.
+//                 exp(s) or exp(s + bias - shift), the output alone;
+//   K5            (flash_fused.cu `flash_fused_kernel`, kFused): K8's softmax
+//                 with q loaded as it is and the scale on the fp32 logits,
+//                 the zero sink in the epilogue, the output alone.
+// Beside it, the block layout and the pieces the three files' kernels and
+// launches use: q fragments from device memory, the bias of a tile, the
+// tensor-map encoder, the shared-memory opt-in and what a kernel was built
+// with.
 //
 // A block is four warpgroups. The last is the producer: it gives its
 // registers away and one thread of it keeps a ring of kFwStages stages of
@@ -19,11 +23,14 @@
 // registers, forms S = (q / sqrt(D)) K^T on wgmma with K read K-major, turns
 // S into p in registers, and adds p V on wgmma with p (rounded to bf16) from
 // registers and V read MN-major (the transpose bit). Nothing is transposed
-// through shared memory. Row sums are per-thread fp32 partials of the
-// unrounded p; the four of a quad meet once, after the last tile. Every
-// output element has one owner and nothing is atomic, so two runs give the
-// same bits. A key past Sk gets p = 0, a row past Sq is not written, and a
-// consumer whose 64 rows all lie past Sq only hands the stages back.
+// through shared memory. K5 holds q as it is and multiplies the fp32 logits
+// by 1/sqrt(D) instead: without a bias inside the exponentials' fused
+// multiply-add, with one in the fused multiply-add that adds the bias. Row
+// sums are per-thread fp32 partials of the unrounded p; the four of a quad
+// meet once, after the last tile. Every output element has one owner and
+// nothing is atomic, so two runs give the same bits. A key past Sk gets
+// p = 0, a row past Sq is not written, and a consumer whose 64 rows all lie
+// past Sq only hands the stages back.
 //
 // Without a maximum, p of a tile depends on no other tile, and nothing
 // accumulated is ever rescaled. So K6 may keep one product in flight while
@@ -111,6 +118,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN][4]) {
   }
 }
 
+// s + b, or with kScaleD a head dim (K5) s * kScaleOf<kScaleD> + b in one
+// fused multiply-add: the scale on the fp32 logits before the bias joins.
+template <int kScaleD>
+__device__ __forceinline__ float plus_bias(float s, float b) {
+  if constexpr (kScaleD == 0) {
+    return s + b;
+  } else {
+    return fmaf(s, kScaleOf<kScaleD>, b);
+  }
+}
+
 // s (this thread's part of a 64 x kCols tile of logits) += the bias. brow[i]
 // is the thread's row i of the bias at the tile's first key plus c0, or null
 // past Sq; `cols` keys of the tile exist. `whole` says every pair of columns
@@ -118,7 +136,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN][4]) {
 // no branch between them, so their latencies overlap. The next tile's lines
 // of these rows are asked into L2 meanwhile, one 128-byte line a thread of
 // the quad that shares the row.
-template <int kCols>
+template <int kCols, int kScaleD = 0>
 __device__ __forceinline__ void add_bias(float (&s)[kCols / 2], const float* const (&brow)[2],
                                          int cols, bool whole, int lane) {
 #pragma unroll
@@ -142,8 +160,9 @@ __device__ __forceinline__ void add_bias(float (&s)[kCols / 2], const float* con
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          s[4 * (j0 + j) + 2 * i] += b[j][i].x;
-          s[4 * (j0 + j) + 2 * i + 1] += b[j][i].y;
+          s[4 * (j0 + j) + 2 * i] = plus_bias<kScaleD>(s[4 * (j0 + j) + 2 * i], b[j][i].x);
+          s[4 * (j0 + j) + 2 * i + 1] =
+              plus_bias<kScaleD>(s[4 * (j0 + j) + 2 * i + 1], b[j][i].y);
         }
       }
     }
@@ -153,22 +172,24 @@ __device__ __forceinline__ void add_bias(float (&s)[kCols / 2], const float* con
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = j * 8 + (e & 1);   // past c0
-        if (brow[e >> 1] != nullptr && col < cols) s[4 * j + e] += __ldg(brow[e >> 1] + col);
+        if (brow[e >> 1] != nullptr && col < cols) {
+          s[4 * j + e] = plus_bias<kScaleD>(s[4 * j + e], __ldg(brow[e >> 1] + col));
+        }
       }
     }
   }
 }
 
-// Bias (through add_bias) and the ragged edge of the tile of logits that
-// starts at key k0: keys past Sk become -inf, so their p is 0.
-template <bool kBiased>
+// Bias (through add_bias, kScaleD as there) and the ragged edge of the tile
+// of logits that starts at key k0: keys past Sk become -inf, so their p is 0.
+template <bool kBiased, int kScaleD = 0>
 __device__ __forceinline__ void bias_and_edge(float (&s)[kFwK / 2], const float* const (&brow)[2],
                                               int k0, int c0, int Sk, bool pairs, int lane) {
   const bool edge = k0 + kFwK > Sk;
   if constexpr (kBiased) {
     const float* at[2] = {brow[0] == nullptr ? nullptr : brow[0] + k0 + c0,
                           brow[1] == nullptr ? nullptr : brow[1] + k0 + c0};
-    add_bias<kFwK>(s, at, Sk - k0 - c0, pairs && !edge, lane);
+    add_bias<kFwK, kScaleD>(s, at, Sk - k0 - c0, pairs && !edge, lane);
   }
   if (edge) {
 #pragma unroll
@@ -198,19 +219,26 @@ __device__ __forceinline__ void nomax_exps(float (&s)[kFwK / 2], float shift2, f
   }
 }
 
-// The body of K8's forward (kNoMax false: out and lse written) and of K6
+// The body of K8's forward (kNoMax false: out and lse written), of K6
 // (kNoMax true: out alone; with a bias, shift = sqrt(D) + max(bias) read from
 // device memory; kOverlap: exponentials under the product before, no-max
-// only). Grid (ceil(Sq / kBlockRows), H, B), kThreads threads,
-// kFwdSmemBytes<D> of dynamic shared memory; k_map and v_map as rows_map
-// encodes them.
-template <int D, bool kBiased, bool kNoMax, bool kOverlap>
+// only) and of K5 (kFused: K8's softmax on s = (q . k) / sqrt(D) + bias, out
+// alone, `zero_sink` all-zero key columns joined after the last tile). Grid
+// (ceil(Sq / kBlockRows), H, B), kThreads threads, kFwdSmemBytes<D> of
+// dynamic shared memory; k_map and v_map as rows_map encodes them.
+template <int D, bool kBiased, bool kNoMax, bool kOverlap, bool kFused = false>
 __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtensorMap* v_map,
                                          const __nv_bfloat16* __restrict__ q,
                                          const float* __restrict__ bias,
                                          const float* __restrict__ shift,
                                          __nv_bfloat16* __restrict__ out,
-                                         float* __restrict__ lse, int Sq, int Sk) {
+                                         float* __restrict__ lse, int Sq, int Sk,
+                                         float zero_sink = 0.f) {
+  static_assert(!(kFused && (kNoMax || kOverlap)), "K5 keeps a running maximum");
+  // log2(e) per unit of the logits the maximum is taken of: K5 without a bias
+  // keeps them unscaled and folds 1/sqrt(D) in here (the maximum of the
+  // scaled logits is the scaled maximum: rounding is monotonic).
+  constexpr float kExp2 = kFused && !kBiased ? kScaleOf<D> * kLog2e : kLog2e;
   constexpr int kRowBytes = 2 * D;
   constexpr int kTileBytes = kFwK * kRowBytes;   // one of K, V of a stage
   constexpr int kBoxBytes = kRows * kRowBytes;
@@ -264,7 +292,7 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
       const int c0 = (lane % 4) * 2;
       const long long qrow0 = static_cast<long long>(bh) * Sq;
       uint32_t qf[D / 16][4];
-      load_a_global<D>(q + qrow0 * D, q0, Sq, r0, c0, kScaleOf<D>, qf);
+      load_a_global<D>(q + qrow0 * D, q0, Sq, r0, c0, kFused ? 1.f : kScaleOf<D>, qf);
 
       float o[D / 2];
 #pragma unroll
@@ -363,8 +391,9 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
           wgmma_wait<0>();
           fence_regs(s);
 
-          // Bias, the ragged edge, and (K8) the tile's row maxima.
-          bias_and_edge<kBiased>(s, brow, t * kFwK, c0, Sk, pairs, lane);
+          // Bias (K5: after the scale), the ragged edge, and (K8, K5) the
+          // tile's row maxima.
+          bias_and_edge<kBiased, kFused ? D : 0>(s, brow, t * kFwK, c0, Sk, pairs, lane);
           if constexpr (kNoMax) {
             nomax_exps<kBiased>(s, shift2, l);
           } else {
@@ -379,9 +408,9 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
             for (int i = 0; i < 2; ++i) {
               mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
               mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-              const float alpha = fast_exp2((m[i] - mx[i]) * kLog2e);   // 0 on the first tile
+              const float alpha = fast_exp2((m[i] - mx[i]) * kExp2);   // 0 on the first tile
               m[i] = mx[i];
-              m2[i] = mx[i] * kLog2e;
+              m2[i] = mx[i] * kExp2;
               l[i] *= alpha;
 #pragma unroll
               for (int j = 0; j < D / 8; ++j) {
@@ -393,7 +422,7 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
             for (int j = 0; j < kFwK / 8; ++j) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                const float p = fast_exp2(fmaf(s[4 * j + e], kLog2e, -m2[e >> 1]));
+                const float p = fast_exp2(fmaf(s[4 * j + e], kExp2, -m2[e >> 1]));
                 s[4 * j + e] = p;
                 l[e >> 1] += p;
               }
@@ -432,6 +461,21 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
           for (int j = 0; j < D / 8; ++j) {
             *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) =
                 __floats2bfloat162_rn(o[4 * j + 2 * i] / l[i], o[4 * j + 2 * i + 1] / l[i]);
+          }
+        } else if constexpr (kFused) {
+          // The sink: the maximum raised to 0 rescales the sum and the
+          // accumulator; one division, as the plain version.
+          float corr = 1.f, den = l[i];
+          if (zero_sink > 0.f) {
+            const float mi = kBiased ? m[i] : m[i] * kScaleOf<D>;
+            const float m0 = fmaxf(mi, 0.f);
+            corr = expf(mi - m0);
+            den = l[i] * corr + zero_sink * expf(-m0);
+          }
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) = __floats2bfloat162_rn(
+                o[4 * j + 2 * i] * corr / den, o[4 * j + 2 * i + 1] * corr / den);
           }
         } else {
           const float inv = 1.f / l[i];

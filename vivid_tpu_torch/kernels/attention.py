@@ -82,7 +82,7 @@ def _composite_from_raw(q, k, v, bias, zero_sink: int):
 
 
 class _AttentionFromRaw(torch.autograd.Function):
-    """Forward: the fused kernel with the norm inside. Backward: the gradient
+    """Forward: the fused kernel with its norm pre-pass. Backward: the gradient
     of the unfused composite, recomputed from the inputs."""
 
     @staticmethod

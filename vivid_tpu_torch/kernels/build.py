@@ -129,9 +129,16 @@ def library() -> ctypes.CDLL:
     lib.vivid_flash_attn_info.restype = i32
     lib.vivid_flash_fused_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr,                # q, k, v, bias, out
+        ptr, ptr, ptr,                          # qn, kn, vn (scratch of the norm)
         i32, i32, i32, i32, i32,                # B, H, Sq, Sk, d
         i32, f32, f32, ptr]                     # norm, eps, zero_sink, stream
     lib.vivid_flash_fused_fwd.restype = i32
+    lib.vivid_flash_fused_norm.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, qn, kn, vn
+        i32, i32, i32, i32, i32, f32, ptr]      # B, H, Sq, Sk, d, eps, stream
+    lib.vivid_flash_fused_norm.restype = i32
+    lib.vivid_flash_fused_info.argtypes = [i32, i32, ptr]   # d, biased, info[9]
+    lib.vivid_flash_fused_info.restype = i32
     lib.vivid_flash_nomax_packed_fwd.argtypes = [
         ptr, ptr, i32, i32, i32, i32, i32,      # qkv, out, B, S, H, d, n_src
         ptr, i32, ptr, i32,                     # feats/len for 2 sources

@@ -21,8 +21,9 @@ backward `flash_attention` again for the output and the statistics, then
 `flash_attention_bwd`, which is the JAX package's own schedule
 (`jax.vjp(_stock_flash)` behind the no-max forward). `flash_fused`
 (csrc/flash_fused.cu, counterpart of `flash_fused` there) is the forward on
-[B, H, S, D] with a running max that normalises its rows itself and takes a
-bias and a zero sink. `flash_nomax_packed` (csrc/flash_nomax_packed.cu,
+[B, H, S, D] with a running max that normalises its rows itself, in a
+pre-pass (`flash_fused_norm` launches it alone), and takes a bias and a zero
+sink. `flash_nomax_packed` (csrc/flash_nomax_packed.cu,
 counterpart of `flash_nomax_packed`) computes what the unbiased packed
 forwards compute by the no-max schedule; `packed_self_attention` and
 `packed_xattn` take it as their forward when asked (`nomax=True`), with the
@@ -51,18 +52,18 @@ NORM_EPS = 1e-4  # the pixel norm's eps, as in the TPU kernels
 launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             "flash_fused_packed_bwd": 0, "flash_fused_packed_xattn_bwd": 0,
             "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0,
-            "flash_fused": 0, "flash_nomax_packed": 0,
+            "flash_fused": 0, "flash_fused_norm": 0, "flash_nomax_packed": 0,
             # the kernels of vivid_tpu_torch/tools, counted here with the rest
             "conv3x3_silu": 0, "nomax_lab_attention": 0}
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
 BWD_ROWS = 64   # csrc/flash_bwd.cu pads the backward's row statistics to its 64-row tiles
 
 
-def _rms_norm(x):
+def _rms_norm(x, eps=NORM_EPS):
     """Pixel norm of the last axis in fp32, result in x's dtype. The norm's
     gradient at a zero row is 0 (vector_norm's), as the kernels guard r = 0."""
     x32 = x.float()
-    den = NORM_EPS + torch.linalg.vector_norm(x32, dim=-1, keepdim=True) / math.sqrt(x.shape[-1])
+    den = eps + torch.linalg.vector_norm(x32, dim=-1, keepdim=True) / math.sqrt(x.shape[-1])
     return (x32 / den).to(x.dtype)
 
 
@@ -466,6 +467,20 @@ _INFO_KEYS = ("regs_at_launch", "local_bytes", "smem_bytes", "block_rows", "stag
               "stages", "consumer_regs", "producer_regs", "threads")
 
 
+def _forward_info(name, d, biased):
+    """_INFO_KEYS of the forward kernel whose C info entry is vivid_<name>."""
+    if d not in (32, 64):
+        raise ValueError(f"d must be 32 or 64, got {d}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name} reads the built kernel: it needs a CUDA card")
+    info = (ctypes.c_int * len(_INFO_KEYS))()
+    rc = getattr(build.library(), f"vivid_{name}")(d, int(biased),
+                                                   ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    return dict(zip(_INFO_KEYS, info))
+
+
 def flash_nomax_info(d: int, biased: bool = False):
     """What K6's kernel for head dim `d` (32 or 64) was built with, from the
     loaded library, so only where there is a card: dict(regs_at_launch,
@@ -473,15 +488,7 @@ def flash_nomax_info(d: int, biased: bool = False):
     (query rows one block owns), stage_rows (keys in one stage of the ring),
     stages, consumer_regs and producer_regs (a thread's registers after the
     warpgroups have traded them), threads)."""
-    if d not in (32, 64):
-        raise ValueError(f"d must be 32 or 64, got {d}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("flash_nomax_info reads the built kernel: it needs a CUDA card")
-    info = (ctypes.c_int * len(_INFO_KEYS))()
-    rc = build.library().vivid_flash_nomax_info(d, int(biased), ctypes.cast(info, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"flash_nomax_info failed: CUDA error {rc}")
-    return dict(zip(_INFO_KEYS, info))
+    return _forward_info("flash_nomax_info", d, biased)
 
 
 def flash_fused_ref(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
@@ -522,9 +529,10 @@ def flash_fused(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
     """K5: softmax(q k^T / sqrt(D) + bias) v with a running max, on q
     [B, H, Sq, D] and k, v [B, H, Sk, D] (bf16 on the card, D 32 or 64, any Sq
     and Sk), optional unscaled fp32 bias [B, H, Sq, Sk] -> [B, H, Sq, D]. With
-    `norm_eps` the kernel pixel-normalises the q, k and v rows itself (raw
-    projection outputs in); with None it takes them as normalised. `zero_sink`
-    all-zero key columns join the softmax in closed form. The forward alone:
+    `norm_eps` the q, k and v rows are pixel-normalised first (raw
+    projection outputs in), by a pre-pass into scratch allocated here; with
+    None they are taken as normalised. `zero_sink` all-zero key columns join
+    the softmax in closed form. The forward alone:
     `kernels.attention.attention_from_raw` is the entry with a gradient."""
     if q.device.type == "cpu":
         return flash_fused_ref(q, k, v, bias, norm_eps, zero_sink)
@@ -532,17 +540,48 @@ def flash_fused(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
     if zero_sink < 0 or (norm_eps is not None and norm_eps <= 0):
         raise ValueError(f"zero_sink {zero_sink} must be >= 0 and norm_eps {norm_eps} > 0 or None")
     out = torch.empty_like(q)
+    scratch = (None,) * 3 if norm_eps is None else tuple(torch.empty_like(t) for t in (q, k, v))
     lib = build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.vivid_flash_fused_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), b, h, sq, sk, d,
-            int(norm_eps is not None), ctypes.c_float(norm_eps or 0.0),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), *map(_ptr, scratch),
+            b, h, sq, sk, d, int(norm_eps is not None), ctypes.c_float(norm_eps or 0.0),
             ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_fused kernel launch failed: CUDA error {rc}")
     launches["flash_fused"] += 1
     return out
+
+
+def flash_fused_norm(q, k, v, norm_eps: float = NORM_EPS):
+    """K5's pre-pass alone: the pixel-normalised rows of q [B, H, Sq, D] and
+    k, v [B, H, Sk, D] (bf16 on the card, D 32 or 64) -> (qn, kn, vn), what
+    `flash_fused` with `norm_eps` multiplies. Its plain version is
+    `_rms_norm`."""
+    if q.device.type == "cpu":
+        return tuple(_rms_norm(t, norm_eps) for t in (q, k, v))
+    b, h, sq, sk, d = _checked_bhsd(q, k, v, None)
+    if not norm_eps > 0:
+        raise ValueError(f"norm_eps must be > 0, got {norm_eps}")
+    outs = tuple(torch.empty_like(t) for t in (q, k, v))
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.vivid_flash_fused_norm(
+            _ptr(q), _ptr(k), _ptr(v), *map(_ptr, outs), b, h, sq, sk, d,
+            ctypes.c_float(norm_eps), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flash_fused_norm kernel launch failed: CUDA error {rc}")
+    launches["flash_fused_norm"] += 1
+    return outs
+
+
+def flash_fused_info(d: int, biased: bool = False):
+    """What K5's forward kernel for head dim `d` (32 or 64) was built with,
+    from the loaded library, so only where there is a card: the keys of
+    `flash_nomax_info`."""
+    return _forward_info("flash_fused_info", d, biased)
 
 
 def flash_attention_ref(q, k, v, bias=None):

@@ -12,7 +12,7 @@ cross-attention and its encoder's self-attention at 128x128 and 64x64):
 the no-max kernel `flash.flash_nomax`, and the two with a running max,
 `flash.flash_attention` (it also writes the row statistics) and
 `flash.flash_fused` on normalised rows (`norm_eps=None`) and on raw ones
-(`norm_eps=1e-4`, the norm inside the kernel). The TPU lab swept block
+(`norm_eps=1e-4`, its norm pre-pass included). The TPU lab swept block
 sizes, which these kernels do not have. Parity comes first: the dispatch is
 held against the composite at one shape of each kernel, and a disagreement
 raises.
@@ -83,7 +83,7 @@ def main(argv=None):
             fns = {"flash_nomax": lambda: flash.flash_nomax(qn, kn, v),
                    "flash_attention": lambda: flash.flash_attention(qn, kn, v),
                    "flash_fused(normalised)": lambda: flash.flash_fused(qn, kn, v),
-                   "flash_fused(norm inside)": lambda: flash.flash_fused(q, k, v, norm_eps=1e-4)}
+                   "flash_fused(raw rows)": lambda: flash.flash_fused(q, k, v, norm_eps=1e-4)}
         else:
             fns = {"fused_attention": lambda: fused_attention(qn, kn, v)}
             if sq * sk <= EINSUM_MAX_LOGITS:
