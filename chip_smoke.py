@@ -7,8 +7,9 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
-           attention kernels (K8's three, K6, K5) must hold wgmma and TMA
-           instructions and no mma.sync
+           attention kernels (K8's three, K6, K5) and the fused SiLU + 3x3
+           convolution (K9) must hold wgmma and TMA instructions and no
+           mma.sync
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
@@ -18,7 +19,8 @@ its own:
            against its plain PyTorch version at every shape the paths give
            it, with times (CUDA events); a kernel run twice must give the same
            bits; two faults of a TMA ring, planted in the inputs, must fail
-           the gates
+           the gates, and so must three faults of K9 (the image boundary
+           lost, the taps transposed, the SiLU applied twice)
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
            the plain versions, held against a one-ulp noise control; planted
@@ -176,16 +178,19 @@ def phase_build():
     _check_wgmma_machine_code(build, info["path"])
 
 
-WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",   # K8
-                 "flash_nomax_kernel",                                                 # K6
-                 "flash_fused_kernel")                                                 # K5
+# The kernels on wgmma + TMA, with their template instances in the library:
+# the attention kernels (d 32, 64) x (bias, none), K9 with and without the SiLU.
+WGMMA_KERNELS = {"flash_fwd_kernel": 4, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 4,  # K8
+                 "flash_nomax_kernel": 4,                                                   # K6
+                 "flash_fused_kernel": 4,                                                   # K5
+                 "conv3x3_silu_kernel": 2}                                                  # K9
 
 
 def _check_wgmma_machine_code(build, lib_path):
-    """The big-S attention kernels in the built library (K8's three, K6, K5),
-    read with the toolkit's cuobjdump: every instance multiplies on wgmma
-    (HGMMA), gets its tiles by TMA (UTMALDG) and holds no mma.sync product
-    (HMMA)."""
+    """The kernels on wgmma in the built library (K8's three, K6, K5, K9),
+    read with the toolkit's cuobjdump: each has its expected number of
+    instances, and every instance multiplies on wgmma (HGMMA), gets its tiles
+    by TMA (UTMALDG) and holds no mma.sync product (HMMA)."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=300)
     check(dump.returncode == 0, f"cuobjdump failed: {dump.stderr[-2000:]}")
@@ -199,12 +204,11 @@ def _check_wgmma_machine_code(build, lib_path):
         elif current is not None:
             for op in ("HGMMA", "UTMALDG", "HMMA"):
                 current[op] += f" {op}." in line or f" {op} " in line
-    check(len(counts) == 4 * len(WGMMA_KERNELS),
-          f"expected {len(WGMMA_KERNELS)} kernels x (d 32, 64) x (bias, none), found {len(counts)}")
     for name, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0, f"{name}: {c}")
-    for kernel in WGMMA_KERNELS:
+    for kernel, instances in WGMMA_KERNELS.items():
         mine = [c for c in counts.values() if c["kernel"] == kernel]
+        check(len(mine) == instances, f"{kernel}: {len(mine)} instances, expected {instances}")
         say("build", kernel=kernel, instances=len(mine),
             wgmma_instructions=[c["HGMMA"] for c in mine],
             tma_loads=[c["UTMALDG"] for c in mine], mma_sync_instructions=0)
@@ -432,9 +436,12 @@ def _fused_lab_conv_cases(torch, gen):
     rows: the same function without the norm, the core only with.
     K10: every (fold_l, chains, prescale) of the lab at the lab's parity shape,
     and the one the model's kernel uses (two chains, prescale) at 16384/32768;
-    SDPA computes the same function. K9 at [8, 64, 256, 256] with and without
-    the SiLU and at a ragged 30 x 50, against F.silu / 0.596 and F.conv2d, two
-    library calls timed together. Its weights are drawn at half the
+    SDPA computes the same function. K9 at [8, 64, 256, 256], at a ragged
+    30 x 50 and at the edges of its output tiles (sized from
+    `conv3x3_silu_info`: rows one short of, at and one past a tile, pixels
+    likewise, 1 x 1, one pixel wide, a batch of 3), each with and without the
+    SiLU, against F.silu / 0.596 and F.conv2d, two library calls timed
+    together. Its weights are drawn at half the
     magnitude-preserving scale: the output then has RMS 0.5 and stays below 4,
     where one bf16 rounding is at most 7.8e-3, so the absolute limit the
     attention outputs are held to can hold a convolution's too."""
@@ -521,25 +528,34 @@ def _fused_lab_conv_cases(torch, gen):
                           plain_reps=3))
 
     c = fused_conv_lab.CHANNELS
-    for b, hh, ww, fuse in ((BATCH, 256, 256, True), (BATCH, 256, 256, False), (2, 30, 50, True)):
+    tr, tp = (fused_conv_lab.conv3x3_silu_info()[k] for k in ("tile_rows", "tile_pixels"))
+
+    def conv_case(b, hh, ww, fuse):
         x = torch.randn(b, hh, ww, c, generator=gen, device=dev).bfloat16().permute(0, 3, 1, 2)
         w = (0.5 / math.sqrt(9 * c) * torch.randn(c, c, 3, 3, generator=gen, device=dev)).bfloat16()
 
         def nhwc(fn):   # [B, H, W, C], the memory's order: a pixel's channels are one vector
             return lambda: (fn().permute(0, 2, 3, 1),)
 
-        cases.append(dict(
+        return dict(
             name="conv3x3_silu", d=c, headline=(b, hh, fuse) == (BATCH, 256, True),
             label=f"B={b} {hh}x{ww} C={c} silu={fuse}",
-            kernel=nhwc(lambda x=x, w=w, fuse=fuse: fused_conv_lab.conv3x3_silu(x, w, fuse)),
-            plain32=nhwc(lambda x=x, w=w, fuse=fuse: fused_conv_lab.conv3x3_silu_ref(
-                x.float(), w.float(), fuse)),
-            plain=lambda x=x, w=w, fuse=fuse: fused_conv_lab.conv3x3_silu_ref(x, w, fuse),
-            library=lambda x=x, w=w, fuse=fuse: F.conv2d(
-                F.silu(x) / 0.596 if fuse else x, w, padding=1),
+            kernel=nhwc(lambda: fused_conv_lab.conv3x3_silu(x, w, fuse)),
+            plain32=nhwc(lambda: fused_conv_lab.conv3x3_silu_ref(x.float(), w.float(), fuse)),
+            plain=lambda: fused_conv_lab.conv3x3_silu_ref(x, w, fuse),
+            library=lambda: F.conv2d(F.silu(x) / 0.596 if fuse else x, w, padding=1),
             library_is=SAME_FUNCTION,
             bytes=2 * (2 * x.numel() + w.numel()), flops=2 * b * hh * ww * 9 * c * c,
-            exps=x.numel() if fuse else 0))   # the SiLU's
+            exps=x.numel() if fuse else 0)   # the SiLU's
+
+    # The headline shape, a ragged one, and the edges of the kernel's tiles:
+    # rows one short of, at and one past a tile, pixels likewise, a 1 x 1
+    # image, images one pixel wide, a batch of 3 with both edges ragged.
+    shapes = [(BATCH, 256, 256), (2, 30, 50)] + [(2, tr + e, tp) for e in (-1, 0, 1)] + [
+        (2, tr, tp - 1), (2, tr, tp + 1), (1, 1, 1), (2, 2 * tr + 3, 1), (3, 3 * tr - 2, 2 * tp + 5)]
+    for b, hh, ww in shapes:
+        for fuse in (True, False):
+            cases.append(conv_case(b, hh, ww, fuse))
     return cases
 
 
@@ -649,12 +665,16 @@ def _check_fused_norm(torch, gen):
 
 
 def _built(name, case):
-    """What K8's, K6's and K5's kernels were built with, for their `kernel` lines:
-    registers a thread at launch and after the warpgroups have traded them,
-    bytes of local memory a thread (spills), dynamic shared memory."""
+    """What K8's, K6's, K5's and K9's kernels were built with, for their
+    `kernel` lines: registers a thread at launch and after the warpgroups have
+    traded them, bytes of local memory a thread (spills), dynamic shared
+    memory."""
     from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.tools import fused_conv_lab
     biased = "bias=True" in case["label"]
-    if name == "flash_nomax":
+    if name == "conv3x3_silu":
+        info = {"k9": fused_conv_lab.conv3x3_silu_info("silu=True" in case["label"])}
+    elif name == "flash_nomax":
         info = {"k6": flash.flash_nomax_info(case["d"], biased)}
     elif name == "flash_fused":
         info = {"k5": flash.flash_fused_info(case["d"], biased)}
@@ -663,12 +683,23 @@ def _built(name, case):
     else:
         return {}
     out = {}
-    for kernel in {"flash_nomax": ("k6",), "flash_fused": ("k5",),
+    for kernel in {"flash_nomax": ("k6",), "flash_fused": ("k5",), "conv3x3_silu": ("k9",),
                    "flash_attention": ("fwd",)}.get(name, ("dkv", "dq")):
         k = info[kernel]
         out.update({f"{kernel}_regs": f"{k['regs_at_launch']}/{k['consumer_regs']}/{k['producer_regs']}",
                     f"{kernel}_spill_bytes": k["local_bytes"], f"{kernel}_smem": k["smem_bytes"]})
     return out
+
+
+def _fwd_fails(got, want):
+    """(fails, shown): whether a forward output misses one of the forward
+    limits against the plain version on fp32 inputs, and the three numbers."""
+    err = (got.float() - want).abs().max().item()
+    rel_max = err / want.square().mean().sqrt().item()
+    rel_l2 = _rel_l2(got.float(), want)
+    return (not (err <= TOL_KERNEL and rel_l2 <= TOL_KERNEL_L2 and rel_max <= TOL_KERNEL_MAX),
+            dict(max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
+                 rel_l2=f"{rel_l2:.3e}"))
 
 
 def _check_ring_faults(torch, gen):
@@ -692,22 +723,14 @@ def _check_ring_faults(torch, gen):
         return flash._rms_norm((x * torch.exp(torch.randn(b, h, s, 1, generator=gen,
                                                           device="cuda"))).bfloat16())
 
-    def fwd_fails(got, want):
-        err = (got.float() - want).abs().max().item()
-        rel_max = err / want.square().mean().sqrt().item()
-        rel_l2 = _rel_l2(got.float(), want)
-        return (not (err <= TOL_KERNEL and rel_l2 <= TOL_KERNEL_L2 and rel_max <= TOL_KERNEL_MAX),
-                dict(max_abs_err=f"{err:.3e}", max_err_over_rms=f"{rel_max:.3e}",
-                     rel_l2=f"{rel_l2:.3e}"))
-
     def gates(name, q, k, v, g, fk, fv, label):
         sk = k.shape[2]
         if name == "flash_nomax":
-            fails, shown = fwd_fails(flash.flash_nomax(q, fk, fv),
+            fails, shown = _fwd_fails(flash.flash_nomax(q, fk, fv),
                                      flash.flash_nomax_ref(q.float(), k.float(), v.float()))
         elif name == "flash_fused":
             eps = flash.NORM_EPS
-            fails, shown = fwd_fails(flash.flash_fused(q, fk, fv, None, eps),
+            fails, shown = _fwd_fails(flash.flash_fused(q, fk, fv, None, eps),
                                      flash.flash_fused_ref(q.float(), k.float(), v.float(), None, eps))
         else:
             out, lse = flash.flash_attention(q, fk, fv)
@@ -715,7 +738,7 @@ def _check_ring_faults(torch, gen):
             want, want_lse = flash.flash_attention_ref(q.float(), k.float(), v.float())
             want_grads = flash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None,
                                                        want, want_lse, g.float())
-            fails, shown = fwd_fails(out, want)
+            fails, shown = _fwd_fails(out, want)
             grad_l2 = max(_rel_l2(a.float()[:, :, :w.shape[2]], w)
                           for a, w in zip(grads[:3], want_grads[:3]))
             fails = fails and grad_l2 > TOL_GRAD_L2
@@ -740,6 +763,35 @@ def _check_ring_faults(torch, gen):
         pad = torch.zeros(b, h, -sk % keys, d, dtype=k.dtype, device="cuda")
         gates(name, q, k, v, g, torch.cat([k, pad], 2), torch.cat([v, pad], 2),
               "the key mask at the ragged edge dropped")
+
+
+def _check_conv_faults(torch, gen):
+    """Three faults of K9 must fail its gate. The kernel has no switch to
+    break it, so each is planted in the inputs, as the tensors a broken kernel
+    would see, sized by the tile it was built with, and the kernel runs on
+    them held to the plain version on the true ones: (1) the image boundary
+    lost (halos reaching into the next image): two images of 2 tile rows + 3
+    stacked into one of twice the height, so the seam falls inside a tile;
+    (2) the taps transposed (ky and kx swapped: B read in the wrong
+    orientation); (3) the SiLU applied twice (a stage passed through it
+    again)."""
+    from vivid_tpu_torch.tools import fused_conv_lab as lab
+    info = lab.conv3x3_silu_info(True)
+    c, hh, ww = lab.CHANNELS, 2 * info["tile_rows"] + 3, 2 * info["tile_pixels"]
+    x = torch.randn(2, hh, ww, c, generator=gen, device="cuda").bfloat16().permute(0, 3, 1, 2)
+    w = (0.5 / math.sqrt(9 * c) * torch.randn(c, c, 3, 3, generator=gen, device="cuda")).bfloat16()
+    want = lab.conv3x3_silu_ref(x.float(), w.float(), True)
+    stacked = x.permute(0, 2, 3, 1).reshape(1, 2 * hh, ww, c).permute(0, 3, 1, 2)
+    silu_x = (torch.nn.functional.silu(x.float()) / 0.596).bfloat16()
+    for label, got in (
+            ("the image boundary lost", lab.conv3x3_silu(stacked, w, True).permute(0, 2, 3, 1)
+             .reshape(2, hh, ww, c).permute(0, 3, 1, 2)),
+            ("the taps transposed", lab.conv3x3_silu(x, w.transpose(2, 3), True)),
+            ("the SiLU applied twice", lab.conv3x3_silu(silu_x, w, True))):
+        fails, shown = _fwd_fails(got, want)
+        check(fails, f"conv3x3_silu with {label} passes the gate: {shown}")
+        say("kernel", name="conv3x3_silu", fault=f"'{label}, B=2 {hh}x{ww}'", **shown,
+            fails_gate=True)
 
 
 def phase_kernels(table):
@@ -767,6 +819,7 @@ def phase_kernels(table):
     _check_nomax_gate(torch, torch.Generator(device="cuda").manual_seed(8))
     _check_ring_faults(torch, torch.Generator(device="cuda").manual_seed(9))
     _check_fused_norm(torch, torch.Generator(device="cuda").manual_seed(10))
+    _check_conv_faults(torch, torch.Generator(device="cuda").manual_seed(11))
     for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
                  + _fused_lab_conv_cases(torch, gen)):
         name, label = case["name"], case["label"]

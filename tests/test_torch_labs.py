@@ -40,23 +40,30 @@ def _jax_lab(name, monkeypatch):
     return module
 
 
-@pytest.mark.parametrize("fuse_silu", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_conv_ref_matches_pallas(fuse_silu, dtype, monkeypatch):
+# (B, H, W): the square case, a non-square image (an H/W swap in the plain
+# version shows there) and a batch of 3. The square case keeps its bare id.
+_CONV_SHAPES = {"": (2, 16, 16), "-16x24": (2, 16, 24), "-b3": (3, 8, 16)}
+
+
+@pytest.mark.parametrize("dtype,fuse_silu,shape", [
+    pytest.param(dtype, fuse, shape, id=f"{dtype}-{fuse}{tag}")
+    for tag, shape in _CONV_SHAPES.items() for dtype in ("float32", "bfloat16")
+    for fuse in (True, False)])
+def test_conv_ref_matches_pallas(fuse_silu, dtype, shape, monkeypatch):
     lab = _jax_lab("fused_conv_lab", monkeypatch)
-    b, res, c = 2, 16, fused_conv_lab.CHANNELS
+    (b, hh, ww), c = shape, fused_conv_lab.CHANNELS
     rng = np.random.RandomState(0)
-    x = rng.randn(b, res, res, c).astype(np.float32)                       # NHWC
+    x = rng.randn(b, hh, ww, c).astype(np.float32)                         # NHWC
     w = (rng.randn(3, 3, c, c) / np.sqrt(9 * c)).astype(np.float32)        # HWIO
     jdt = getattr(jnp, dtype)
-    conv = lab.make_pallas_conv_h(res, res, c, jdt, chunk=4, fuse_silu=fuse_silu, interpret=True)
+    conv = lab.make_pallas_conv_h(hh, ww, c, jdt, chunk=4, fuse_silu=fuse_silu, interpret=True)
     want = np.asarray(conv(jnp.asarray(x).astype(jdt),
                            lab.pack_conv_weight_h(jnp.asarray(w).astype(jdt))), np.float32)
     tdt = getattr(torch, dtype)
     tx = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)                   # channels_last NCHW
     tw = torch.from_numpy(w).to(tdt).permute(3, 2, 0, 1).contiguous()      # OIHW, as compat lays it
     got = fused_conv_lab.conv3x3_silu(tx, tw, fuse_silu)
-    assert got.dtype == tdt and got.shape == (b, c, res, res)
+    assert got.dtype == tdt and got.shape == (b, c, hh, ww)
     assert got.is_contiguous(memory_format=torch.channels_last)
     got = got.permute(0, 2, 3, 1).float().numpy()
     if dtype == "float32":
@@ -130,6 +137,14 @@ def test_lab_main_checks_parity_on_the_cpu(lab, argv, checks, capsys):
     assert len(results) == checks and all(r["check"] == "parity" for r in results)
     out = capsys.readouterr().out
     assert "parity" in out and " ms" not in out
+
+
+def test_conv_info_raises_without_a_card(monkeypatch):
+    """The kernel's build facts come from the loaded library, so only with a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fuse in (True, False):
+        with pytest.raises(RuntimeError, match="needs a CUDA card"):
+            fused_conv_lab.conv3x3_silu_info(fuse)
 
 
 @pytest.mark.parametrize("lab", [fused_conv_lab, nomax_attn_lab, bigs_attn_lab])

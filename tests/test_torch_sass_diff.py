@@ -49,3 +49,14 @@ def test_main_exits_0_only_when_every_instance_matches(dumps, new_body, new_kern
     dumps["new.so"] = _listing("1f00aa77", new_body, kernel=new_kernel)
     assert sass_diff.main(["old.so", "new.so"]) == rc
     assert ("all identical" in capsys.readouterr().out) == (rc == 0)
+
+
+def test_default_kernels_are_k8_k6_and_k5(dumps):
+    """Without --kernels the K8, K6 and K5 instances are compared (K5's norm
+    pre-pass too), and nothing else of the library."""
+    names = ["flash_fwd_kernelILi32ELb0EEEv", "flash_bwd_dkv_kernelILi64ELb1EEEv",
+             "flash_bwd_dq_kernelILi32ELb1EEEv", "flash_nomax_kernelILi64ELb0EEEv",
+             "flash_fused_kernelILi64ELb1EEEv", "fused_norm_kernelILi32EEEv"]
+    dumps["lib.so"] = "".join(_listing("83e499fc", ["EXIT"], kernel=k) for k in names) + _listing(
+        "83e499fc", ["EXIT"], kernel="conv3x3_silu_kernelILb1EEEv")
+    assert sorted(sass_diff.functions("lib.so", sass_diff.KERNELS)) == sorted(names)

@@ -153,4 +153,6 @@ def library() -> ctypes.CDLL:
         ptr, ptr, ptr, i32, i32, i32,           # x, w, y, B, H, W
         i32, i32, ptr]                          # fuse_silu, blocks, stream
     lib.vivid_conv3x3_silu_fwd.restype = i32
+    lib.vivid_conv3x3_silu_info.argtypes = [i32, ptr]   # fuse_silu, info[9]
+    lib.vivid_conv3x3_silu_info.restype = i32
     return lib

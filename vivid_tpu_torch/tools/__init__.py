@@ -16,18 +16,21 @@ def lab_device(name):
     return torch.device(name or "cuda")
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median of `reps` single-call times by CUDA events, after one warm-up."""
+def cuda_ms(fn, reps: int = 10, calls: int = 1) -> float:
+    """Median of `reps` times by CUDA events, after one warm-up, each of
+    `calls` calls back to back and divided by them: one call includes the
+    host's time to launch it, many back to back hide it behind the card's."""
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 

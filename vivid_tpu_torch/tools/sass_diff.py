@@ -21,7 +21,8 @@ import sys
 from vivid_tpu_torch.kernels import build
 
 KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",   # K8
-           "flash_nomax_kernel")                                                 # K6
+           "flash_nomax_kernel",                                                 # K6
+           "flash_fused_kernel", "fused_norm_kernel")                            # K5
 _INSTRUCTION = re.compile(r"^\s*/\*[0-9a-f]+\*/\s*(.*?)\s*;")   # "/*0010*/  MOV R1, R2 ;"
 
 
