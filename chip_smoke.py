@@ -7,9 +7,9 @@ It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
-           attention kernels (K8's three, K6, K5) and the fused SiLU + 3x3
-           convolution (K9) must hold wgmma and TMA instructions and no
-           mma.sync
+           attention kernels (K8's three, K6, K5), the packed attention
+           backward's two (K3/K4) and the fused SiLU + 3x3 convolution (K9)
+           must hold wgmma and TMA instructions and no mma.sync
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
@@ -19,7 +19,7 @@ its own:
            against its plain PyTorch version at every shape the paths give
            it, with times (CUDA events); a kernel run twice must give the same
            bits; two faults of a TMA ring, planted in the inputs, must fail
-           the gates, and so must three faults of K9 (the image boundary
+           the gates (K8, K6, K5, K3, K4), and so must three faults of K9 (the image boundary
            lost, the taps transposed, the SiLU applied twice)
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
@@ -179,15 +179,18 @@ def phase_build():
 
 
 # The kernels on wgmma + TMA, with their template instances in the library:
-# the attention kernels (d 32, 64) x (bias, none), K9 with and without the SiLU.
+# the attention kernels (d 32, 64) x (bias, none), K9 with and without the
+# SiLU. K3/K4's norm pre-pass (packed_bwd_norm_kernel) is no wgmma kernel.
 WGMMA_KERNELS = {"flash_fwd_kernel": 4, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 4,  # K8
                  "flash_nomax_kernel": 4,                                                   # K6
                  "flash_fused_kernel": 4,                                                   # K5
+                 "packed_bwd_dq_kernel": 4, "packed_bwd_dkv_kernel": 4,                     # K3/K4
                  "conv3x3_silu_kernel": 2}                                                  # K9
 
 
 def _check_wgmma_machine_code(build, lib_path):
-    """The kernels on wgmma in the built library (K8's three, K6, K5, K9),
+    """The kernels on wgmma in the built library (K8's three, K6, K5, K3/K4's
+    two, K9),
     read with the toolkit's cuobjdump: each has its expected number of
     instances, and every instance multiplies on wgmma (HGMMA), gets its tiles
     by TMA (UTMALDG) and holds no mma.sync product (HMMA)."""
@@ -294,7 +297,8 @@ def _kernel_cases(torch, gen):
                 plain32=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h, sink)),
                 plain=lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd_ref(qkv, g, h, sink),
                 headline=head, library=lib_bwd, bytes=io_self + 2 * qkv.numel(),
-                flops=10 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
+                flops=10 * BATCH * h * s * s * d, exps=BATCH * h * s * s,
+                plan=flash.packed_bwd_plan(BATCH, s, h)))
         for biased in (False, True):
             bs = bias if biased else ()
             head = main_shape and not biased
@@ -327,7 +331,33 @@ def _kernel_cases(torch, gen):
                 plain=lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd_ref(qkv, feats, g, h, bs),
                 headline=head, library=lib_bwd,
                 bytes=io_x + 2 * (qkv.numel() + sum(f.numel() for f in feats)) + 2 * io_b,
-                flops=10 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s))
+                flops=10 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s,
+                plan=flash.packed_bwd_plan(BATCH, s, h, (s, s))))
+    # K3 and K4 with another norm eps than the default, against the plain
+    # versions with the same eps.
+    s, h, d = EXTRA_SHAPES[0]
+    eps = 1e-3
+    qkv, feats = rows(s, 3, h, d), [rows(s, 2, h, d)]
+    bias = [torch.randn(BATCH, h, s, s, generator=gen, device=dev)]
+    g = torch.randn(BATCH, s, h * d, generator=gen, device=dev).bfloat16()
+    f32 = [feats[0].float()]
+    cases.append(dict(
+        name="flash_fused_packed_bwd", d=d, label=f"S={s} H={h} d={d} sink={s} eps={eps}",
+        kernel=tup(lambda: flash.flash_fused_packed_bwd(qkv, g, h, s, eps)),
+        plain32=tup(lambda: flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h, s, eps)),
+        plain=lambda: flash.flash_fused_packed_bwd_ref(qkv, g, h, s, eps),
+        headline=False, library=None, bytes=2 * (2 * qkv.numel() + g.numel()),
+        flops=10 * BATCH * h * s * s * d, exps=BATCH * h * s * s,
+        plan=flash.packed_bwd_plan(BATCH, s, h)))
+    cases.append(dict(
+        name="flash_fused_packed_xattn_bwd", d=d, label=f"S={s} H={h} d={d} n_src=1 bias=True eps={eps}",
+        kernel=tup(lambda: flash.flash_fused_packed_xattn_bwd(qkv, feats, g, h, bias, eps)),
+        plain32=tup(lambda: flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), f32, g.float(), h, bias, eps)),
+        plain=lambda: flash.flash_fused_packed_xattn_bwd_ref(qkv, feats, g, h, bias, eps),
+        headline=False, library=None,
+        bytes=2 * (2 * qkv.numel() + 2 * feats[0].numel() + g.numel()) + 8 * bias[0].numel(),
+        flops=10 * BATCH * h * s * 2 * s * d, exps=BATCH * h * s * 2 * s,
+        plan=flash.packed_bwd_plan(BATCH, s, h, (s,))))
     return cases
 
 
@@ -665,10 +695,11 @@ def _check_fused_norm(torch, gen):
 
 
 def _built(name, case):
-    """What K8's, K6's, K5's and K9's kernels were built with, for their
-    `kernel` lines: registers a thread at launch and after the warpgroups have
-    traded them, bytes of local memory a thread (spills), dynamic shared
-    memory."""
+    """What K8's, K6's, K5's, K3/K4's and K9's kernels were built with, for
+    their `kernel` lines: registers a thread at launch and after the
+    warpgroups have traded them, bytes of local memory a thread (spills),
+    dynamic shared memory; for K3/K4 also each launch's grid in blocks and in
+    waves on 132 SMs."""
     from vivid_tpu_torch.kernels import flash
     from vivid_tpu_torch.tools import fused_conv_lab
     biased = "bias=True" in case["label"]
@@ -680,9 +711,13 @@ def _built(name, case):
         info = {"k5": flash.flash_fused_info(case["d"], biased)}
     elif name in ("flash_attention", "flash_attention_bwd"):
         info = flash.flash_attention_info(case["d"], biased)
+    elif name in ("flash_fused_packed_bwd", "flash_fused_packed_xattn_bwd"):
+        info = flash.flash_packed_bwd_info(case["d"], biased)
     else:
         return {}
     out = {}
+    for k, p in case.get("plan", {}).items():
+        out[f"{k}_grid"] = f"{p['blocks']}_blocks_{p['waves']}_waves"
     for kernel in {"flash_nomax": ("k6",), "flash_fused": ("k5",), "conv3x3_silu": ("k9",),
                    "flash_attention": ("fwd",)}.get(name, ("dkv", "dq")):
         k = info[kernel]
@@ -702,9 +737,29 @@ def _fwd_fails(got, want):
                  rel_l2=f"{rel_l2:.3e}"))
 
 
+def _bwd_fails(got, want, d):
+    """(fails, rel_l2, max_vector_err): whether outputs miss the backward
+    limits against the plain version on fp32 inputs, by the largest over the
+    outputs of the relative L2 and of the error of every vector over its own
+    norm plus the RMS: a D-vector of a packed [B, S, parts*H*D] output, else
+    a row of the last axis (a dbias row)."""
+    rel_l2 = scaled = 0.0
+    for a, w in zip(got, want):
+        a, w = a.float(), w.float()
+        rms = w.square().mean().sqrt().item()
+        rel_l2 = max(rel_l2, _rel_l2(a, w))
+        n = d if a.dim() == 3 and a.shape[-1] % d == 0 else a.shape[-1]
+        vec = (a - w).reshape(-1, n).norm(dim=1) / (w.reshape(-1, n).norm(dim=1)
+                                                    + rms * math.sqrt(n))
+        scaled = max(scaled, vec.max().item())
+    return not (rel_l2 <= TOL_GRAD_L2 and scaled <= TOL_GRAD_MAX), rel_l2, scaled
+
+
 def _check_ring_faults(torch, gen):
     """Two faults of a ring of TMA stages must fail the gates of K8 (forward
-    and backward), of K6 and of K5 (with its norm pre-pass). The kernels have
+    and backward), of K6, of K5 (with its norm pre-pass) and of K3 and K4
+    (the backward gate; the stale stage in both rings: the dq kernel's of k'
+    and v', the dk/dv kernel's of c q', dO and the statistics). The kernels have
     no switch to break them, so each fault is planted in the inputs, as the
     tensors a broken kernel would see, sized by what each kernel was built
     with: (1) the ring's last stage
@@ -739,9 +794,10 @@ def _check_ring_faults(torch, gen):
             want_grads = flash.flash_attention_bwd_ref(q.float(), k.float(), v.float(), None,
                                                        want, want_lse, g.float())
             fails, shown = _fwd_fails(out, want)
-            grad_l2 = max(_rel_l2(a.float()[:, :, :w.shape[2]], w)
-                          for a, w in zip(grads[:3], want_grads[:3]))
-            fails = fails and grad_l2 > TOL_GRAD_L2
+            bwd_fails, grad_l2, _ = _bwd_fails([a[:, :, :w.shape[2]] for a, w in
+                                                zip(grads[:3], want_grads[:3])],
+                                               want_grads[:3], q.shape[-1])
+            fails = fails and bwd_fails
             shown["bwd_rel_l2"] = f"{grad_l2:.3e}"
         check(fails, f"{name} with {label} passes a gate: {shown}")
         say("kernel", name=name, fault=f"'{label}, Sq={q.shape[2]} Sk={sk}'", **shown,
@@ -763,6 +819,65 @@ def _check_ring_faults(torch, gen):
         pad = torch.zeros(b, h, -sk % keys, d, dtype=k.dtype, device="cuda")
         gates(name, q, k, v, g, torch.cat([k, pad], 2), torch.cat([v, pad], 2),
               "the key mask at the ragged edge dropped")
+
+    # K3 and K4 on packed rows: the stale stage of the dq kernel's ring in
+    # the k part of the self segment (K3) or of a source (K4), of the dk/dv
+    # kernel's ring in the q part and in dO (both); the ragged edge of the
+    # self segment (K3: qkv and g padded with zero rows) or of a source (K4).
+    info = flash.flash_packed_bwd_info(64, False)
+    keys, stages = info["dq"]["stage_rows"], info["dq"]["stages"]
+    check(info["dkv"]["stage_rows"] == keys, f"the two rings' stages differ: {info}")
+    h, d = 2, 64
+
+    def packed(s, parts):
+        x = torch.randn(1, s, parts * h, d, generator=gen, device="cuda")
+        x = x * torch.exp(torch.randn(1, s, parts * h, 1, generator=gen, device="cuda"))
+        return x.reshape(1, s, parts * h * d).bfloat16()
+
+    def stale(x, parts, part, n=stages):   # rows of `part` of a packed row, n stages a ring
+        y = x.clone().view(1, x.shape[1] // keys, keys, parts, h * d)
+        y[:, n - 1::n, :, part] = y[:, n - 1:n, :, part]
+        return y.view(x.shape)
+
+    def zero_rows(x, n):
+        return torch.cat([x, x.new_zeros(1, n, x.shape[2])], 1)
+
+    def packed_gate(name, got, want, label):
+        flat = [(o,) if isinstance(o, torch.Tensor) else (o[0], *o[1], *o[2]) for o in (got, want)]
+        fails, rel_l2, scaled = _bwd_fails(*flat, d)
+        shown = dict(rel_l2=f"{rel_l2:.3e}", max_vector_err=f"{scaled:.3e}")
+        check(fails, f"{name} with {label} passes the backward gate: {shown}")
+        say("kernel", name=name, fault=f"'{label}, S={qkv.shape[1]} H={h} d={d}'", **shown,
+            fails_gate=True)
+
+    s = 4 * stages * keys
+    qkv, src, g = packed(s, 3), packed(s, 2), packed(s, 1)
+    label = f"stage {stages - 1} of {stages} never refreshed ({keys} keys a stage)"
+    packed_gate("flash_fused_packed_bwd", flash.flash_fused_packed_bwd(stale(qkv, 3, 1), g, h),
+                flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h), label)
+    packed_gate("flash_fused_packed_xattn_bwd",
+                flash.flash_fused_packed_xattn_bwd(qkv, [stale(src, 2, 0)], g, h),
+                flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), [src.float()], g.float(), h),
+                label + " in a source")
+    q_stages = info["dkv"]["stages"]
+    label = (f"query stage {q_stages - 1} of {q_stages} never refreshed "
+             f"({keys} rows of c q' and dO a stage)")
+    fq, fg = stale(qkv, 3, 0, q_stages), stale(g, 1, 0, q_stages)
+    packed_gate("flash_fused_packed_bwd", flash.flash_fused_packed_bwd(fq, fg, h),
+                flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h), label)
+    packed_gate("flash_fused_packed_xattn_bwd", flash.flash_fused_packed_xattn_bwd(fq, [src], fg, h),
+                flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), [src.float()], g.float(), h),
+                label)
+    s, sf = 200, 333
+    qkv, src, g = packed(s, 3), packed(sf, 2), packed(s, 1)
+    label = "the key mask at the ragged edge dropped"
+    got = flash.flash_fused_packed_bwd(zero_rows(qkv, -s % keys), zero_rows(g, -s % keys), h)
+    packed_gate("flash_fused_packed_bwd", got[:, :s].contiguous(),
+                flash.flash_fused_packed_bwd_ref(qkv.float(), g.float(), h), label)
+    dqkv, dfeats, _ = flash.flash_fused_packed_xattn_bwd(qkv, [zero_rows(src, -sf % keys)], g, h)
+    packed_gate("flash_fused_packed_xattn_bwd", (dqkv, (dfeats[0][:, :sf].contiguous(),), ()),
+                flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), [src.float()], g.float(), h),
+                label + f" (a source of {sf})")
 
 
 def _check_conv_faults(torch, gen):
@@ -809,7 +924,7 @@ def phase_kernels(table):
     operations over the bf16 peak. The headline case of each kernel fills
     its row of the table and adds the library yardstick. The bound counts a
     third term for every kernel with a softmax, its exponentials (one for
-    every logit) over EXPS_PER_S. K8's, K6's and K5's lines carry what was built:
+    every logit) over EXPS_PER_S. K8's, K6's, K5's and K3/K4's lines carry what was built:
     registers a thread, spilled bytes and dynamic shared memory. K8's forward output
     is also held, by the forward limits, to K6's on the same inputs: the two
     differ by their rounding only."""
@@ -830,21 +945,17 @@ def phase_kernels(table):
         check(len(got) == len(want), f"{name} {label}: {len(got)} outputs, want {len(want)}")
         n_out = len(got)
         backward = name.endswith("_bwd")
-        err = rel_max = rel_l2 = scaled = out_rms = 0.0
+        err = rel_max = out_rms = 0.0
         for i, (a, b, w) in enumerate(zip(got, again, want)):
             check(a.shape == w.shape, f"{name} {label}: output {i} has shape {tuple(a.shape)}")
             check(torch.equal(a, b.float()), f"{name} {label}: output {i} differs between two runs")
             e = (a - w).abs().max().item()
             rms = w.square().mean().sqrt().item()
             err, rel_max, out_rms = max(err, e), max(rel_max, e / rms), max(out_rms, rms)
-            rel_l2 = max(rel_l2, _rel_l2(a, w))
-            n = case["d"] if a.shape[-1] % case["d"] == 0 and a.dim() == 3 else a.shape[-1]
-            vec = (a - w).reshape(-1, n).norm(dim=1) / (w.reshape(-1, n).norm(dim=1)
-                                                        + rms * math.sqrt(n))
-            scaled = max(scaled, vec.max().item())
+        bwd_fails, rel_l2, scaled = _bwd_fails(got, want, case["d"])
         check(math.isfinite(err), f"{name} {label}: non-finite error")
         if backward:
-            check(rel_l2 <= TOL_GRAD_L2 and scaled <= TOL_GRAD_MAX,
+            check(not bwd_fails,
                   f"{name} {label}: rel L2 {rel_l2} (limit {TOL_GRAD_L2}), max per-vector "
                   f"err {scaled} (limit {TOL_GRAD_MAX}), max err over RMS {rel_max}")
         else:
@@ -891,6 +1002,29 @@ def phase_kernels(table):
                 flops=case["flops"], tflops=f"{case['flops'] / ms / 1e9:.1f}",
                 library_ms=f"{library_ms:.4f}",
                 library_computes=case.get("library_is", CORE_ONLY))
+        if "plan" in case and case["label"].startswith(f"S={SHAPES[0][0]} "):
+            say("kernel", name=name, split=f"'{label}'",
+                **_device_ms_by_kernel(torch, case["kernel"], "packed_bwd_"))
+
+
+def _device_ms_by_kernel(torch, fn, key, reps=10):
+    """Device ms a call of `fn` spends in each kernel whose name holds `key`
+    (torch.profiler over `reps` calls after a warm-up), keyed
+    `<kernel>_device_ms`: the card's own time, without the host's launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
+            kernel = e.name.split("::", 1)[-1].split("<")[0]
+            out[kernel] = out.get(kernel, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    check(out, f"the profiler saw no kernel named *{key}*")
+    return {f"{k}_device_ms": f"{v:.4f}" for k, v in sorted(out.items())}
 
 
 def main():
@@ -1044,13 +1178,12 @@ def phase_model(nomax=False):
     noise_gen = torch.Generator(device="cuda")
     variants = {
         "plain": (k1_ref, k2_ref, k7_ref),
-        "control": (lambda qkv, h, zero_sink=0: _ulp_noise(k1_ref(qkv, h, zero_sink), noise_gen),
-                    lambda qkv, feats, h, biases=(): _ulp_noise(k2_ref(qkv, feats, h, biases), noise_gen),
-                    lambda qkv, feats, h, zero_sink=0: _ulp_noise(k7_ref(qkv, feats, h, zero_sink), noise_gen)),
-        "fault_one_source": (k1, lambda qkv, feats, h, biases=(): k2(qkv, feats[:1], h, biases[:1]),
-                             lambda qkv, feats, h, zero_sink=0: k7(qkv, feats[:1], h, zero_sink)),
-        "fault_no_sink": (lambda qkv, h, zero_sink=0: k1(qkv, h, 0), k2,
-                          lambda qkv, feats, h, zero_sink=0: k7(qkv, feats, h, 0)),
+        "control": tuple((lambda *a, fn=fn: _ulp_noise(fn(*a), noise_gen))
+                         for fn in (k1_ref, k2_ref, k7_ref)),
+        "fault_one_source": (k1, lambda qkv, feats, h, biases=(), *eps: k2(qkv, feats[:1], h, biases[:1], *eps),
+                             lambda qkv, feats, h, zero_sink=0, *eps: k7(qkv, feats[:1], h, zero_sink, *eps)),
+        "fault_no_sink": (lambda qkv, h, zero_sink=0, *eps: k1(qkv, h, 0, *eps), k2,
+                          lambda qkv, feats, h, zero_sink=0, *eps: k7(qkv, feats, h, 0, *eps)),
     }
 
     def run(net, variant=None):
@@ -1363,11 +1496,11 @@ def phase_train(card):
         dqkv, dfeats, dbiases = k4(*args)
         return dqkv, (dfeats[0], torch.zeros_like(dfeats[1])), dbiases
 
-    def rms_norm_without_projection(x):
+    def rms_norm_without_projection(x, eps=flash.NORM_EPS):
         # The pixel norm with its denominator held constant: its VJP loses
         # the term -x <x, dy> / (D r (eps + r)^2).
         x32 = x.float()
-        den = flash.NORM_EPS + torch.linalg.vector_norm(
+        den = eps + torch.linalg.vector_norm(
             x32, dim=-1, keepdim=True).detach() / math.sqrt(x.shape[-1])
         return (x32 / den).to(x.dtype)
 
@@ -1417,7 +1550,9 @@ def phase_train(card):
         return (loss, flat, {k: n - before[k] for k, n in flash.launches.items()},
                 torch.cuda.max_memory_allocated() / 1e9)
 
-    loss_k, got, used, peak_gb = measured()
+    with _packed_bwd_shapes() as shapes:
+        loss_k, got, used, peak_gb = measured()
+    say("train", check="packed_bwd_launches_by_shape", net="vivid-base", **shapes)
     loss_p, want = gradient("plain")
     control = _rel_l2(gradient("control")[1], want)
     faults = {name: _rel_l2(gradient(name)[1], want) for name in variants
@@ -1508,6 +1643,30 @@ def phase_train(card):
             latents_absmax=f"{lat.abs().max().item():.3f}",
             pngs=len(os.listdir(os.path.join(tmp, "out"))))
     return runs["vivid-base"][1]
+
+
+@contextlib.contextmanager
+def _packed_bwd_shapes():
+    """While the block runs, the calls of K3 and K4 by sequence length and
+    head dim, {"<kernel>_S<len>_d<d>": n}: a path's launches split by shape.
+    The kernels run as they are."""
+    from unittest import mock
+    from vivid_tpu_torch.kernels import flash
+    seen = {}
+
+    def recorder(name, heads_at):
+        fn = getattr(flash, name)
+
+        def run(qkv, *args):
+            key = f"{name}_S{qkv.shape[1]}_d{qkv.shape[2] // (3 * args[heads_at])}"
+            seen[key] = seen.get(key, 0) + 1
+            return fn(qkv, *args)
+        return run
+
+    with mock.patch.object(flash, "flash_fused_packed_bwd", recorder("flash_fused_packed_bwd", 1)), \
+            mock.patch.object(flash, "flash_fused_packed_xattn_bwd",
+                              recorder("flash_fused_packed_xattn_bwd", 2)):
+        yield seen
 
 
 def _train_launches(cfg):
@@ -1703,7 +1862,9 @@ def phase_train_sr(card):
                 torch.cuda.max_memory_allocated() / 1e9)
 
     resident_gb = torch.cuda.memory_allocated() / 1e9   # the net, the batch, earlier phases
-    loss_k, got, used, peak_gb = measured()
+    with _packed_bwd_shapes() as shapes:
+        loss_k, got, used, peak_gb = measured()
+    say("train_sr", check="packed_bwd_launches_by_shape", net="vivid-sr", **shapes)
     check(used == _train_launches(net.cfg),
           f"train_sr: one loss and its backward launched {used}, want {_train_launches(net.cfg)}")
     loss_p, want = gradient("plain")
@@ -1728,7 +1889,7 @@ def phase_train_sr(card):
     # Where the distance comes from (printed, not gated): each kernel family
     # alone through its kernels with the others through their plain versions,
     # and the control under another noise seed.
-    families = {"k1_to_k4": (0, 1, 2, 3), "k6": (4,), "k8": (5, 6)}
+    families = {"k1_to_k4": (0, 1, 2, 3), "k3_k4": (2, 3), "k6": (4,), "k8": (5, 6)}
     alone = {}
     for family, own in families.items():
         variants[family] = tuple(k if i in own else r
@@ -1920,7 +2081,7 @@ def _profile(tag, fn, units, unit):
     kinds = {"attention_nomax": ("flash_nomax",),
              "attention_k8_fwd": ("flash_fwd_kernel",),
              "attention_k8_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "bwd_prep_kernel"),
-             "attention_fwd": ("flash_packed",), "attention_bwd": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+             "attention_fwd": ("flash_packed",), "attention_bwd": ("packed_bwd_",),
              "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn"),
              "gemm": ("gemm", "nvjet", "cutlass"), "reduce": ("reduce_kernel",)}
     shares = dict.fromkeys(list(kinds) + ["other"], 0.0)

@@ -146,3 +146,36 @@ def test_backward_wrappers_never_take_the_plain_version_off_the_cpu(fn, match):
     g = torch.empty(1, 64, 2 * 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match=match):
         fn(qkv, g)
+
+
+def test_packed_bwd_info_needs_a_card(monkeypatch):
+    """What K3/K4's kernels were built with comes from the built library
+    alone: a head dim the kernels lack raises first, and with no card the
+    call raises before it builds or loads anything."""
+    def no_library():
+        raise AssertionError("flash_packed_bwd_info reached the library")
+
+    monkeypatch.setattr(flash.build, "library", no_library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="32 or 64"):
+        flash.flash_packed_bwd_info(16)
+    for d in (32, 64):
+        for biased in (False, True):
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                flash.flash_packed_bwd_info(d, biased)
+
+
+@pytest.mark.parametrize("b,s,h,lens,dq,dkv", [
+    (8, 1024, 4, (), 512, 512),                  # K3 at the 64px model's 32x32
+    (8, 1024, 4, (1024, 1024), 512, 1536),       # K4 there: 48 key tiles a head
+    (8, 64, 8, (64, 64), 64, 192),               # 8x8: one tile a segment
+    (2, 100, 4, (333,), 16, 64),                 # ragged: 2 + 6 key tiles
+])
+def test_packed_bwd_plan(b, s, h, lens, dq, dkv):
+    """The grids of the backward's dq and dk/dv kernels at a shape: a block
+    for each 64-row tile, every segment padded to whole tiles, and the waves
+    they make at two blocks an SM on 132 SMs."""
+    plan = flash.packed_bwd_plan(b, s, h, lens)
+    assert (plan["dq"]["blocks"], plan["dkv"]["blocks"]) == (dq, dkv)
+    for p in plan.values():
+        assert p["waves"] == round(p["blocks"] / (2 * 132), 3)

@@ -70,12 +70,12 @@ def fused_attention(q, k, v, bias=None):
     return reference_attention(q, k, v, bias)
 
 
-def _composite_from_raw(q, k, v, bias, zero_sink: int):
+def _composite_from_raw(q, k, v, bias, zero_sink: int, eps: float):
     """The unfused form of `attention_from_raw`: plain pixel norm, then
     `fused_attention`, or with a sink the plain closed form."""
     from vivid_tpu_torch.nn.blocks import attention_with_zero_sink
     from vivid_tpu_torch.nn.mp import normalize
-    q, k, v = (normalize(t, dim=-1, eps=flash.NORM_EPS) for t in (q, k, v))
+    q, k, v = (normalize(t, dim=-1, eps=eps) for t in (q, k, v))
     if zero_sink:
         return attention_with_zero_sink(q, k, v, zero_sink)
     return fused_attention(q, k, v, bias)
@@ -86,10 +86,10 @@ class _AttentionFromRaw(torch.autograd.Function):
     of the unfused composite, recomputed from the inputs."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, zero_sink):
+    def forward(ctx, q, k, v, bias, zero_sink, eps):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.zero_sink = zero_sink
-        return flash.flash_fused(q, k, v, bias, norm_eps=flash.NORM_EPS, zero_sink=zero_sink)
+        ctx.args = (zero_sink, eps)
+        return flash.flash_fused(q, k, v, bias, norm_eps=eps, zero_sink=zero_sink)
 
     @staticmethod
     @once_differentiable
@@ -97,24 +97,24 @@ class _AttentionFromRaw(torch.autograd.Function):
         leaves = [None if t is None else t.detach().requires_grad_()
                   for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = _composite_from_raw(*leaves, ctx.zero_sink)
+            out = _composite_from_raw(*leaves, *ctx.args)
         given = [t for t in leaves if t is not None]
         grads = iter(torch.autograd.grad(out, given, g.to(out.dtype)))
-        return (*(None if t is None else next(grads) for t in leaves), None)
+        return (*(None if t is None else next(grads) for t in leaves), None, None)
 
 
-def attention_from_raw(q, k, v, bias=None, zero_sink: int = 0):
+def attention_from_raw(q, k, v, bias=None, zero_sink: int = 0, eps: float = 1e-4):
     """Attention over raw (not yet normalised) q [B, H, Sq, D] and k, v
-    [B, H, Sk, D]: each D-vector is pixel-normalised, then softmax attention
+    [B, H, Sk, D]: each D-vector is pixel-normalised with `eps`, then softmax attention
     with an optional unscaled bias or `zero_sink` all-zero key columns. The
     two exclude each other: the composite that gives the gradient has no
     biased form with a sink."""
     if bias is not None and zero_sink:
         raise ValueError("bias and zero_sink are mutually exclusive")
-    return _AttentionFromRaw.apply(q, k, v, bias, zero_sink)
+    return _AttentionFromRaw.apply(q, k, v, bias, zero_sink, eps)
 
 
-def _nomax_from_packed(qkv, feats, num_heads: int, biases):
+def _nomax_from_packed(qkv, feats, num_heads: int, biases, eps: float):
     """Split the packed rows, normalise, run `flash.nomax_attention` over the
     self segment followed by every cross source (the self segment's bias is
     zeros), and re-pack to [B, S, H*D]. With biases the kernel reads one
@@ -133,7 +133,7 @@ def _nomax_from_packed(qkv, feats, num_heads: int, biases):
         z = f.view(b, f.shape[1], 2, h, d)
         ks.append(z[:, :, 0])
         vs.append(z[:, :, 1])
-    q, k, v = (flash._rms_norm(t).transpose(1, 2).contiguous()
+    q, k, v = (flash._rms_norm(t, eps).transpose(1, 2).contiguous()
                for t in (q, torch.cat(ks, 1), torch.cat(vs, 1)))
     bias = None
     if biases:
@@ -143,20 +143,22 @@ def _nomax_from_packed(qkv, feats, num_heads: int, biases):
     return out.transpose(1, 2).reshape(b, s, h * d)
 
 
-def self_attention_from_packed(qkv, num_heads: int, zero_sink: int = 0):
+def self_attention_from_packed(qkv, num_heads: int, zero_sink: int = 0, eps: float = 1e-4):
     """qkv [B, S, 3*H*D] part-major -> [B, S, H*D]; `zero_sink` all-zero KV
-    columns (the unconditional model's cross features) in closed form."""
+    columns (the unconditional model's cross features) in closed form; `eps`
+    is the pixel norm's."""
     if qkv.shape[1] >= NOMAX_MIN_SQ and not zero_sink:
-        return _nomax_from_packed(qkv, (), num_heads, ())
+        return _nomax_from_packed(qkv, (), num_heads, (), eps)
     return flash.packed_self_attention(qkv, num_heads, zero_sink=zero_sink,
-                                       nomax=nomax_packed_on())
+                                       nomax=nomax_packed_on(), eps=eps)
 
 
-def xattn_from_packed(qkv, feats, num_heads: int, biases=()):
+def xattn_from_packed(qkv, feats, num_heads: int, biases=(), eps: float = 1e-4):
     """Joint softmax over the self segment of qkv and every cross source
-    feats[i] [B, Sf, 2*H*D]; biases: () or one unscaled [B, H, S, Sf] each."""
+    feats[i] [B, Sf, 2*H*D]; biases: () or one unscaled [B, H, S, Sf] each;
+    `eps` is the pixel norm's."""
     if qkv.shape[1] >= NOMAX_MIN_SQ:
-        return _nomax_from_packed(qkv, tuple(feats), num_heads, tuple(biases))
+        return _nomax_from_packed(qkv, tuple(feats), num_heads, tuple(biases), eps)
     biases = tuple(biases)
     return flash.packed_xattn(qkv, tuple(feats), num_heads, biases=biases,
-                              nomax=nomax_packed_on() and not biases)
+                              nomax=nomax_packed_on() and not biases, eps=eps)

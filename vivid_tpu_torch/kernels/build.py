@@ -104,12 +104,14 @@ def library() -> ctypes.CDLL:
         f32, f32, ptr]                          # eps, zero_sink, stream
     lib.vivid_flash_packed_fwd.restype = i32
     lib.vivid_flash_packed_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,                # qkv, g, dqkv, lse, delta
+        ptr, ptr, ptr, ptr, ptr, ptr,           # qkv, g, dqkv, lse, delta, rows (scratch)
         i32, i32, i32, i32, i32,                # B, S, H, d, n_src
         ptr, ptr, i32, ptr, ptr,                # feats/dfeats/len/bias/dbias, source 0
         ptr, ptr, i32, ptr, ptr,                # ... source 1
         f32, f32, ptr]                          # eps, zero_sink, stream
     lib.vivid_flash_packed_bwd.restype = i32
+    lib.vivid_flash_packed_bwd_info.argtypes = [i32, i32, i32, ptr]   # kernel, d, biased, info[9]
+    lib.vivid_flash_packed_bwd_info.restype = i32
     lib.vivid_flash_nomax_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,           # q, k, v, bias, shift, out
         i32, i32, i32, i32, i32, ptr]           # B, H, Sq, Sk, d, stream

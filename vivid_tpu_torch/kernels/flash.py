@@ -6,8 +6,10 @@ and `flash_fused_packed_xattn` (self segment plus cross sources, one joint
 softmax, optional per-source logit bias) in vivid_tpu/kernels/flash.py, and
 of their backward kernels `flash_fused_packed_bwd` and
 `flash_fused_packed_xattn_bwd`. The forward wrappers launch the one kernel
-in csrc/flash_packed.cu, the backward wrappers the pair of kernels in
-csrc/flash_packed_bwd.cu. `packed_self_attention` and `packed_xattn` are the
+in csrc/flash_packed.cu, the backward wrappers the three of
+csrc/flash_packed_bwd.cu (a norm pre-pass into scratch allocated here, then
+the dq and the dk/dv kernels on wgmma and TMA, whose grids
+`packed_bwd_plan` gives). `packed_self_attention` and `packed_xattn` are the
 differentiable entries: autograd functions whose forward and backward are
 those wrappers. `flash_nomax` is the big-S forward kernel of the 256px model
 (csrc/flash_nomax.cu, counterpart of `flash_nomax` there), on q, k, v
@@ -56,7 +58,7 @@ launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             # the kernels of vivid_tpu_torch/tools, counted here with the rest
             "conv3x3_silu": 0, "nomax_lab_attention": 0}
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
-BWD_ROWS = 64   # csrc/flash_bwd.cu pads the backward's row statistics to its 64-row tiles
+BWD_ROWS = 64   # the backward kernels (csrc/flash_bwd.cu, flash_packed_bwd.cu) pad rows to 64-row tiles
 
 
 def _rms_norm(x, eps=NORM_EPS):
@@ -67,7 +69,7 @@ def _rms_norm(x, eps=NORM_EPS):
     return (x32 / den).to(x.dtype)
 
 
-def _attention_ref(qkv, feats, num_heads, biases, zero_sink):
+def _attention_ref(qkv, feats, num_heads, biases, zero_sink, eps):
     b, s, c3 = qkv.shape
     h = num_heads
     d = c3 // (3 * h)
@@ -78,9 +80,9 @@ def _attention_ref(qkv, feats, num_heads, biases, zero_sink):
         z = f.view(b, f.shape[1], 2, h, d)
         ks.append(z[:, :, 0])
         vs.append(z[:, :, 1])
-    q = _rms_norm(q).transpose(1, 2).float()                  # [B,H,S,D]
-    k = _rms_norm(torch.cat(ks, 1)).transpose(1, 2).float()   # [B,H,Sk,D]
-    v = _rms_norm(torch.cat(vs, 1)).transpose(1, 2).float()
+    q = _rms_norm(q, eps).transpose(1, 2).float()                  # [B,H,S,D]
+    k = _rms_norm(torch.cat(ks, 1), eps).transpose(1, 2).float()   # [B,H,Sk,D]
+    v = _rms_norm(torch.cat(vs, 1), eps).transpose(1, 2).float()
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
     if biases:
         zero = torch.zeros(b, h, s, s, dtype=torch.float32, device=qkv.device)
@@ -96,19 +98,20 @@ def _attention_ref(qkv, feats, num_heads, biases, zero_sink):
     return out.transpose(1, 2).reshape(b, s, h * d).to(qkv.dtype)
 
 
-def flash_fused_packed_ref(qkv, num_heads: int, zero_sink: int = 0):
-    """Plain version of K1: normalise in fp32, fp32 softmax with the sink's
-    mass zero_sink * exp(-max(m, 0)) in the denominator."""
-    return _attention_ref(qkv, (), num_heads, (), zero_sink)
+def flash_fused_packed_ref(qkv, num_heads: int, zero_sink: int = 0, eps: float = NORM_EPS):
+    """Plain version of K1: normalise in fp32 (the norm's `eps`), fp32
+    softmax with the sink's mass zero_sink * exp(-max(m, 0)) in the
+    denominator."""
+    return _attention_ref(qkv, (), num_heads, (), zero_sink, eps)
 
 
-def flash_fused_packed_xattn_ref(qkv, feats, num_heads: int, biases=()):
+def flash_fused_packed_xattn_ref(qkv, feats, num_heads: int, biases=(), eps: float = NORM_EPS):
     """Plain version of K2: concatenate the self and cross KV segments and
     run one fp32 softmax (the self segment carries no bias)."""
-    return _attention_ref(qkv, tuple(feats), num_heads, tuple(biases), 0)
+    return _attention_ref(qkv, tuple(feats), num_heads, tuple(biases), 0, eps)
 
 
-def _attention_bwd_ref(qkv, feats, g, num_heads, biases, zero_sink):
+def _attention_bwd_ref(qkv, feats, g, num_heads, biases, zero_sink, eps):
     """Autograd through `_attention_ref` on fp32 copies of the inputs;
     gradients come back in the inputs' dtypes."""
     inputs = (qkv, *feats, *biases)
@@ -116,21 +119,23 @@ def _attention_bwd_ref(qkv, feats, g, num_heads, biases, zero_sink):
     n = len(feats)
     with torch.enable_grad():
         out = _attention_ref(leaves[0], tuple(leaves[1:1 + n]), num_heads,
-                             tuple(leaves[1 + n:]), zero_sink)
+                             tuple(leaves[1 + n:]), zero_sink, eps)
         grads = torch.autograd.grad(out, leaves, g.float())
     grads = [dx.to(t.dtype) for dx, t in zip(grads, inputs)]
     return grads[0], tuple(grads[1:1 + n]), tuple(grads[1 + n:])
 
 
-def flash_fused_packed_bwd_ref(qkv, g, num_heads: int, zero_sink: int = 0):
+def flash_fused_packed_bwd_ref(qkv, g, num_heads: int, zero_sink: int = 0,
+                               eps: float = NORM_EPS):
     """Plain version of K3: the gradient of `flash_fused_packed_ref` in fp32."""
-    return _attention_bwd_ref(qkv, (), g, num_heads, (), zero_sink)[0]
+    return _attention_bwd_ref(qkv, (), g, num_heads, (), zero_sink, eps)[0]
 
 
-def flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads: int, biases=()):
+def flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads: int, biases=(),
+                                     eps: float = NORM_EPS):
     """Plain version of K4: (dqkv, dfeats, dbiases) of
     `flash_fused_packed_xattn_ref` in fp32."""
-    return _attention_bwd_ref(qkv, tuple(feats), g, num_heads, tuple(biases), 0)
+    return _attention_bwd_ref(qkv, tuple(feats), g, num_heads, tuple(biases), 0, eps)
 
 
 def _ptr(t):
@@ -148,7 +153,7 @@ def _check(t, name, dtype, shape, device, on_card=True):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _checked(qkv, feats, biases, num_heads, zero_sink):
+def _checked(qkv, feats, biases, num_heads, zero_sink, eps):
     """Raise on anything the kernels do not take; -> (b, s, h, d, srcs) with
     srcs two (feats, sf, bias) triples, absent sources as (None, 0, None)."""
     if qkv.dim() != 3:
@@ -164,8 +169,8 @@ def _checked(qkv, feats, biases, num_heads, zero_sink):
         raise ValueError(f"at most 2 cross sources, got {len(feats)}")
     if biases and len(biases) != len(feats):
         raise ValueError("give one bias per cross source, or none")
-    if zero_sink < 0:
-        raise ValueError(f"zero_sink must be >= 0, got {zero_sink}")
+    if zero_sink < 0 or not eps > 0:
+        raise ValueError(f"zero_sink {zero_sink} must be >= 0 and eps {eps} > 0")
     dev = qkv.device
     _check(qkv, "qkv", torch.bfloat16, (b, s, c3), dev)
     srcs = []
@@ -182,8 +187,8 @@ def _checked(qkv, feats, biases, num_heads, zero_sink):
     return b, s, h, d, srcs
 
 
-def _launch(qkv, feats, biases, num_heads, zero_sink):
-    b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink)
+def _launch(qkv, feats, biases, num_heads, zero_sink, eps):
+    b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink, eps)
     dev = qkv.device
     out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=dev)
     lib = build.library()
@@ -193,33 +198,59 @@ def _launch(qkv, feats, biases, num_heads, zero_sink):
             _ptr(qkv), _ptr(out), b, s, h, d, len(feats),
             _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[0][2]),
             _ptr(srcs[1][0]), srcs[1][1], _ptr(srcs[1][2]),
-            ctypes.c_float(NORM_EPS), ctypes.c_float(zero_sink),
+            ctypes.c_float(eps), ctypes.c_float(zero_sink),
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_packed kernel launch failed: CUDA error {rc}")
     return out
 
 
-def _launch_bwd(qkv, feats, biases, g, num_heads, zero_sink):
-    b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink)
+def _tiles(n):
+    return -(-n // BWD_ROWS)
+
+
+def packed_bwd_plan(b: int, s: int, h: int, lens=(), sms: int = 132):
+    """The grids of K3/K4's two wgmma kernels at a shape: the dq kernel takes a
+    block for each 64-row query tile, the dk/dv kernel one for each 64-row
+    key tile (every segment, self and each source of length `lens[i]`,
+    padded to whole tiles), each block one consumer warpgroup, two blocks on
+    each of `sms` streaming multiprocessors. -> {"dq" | "dkv": dict(blocks,
+    waves)}."""
+    plan = {}
+    for kernel, tiles in (("dq", _tiles(s)), ("dkv", sum(_tiles(n) for n in (s, *lens)))):
+        blocks = tiles * b * h
+        plan[kernel] = dict(blocks=blocks, waves=round(blocks / (2 * sms), 3))
+    return plan
+
+
+def _launch_bwd(qkv, feats, biases, g, num_heads, zero_sink, eps):
+    b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink, eps)
     dev = qkv.device
     g = g.contiguous()   # autograd may hand over a strided cotangent
     _check(g, "g", torch.bfloat16, (b, s, h * d), dev)
     dqkv = torch.empty_like(qkv)
-    lse = torch.empty(b, h, s, dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    lens = tuple(sf for _, sf, _ in srcs[:len(feats)])
+    # Scratch, one allocation: the row statistics (lse * log2(e), then
+    # delta) padded to whole 64-row tiles, fp32; then the normalised rows,
+    # q's [B, H, S, d] and k's and v's [B, H, keys, d] with every segment
+    # padded to whole tiles, bf16.
+    stat_bytes = 2 * b * h * _tiles(s) * BWD_ROWS * 4
+    keys = sum(_tiles(n) for n in (s, *lens)) * BWD_ROWS
+    scratch = torch.empty(stat_bytes + b * h * (s + 2 * keys) * d * 2, dtype=torch.uint8,
+                          device=dev)
+    base = scratch.data_ptr()
     grads = [(None if f is None else torch.empty_like(f),
               None if bias is None else torch.empty_like(bias)) for f, _, bias in srcs]
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vivid_flash_packed_bwd(
-            _ptr(qkv), _ptr(g), _ptr(dqkv), _ptr(lse), _ptr(delta),
+            _ptr(qkv), _ptr(g), _ptr(dqkv), ctypes.c_void_p(base),
+            ctypes.c_void_p(base + stat_bytes // 2), ctypes.c_void_p(base + stat_bytes),
             b, s, h, d, len(feats),
             _ptr(srcs[0][0]), _ptr(grads[0][0]), srcs[0][1], _ptr(srcs[0][2]), _ptr(grads[0][1]),
             _ptr(srcs[1][0]), _ptr(grads[1][0]), srcs[1][1], _ptr(srcs[1][2]), _ptr(grads[1][1]),
-            ctypes.c_float(NORM_EPS), ctypes.c_float(zero_sink),
-            ctypes.c_void_p(stream))
+            ctypes.c_float(eps), ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_packed_bwd kernel launch failed: CUDA error {rc}")
     n = len(feats)
@@ -227,46 +258,49 @@ def _launch_bwd(qkv, feats, biases, g, num_heads, zero_sink):
             tuple(db for _, db in grads[:n] if db is not None))
 
 
-def flash_fused_packed(qkv, num_heads: int, zero_sink: int = 0):
+def flash_fused_packed(qkv, num_heads: int, zero_sink: int = 0, eps: float = NORM_EPS):
     """K1: qkv [B, S, 3*H*D] -> [B, S, H*D], with `zero_sink` all-zero KV
-    columns in closed form (the unconditional model's cross features)."""
+    columns in closed form (the unconditional model's cross features); `eps`
+    is the pixel norm's."""
     if qkv.device.type == "cpu":
-        return flash_fused_packed_ref(qkv, num_heads, zero_sink)
-    out = _launch(qkv, (), (), num_heads, zero_sink)
+        return flash_fused_packed_ref(qkv, num_heads, zero_sink, eps)
+    out = _launch(qkv, (), (), num_heads, zero_sink, eps)
     launches["flash_fused_packed"] += 1
     return out
 
 
-def flash_fused_packed_xattn(qkv, feats, num_heads: int, biases=()):
+def flash_fused_packed_xattn(qkv, feats, num_heads: int, biases=(), eps: float = NORM_EPS):
     """K2: qkv [B, S, 3*H*D] plus cross sources feats [B, Sf, 2*H*D] ->
     [B, S, H*D]; optional unscaled per-source biases [B, H, S, Sf]."""
     if qkv.device.type == "cpu":
-        return flash_fused_packed_xattn_ref(qkv, feats, num_heads, biases)
-    out = _launch(qkv, tuple(feats), tuple(biases), num_heads, 0)
+        return flash_fused_packed_xattn_ref(qkv, feats, num_heads, biases, eps)
+    out = _launch(qkv, tuple(feats), tuple(biases), num_heads, 0, eps)
     launches["flash_fused_packed_xattn"] += 1
     return out
 
 
-def flash_fused_packed_bwd(qkv, g, num_heads: int, zero_sink: int = 0):
+def flash_fused_packed_bwd(qkv, g, num_heads: int, zero_sink: int = 0, eps: float = NORM_EPS):
     """K3, backward of K1: qkv [B, S, 3*H*D], cotangent g [B, S, H*D] ->
     dqkv [B, S, 3*H*D]."""
     if qkv.device.type == "cpu":
-        return flash_fused_packed_bwd_ref(qkv, g, num_heads, zero_sink)
-    dqkv = _launch_bwd(qkv, (), (), g, num_heads, zero_sink)[0]
+        return flash_fused_packed_bwd_ref(qkv, g, num_heads, zero_sink, eps)
+    dqkv = _launch_bwd(qkv, (), (), g, num_heads, zero_sink, eps)[0]
     launches["flash_fused_packed_bwd"] += 1
     return dqkv
 
 
-def flash_fused_packed_xattn_bwd(qkv, feats, g, num_heads: int, biases=()):
+def flash_fused_packed_xattn_bwd(qkv, feats, g, num_heads: int, biases=(),
+                                 eps: float = NORM_EPS):
     """K4, backward of K2 -> (dqkv, dfeats, dbiases): one [B, Sf, 2*H*D]
     per source and one fp32 [B, H, S, Sf] per bias."""
     if qkv.device.type == "cpu":
-        return flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads, biases)
-    grads = _launch_bwd(qkv, tuple(feats), tuple(biases), g, num_heads, 0)
+        return flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads, biases, eps)
+    grads = _launch_bwd(qkv, tuple(feats), tuple(biases), g, num_heads, 0, eps)
     launches["flash_fused_packed_xattn_bwd"] += 1
     return grads
 
-def flash_nomax_packed_ref(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0):
+def flash_nomax_packed_ref(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0,
+                           eps: float = NORM_EPS):
     """Plain version of K7, the kernel's arithmetic step for step: k and v
     rows normalised in fp32 and rounded to the input's dtype; q rows times
     (1 / sqrt(D)) / (eps + ||q|| / sqrt(D)) in fp32 and rounded once; fp32
@@ -284,17 +318,18 @@ def flash_nomax_packed_ref(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0
         ks.append(z[:, :, 0])
         vs.append(z[:, :, 1])
     q32 = y[:, :, 0].float()
-    den = NORM_EPS + torch.linalg.vector_norm(q32, dim=-1, keepdim=True) / math.sqrt(d)
+    den = eps + torch.linalg.vector_norm(q32, dim=-1, keepdim=True) / math.sqrt(d)
     q = (q32 * ((1.0 / math.sqrt(d)) / den)).to(qkv.dtype).transpose(1, 2).float()
-    k = _rms_norm(torch.cat(ks, 1)).transpose(1, 2).float()      # [B,H,Sk,D]
-    v = _rms_norm(torch.cat(vs, 1)).transpose(1, 2)
+    k = _rms_norm(torch.cat(ks, 1), eps).transpose(1, 2).float()      # [B,H,Sk,D]
+    v = _rms_norm(torch.cat(vs, 1), eps).transpose(1, 2)
     p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q, k))
     acc = torch.einsum("bhqk,bhkd->bhqd", p.to(qkv.dtype).float(), v.float())
     out = acc / (p.sum(-1, keepdim=True) + zero_sink)
     return out.transpose(1, 2).reshape(b, s, h * d).to(qkv.dtype)
 
 
-def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0):
+def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0,
+                       eps: float = NORM_EPS):
     """K7: what K1 (`feats` empty, optional `zero_sink`) and the unbiased K2
     compute, by the no-max schedule: qkv [B, S, 3*H*D] and cross sources
     [B, Sf, 2*H*D] -> [B, S, H*D]. Takes what K1/K2 take (any S and Sf, D 32
@@ -303,8 +338,8 @@ def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0):
     and `packed_xattn` with `nomax=True` are the entries with a gradient."""
     feats = tuple(feats)
     if qkv.device.type == "cpu":
-        return flash_nomax_packed_ref(qkv, feats, num_heads, zero_sink)
-    b, s, h, d, srcs = _checked(qkv, feats, (), num_heads, zero_sink)
+        return flash_nomax_packed_ref(qkv, feats, num_heads, zero_sink, eps)
+    b, s, h, d, srcs = _checked(qkv, feats, (), num_heads, zero_sink, eps)
     out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=qkv.device)
     lib = build.library()
     with torch.cuda.device(qkv.device):
@@ -312,7 +347,7 @@ def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0):
         rc = lib.vivid_flash_nomax_packed_fwd(
             _ptr(qkv), _ptr(out), b, s, h, d, len(feats),
             _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[1][0]), srcs[1][1],
-            ctypes.c_float(NORM_EPS), ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
+            ctypes.c_float(eps), ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_nomax_packed kernel launch failed: CUDA error {rc}")
     launches["flash_nomax_packed"] += 1
@@ -323,18 +358,18 @@ class _PackedSelfAttention(torch.autograd.Function):
     """K1 (with `nomax` K7) forward, K3 backward; keeps qkv only."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, zero_sink, nomax):
+    def forward(ctx, qkv, num_heads, zero_sink, nomax, eps):
         ctx.save_for_backward(qkv)
-        ctx.args = (num_heads, zero_sink)
+        ctx.args = (num_heads, zero_sink, eps)
         if nomax:
-            return flash_nomax_packed(qkv, (), num_heads, zero_sink)
-        return flash_fused_packed(qkv, num_heads, zero_sink)
+            return flash_nomax_packed(qkv, (), num_heads, zero_sink, eps)
+        return flash_fused_packed(qkv, num_heads, zero_sink, eps)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None, None
+        return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None, None, None
 
 
 class _PackedXAttn(torch.autograd.Function):
@@ -342,36 +377,39 @@ class _PackedXAttn(torch.autograd.Function):
     the biases."""
 
     @staticmethod
-    def forward(ctx, num_heads, n_src, nomax, qkv, *rest):
+    def forward(ctx, num_heads, n_src, nomax, eps, qkv, *rest):
         ctx.save_for_backward(qkv, *rest)
-        ctx.args = (num_heads, n_src)
+        ctx.args = (num_heads, n_src, eps)
         if nomax:
-            return flash_nomax_packed(qkv, rest, num_heads)
-        return flash_fused_packed_xattn(qkv, rest[:n_src], num_heads, rest[n_src:])
+            return flash_nomax_packed(qkv, rest, num_heads, 0, eps)
+        return flash_fused_packed_xattn(qkv, rest[:n_src], num_heads, rest[n_src:], eps)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        num_heads, n_src = ctx.args
+        num_heads, n_src, eps = ctx.args
         qkv, *rest = ctx.saved_tensors
         dqkv, dfeats, dbiases = flash_fused_packed_xattn_bwd(
-            qkv, rest[:n_src], g, num_heads, rest[n_src:])
-        return None, None, None, dqkv, *dfeats, *dbiases
+            qkv, rest[:n_src], g, num_heads, rest[n_src:], eps)
+        return None, None, None, None, dqkv, *dfeats, *dbiases
 
 
-def packed_self_attention(qkv, num_heads: int, zero_sink: int = 0, nomax: bool = False):
+def packed_self_attention(qkv, num_heads: int, zero_sink: int = 0, nomax: bool = False,
+                          eps: float = NORM_EPS):
     """Differentiable K1: its gradient is K3. `nomax` swaps the forward for
-    K7; K3 recomputes the softmax from qkv alone, so the backward is the same."""
-    return _PackedSelfAttention.apply(qkv, num_heads, zero_sink, nomax)
+    K7; K3 recomputes the softmax from qkv alone, so the backward is the same.
+    `eps` is the pixel norm's, in both directions."""
+    return _PackedSelfAttention.apply(qkv, num_heads, zero_sink, nomax, eps)
 
 
-def packed_xattn(qkv, feats, num_heads: int, biases=(), nomax: bool = False):
+def packed_xattn(qkv, feats, num_heads: int, biases=(), nomax: bool = False,
+                 eps: float = NORM_EPS):
     """Differentiable K2: its gradients are K4's. `nomax` swaps the forward
     for K7, which takes no bias."""
     feats = tuple(feats)
     if nomax and len(biases):
         raise ValueError("the no-max packed forward takes no bias")
-    return _PackedXAttn.apply(num_heads, len(feats), nomax, qkv, *feats, *biases)
+    return _PackedXAttn.apply(num_heads, len(feats), nomax, eps, qkv, *feats, *biases)
 
 
 def _nomax_shift(bias, d):
@@ -711,6 +749,26 @@ def flash_attention_info(d: int, biased: bool = False):
         rc = lib.vivid_flash_attn_info(i, d, int(biased), ctypes.cast(info, ctypes.c_void_p))
         if rc != 0:
             raise RuntimeError(f"flash_attn_info failed: CUDA error {rc}")
+        out[kernel] = dict(zip(_INFO_KEYS, info))
+    return out
+
+
+def flash_packed_bwd_info(d: int, biased: bool = False):
+    """What K3/K4's two wgmma kernels for head dim `d` (32 or 64) were built
+    with, from the loaded library, so only where there is a card: {"dq" |
+    "dkv": the keys of `flash_nomax_info`}; `biased` the instances a launch
+    with a bias takes."""
+    if d not in (32, 64):
+        raise ValueError(f"d must be 32 or 64, got {d}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("flash_packed_bwd_info reads the built kernel: it needs a CUDA card")
+    lib = build.library()
+    out = {}
+    for i, kernel in enumerate(("dq", "dkv")):
+        info = (ctypes.c_int * len(_INFO_KEYS))()
+        rc = lib.vivid_flash_packed_bwd_info(i, d, int(biased), ctypes.cast(info, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"flash_packed_bwd_info failed: CUDA error {rc}")
         out[kernel] = dict(zip(_INFO_KEYS, info))
     return out
 
