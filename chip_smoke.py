@@ -8,8 +8,9 @@ its own:
   device   the card's name and power limit; TF32 off for the fp32 references
   build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
            attention kernels (K8's three, K6, K5), the packed attention
-           backward's two (K3/K4) and the fused SiLU + 3x3 convolution (K9)
-           must hold wgmma and TMA instructions and no mma.sync
+           forward (K1/K2) and backward's two (K3/K4) and the fused SiLU + 3x3
+           convolution (K9) must hold wgmma and TMA instructions and no
+           mma.sync
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
@@ -19,8 +20,9 @@ its own:
            against its plain PyTorch version at every shape the paths give
            it, with times (CUDA events); a kernel run twice must give the same
            bits; two faults of a TMA ring, planted in the inputs, must fail
-           the gates (K8, K6, K5, K3, K4), and so must three faults of K9 (the image boundary
-           lost, the taps transposed, the SiLU applied twice)
+           the gates (K8, K6, K5, K1, K2, K3, K4; K2 also with a source's
+           padding rows unmasked), and so must three faults of K9 (the image
+           boundary lost, the taps transposed, the SiLU applied twice)
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
            the plain versions, held against a one-ulp noise control; planted
@@ -92,6 +94,7 @@ TOL_GRAD_CONTROL = 1.2 # whole-model gradient, kernels vs plain: at most this mu
                        # output and every attention gradient)
 SHAPES = [(1024, 4, 64), (256, 6, 64), (64, 8, 64)]   # (S, H, d) on the path
 EXTRA_SHAPES = [(100, 4, 64), (256, 8, 32)]           # ragged, d = 32
+SR_XATTN_SHAPE = (1024, 8, 32)   # K2 in the 256px denoiser at 32x32, one source of 1024
 # The no-max kernel on the 256px model's path, (Sq, Sk, H, d), at 128x128 and
 # 64x64: the denoiser's cross-attention with one source (Sk = 2 Sq; kind
 # 'sr' has 32 channels a head) and the encoder's self-attention (Sk = Sq; the
@@ -180,17 +183,19 @@ def phase_build():
 
 # The kernels on wgmma + TMA, with their template instances in the library:
 # the attention kernels (d 32, 64) x (bias, none), K9 with and without the
-# SiLU. K3/K4's norm pre-pass (packed_bwd_norm_kernel) is no wgmma kernel.
+# SiLU. The packed kernels' norm pre-pass (packed_fwd_norm_kernel,
+# packed_bwd_norm_kernel) is no wgmma kernel. Names match by substring.
 WGMMA_KERNELS = {"flash_fwd_kernel": 4, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 4,  # K8
                  "flash_nomax_kernel": 4,                                                   # K6
                  "flash_fused_kernel": 4,                                                   # K5
+                 "packed_fwd_kernel": 4,                                                    # K1/K2
                  "packed_bwd_dq_kernel": 4, "packed_bwd_dkv_kernel": 4,                     # K3/K4
                  "conv3x3_silu_kernel": 2}                                                  # K9
 
 
 def _check_wgmma_machine_code(build, lib_path):
-    """The kernels on wgmma in the built library (K8's three, K6, K5, K3/K4's
-    two, K9),
+    """The kernels on wgmma in the built library (K8's three, K6, K5, K1/K2's,
+    K3/K4's two, K9),
     read with the toolkit's cuobjdump: each has its expected number of
     instances, and every instance multiplies on wgmma (HGMMA), gets its tiles
     by TMA (UTMALDG) and holds no mma.sync product (HMMA)."""
@@ -234,13 +239,15 @@ def _sdpa_inputs(torch, qkv, feats, h):
                  for t in (y[:, :, 0], torch.cat(ks, 1), torch.cat(vs, 1)))
 
 
-def _kernel_cases(torch, gen):
+def _kernel_cases(torch, gen, plans=True):
     """One dict per case of K1-K4 and K7 at every shape: `kernel` and `plain32`
     (the plain version on fp32 copies) return tuples of tensors to compare,
     `plain` is the plain version as a CPU-less path would run it, `library`
-    (headline cases only) the PyTorch attention call timed beside them. K7
-    runs on the inputs of every K1 case and every unbiased K2 case, and its
-    output is also held to theirs (`against`)."""
+    (headline cases and K2 at the SR denoiser's shape) the PyTorch attention
+    call timed beside them. K7 runs on the inputs of every K1 case and every
+    unbiased K2 case, and its output is also held to theirs (`against`).
+    `plans=False` leaves out K1/K2's grids (`plan`), which a port from before
+    the wgmma forward cannot give."""
     import torch.nn.functional as F
     from vivid_tpu_torch.kernels import flash
     dev = "cuda"
@@ -259,6 +266,9 @@ def _kernel_cases(torch, gen):
                 return (out,)
             return (out[0], *out[1], *out[2])
         return run
+
+    def fwd_plan(s, h):
+        return {"plan": flash.packed_fwd_plan(BATCH, s, h)} if plans else {}
 
     for s, h, d in SHAPES + EXTRA_SHAPES:
         qkv = rows(s, 3, h, d)
@@ -282,7 +292,7 @@ def _kernel_cases(torch, gen):
                 plain32=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv.float(), h, sink)),
                 plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv, h, sink),
                 headline=head, library=lib, bytes=io_self,
-                flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
+                flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s, **fwd_plan(s, h)))
             cases.append(dict(
                 name="flash_nomax_packed", d=d, label=f"S={s} H={h} d={d} sink={sink}",
                 kernel=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed(qkv, (), h, sink)),
@@ -314,7 +324,7 @@ def _kernel_cases(torch, gen):
                 plain32=tup(lambda qkv=qkv, h=h, bs=bs, f32=f32: flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h, bs)),
                 plain=lambda qkv=qkv, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_ref(qkv, feats, h, bs),
                 headline=head, library=lib, bytes=io_x + io_b,
-                flops=4 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s))
+                flops=4 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s, **fwd_plan(s, h)))
             if not biased:   # the table's row of K7: the 64px model's cross-attention
                 cases.append(dict(
                     name="flash_nomax_packed", d=d, label=f"S={s} H={h} d={d} n_src=2",
@@ -333,7 +343,22 @@ def _kernel_cases(torch, gen):
                 bytes=io_x + 2 * (qkv.numel() + sum(f.numel() for f in feats)) + 2 * io_b,
                 flops=10 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s,
                 plan=flash.packed_bwd_plan(BATCH, s, h, (s, s))))
-    # K3 and K4 with another norm eps than the default, against the plain
+    # K2 at the SR denoiser's shape (32x32 tokens, 32 channels a head: 8 heads
+    # of its 256 channels, one source of the encoder's 1024 features), timed
+    # beside SDPA's core.
+    s, h, d = SR_XATTN_SHAPE
+    qkv, feats = rows(s, 3, h, d), [rows(s, 2, h, d)]
+    f32 = [feats[0].float()]
+    q, k, v = _sdpa_inputs(torch, qkv, feats, h)
+    cases.append(dict(
+        name="flash_fused_packed_xattn", d=d, label=f"S={s} H={h} d={d} n_src=1 bias=False sr_denoiser",
+        kernel=tup(lambda qkv=qkv, feats=feats, h=h: flash.flash_fused_packed_xattn(qkv, feats, h)),
+        plain32=tup(lambda qkv=qkv, f32=f32, h=h: flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h)),
+        plain=lambda qkv=qkv, feats=feats, h=h: flash.flash_fused_packed_xattn_ref(qkv, feats, h),
+        headline=False, library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+        bytes=2 * (qkv.numel() + feats[0].numel() + BATCH * s * h * d),
+        flops=4 * BATCH * h * s * 2 * s * d, exps=BATCH * h * s * 2 * s, **fwd_plan(s, h)))
+    # K1-K4 with another norm eps than the default, against the plain
     # versions with the same eps.
     s, h, d = EXTRA_SHAPES[0]
     eps = 1e-3
@@ -341,6 +366,21 @@ def _kernel_cases(torch, gen):
     bias = [torch.randn(BATCH, h, s, s, generator=gen, device=dev)]
     g = torch.randn(BATCH, s, h * d, generator=gen, device=dev).bfloat16()
     f32 = [feats[0].float()]
+    cases.append(dict(
+        name="flash_fused_packed", d=d, label=f"S={s} H={h} d={d} sink={s} eps={eps}",
+        kernel=tup(lambda: flash.flash_fused_packed(qkv, h, s, eps)),
+        plain32=tup(lambda: flash.flash_fused_packed_ref(qkv.float(), h, s, eps)),
+        plain=lambda: flash.flash_fused_packed_ref(qkv, h, s, eps),
+        headline=False, library=None, bytes=2 * (qkv.numel() + g.numel()),
+        flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s, **fwd_plan(s, h)))
+    cases.append(dict(
+        name="flash_fused_packed_xattn", d=d, label=f"S={s} H={h} d={d} n_src=1 bias=True eps={eps}",
+        kernel=tup(lambda: flash.flash_fused_packed_xattn(qkv, feats, h, bias, eps)),
+        plain32=tup(lambda: flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h, bias, eps)),
+        plain=lambda: flash.flash_fused_packed_xattn_ref(qkv, feats, h, bias, eps),
+        headline=False, library=None,
+        bytes=2 * (qkv.numel() + feats[0].numel() + g.numel()) + 4 * bias[0].numel(),
+        flops=4 * BATCH * h * s * 2 * s * d, exps=BATCH * h * s * 2 * s, **fwd_plan(s, h)))
     cases.append(dict(
         name="flash_fused_packed_bwd", d=d, label=f"S={s} H={h} d={d} sink={s} eps={eps}",
         kernel=tup(lambda: flash.flash_fused_packed_bwd(qkv, g, h, s, eps)),
@@ -599,8 +639,9 @@ def _sdpa_backward(torch, q, k, v, g, h):
 
 
 def _check_zero_rows(torch, gen):
-    """All-zero q, k and v rows (r = 0 in the norm's VJP) must give finite
-    gradients that agree with the plain version."""
+    """All-zero q, k and v rows (r = 0 in the norm and its VJP) must give
+    finite gradients and finite forward outputs (K2, and K1 with a sink) that
+    agree with the plain versions."""
     from vivid_tpu_torch.kernels import flash
     s, h, d = 100, 4, 64
     qkv = torch.randn(2, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
@@ -619,6 +660,15 @@ def _check_zero_rows(torch, gen):
     say("kernel", name="flash_fused_packed_xattn_bwd", case="'zero rows, S=100 H=4 d=64 n_src=1'",
         finite=True, rel_l2=f"{max(errs):.3e}",
         dqkv_absmax=f"{got[0].float().abs().max().item():.3e}")
+    for name, got, want, label in (
+            ("flash_fused_packed_xattn", flash.flash_fused_packed_xattn(qkv, feats, h),
+             flash.flash_fused_packed_xattn_ref(qkv.float(), [feats[0].float()], h), "n_src=1"),
+            ("flash_fused_packed", flash.flash_fused_packed(qkv, h, 2 * s),
+             flash.flash_fused_packed_ref(qkv.float(), h, 2 * s), f"sink={2 * s}")):
+        fails, shown = _fwd_fails(got, want)
+        check(bool(torch.isfinite(got).all()) and not fails, f"zero rows: {name} {shown}")
+        say("kernel", name=name, case=f"'zero rows, S={s} H={h} d={d} {label}'", finite=True,
+            **shown)
 
 
 def _check_nomax_gate(torch, gen):
@@ -695,10 +745,10 @@ def _check_fused_norm(torch, gen):
 
 
 def _built(name, case):
-    """What K8's, K6's, K5's, K3/K4's and K9's kernels were built with, for
-    their `kernel` lines: registers a thread at launch and after the
-    warpgroups have traded them, bytes of local memory a thread (spills),
-    dynamic shared memory; for K3/K4 also each launch's grid in blocks and in
+    """What K8's, K6's, K5's, K1/K2's, K3/K4's and K9's kernels were built
+    with, for their `kernel` lines: registers a thread at launch and after
+    the warpgroups have traded them, bytes of local memory a thread (spills),
+    dynamic shared memory; for K1-K4 also each launch's grid in blocks and in
     waves on 132 SMs."""
     from vivid_tpu_torch.kernels import flash
     from vivid_tpu_torch.tools import fused_conv_lab
@@ -711,6 +761,8 @@ def _built(name, case):
         info = {"k5": flash.flash_fused_info(case["d"], biased)}
     elif name in ("flash_attention", "flash_attention_bwd"):
         info = flash.flash_attention_info(case["d"], biased)
+    elif name in ("flash_fused_packed", "flash_fused_packed_xattn"):
+        info = {"fwd": flash.flash_packed_info(case["d"], biased)}
     elif name in ("flash_fused_packed_bwd", "flash_fused_packed_xattn_bwd"):
         info = flash.flash_packed_bwd_info(case["d"], biased)
     else:
@@ -719,7 +771,8 @@ def _built(name, case):
     for k, p in case.get("plan", {}).items():
         out[f"{k}_grid"] = f"{p['blocks']}_blocks_{p['waves']}_waves"
     for kernel in {"flash_nomax": ("k6",), "flash_fused": ("k5",), "conv3x3_silu": ("k9",),
-                   "flash_attention": ("fwd",)}.get(name, ("dkv", "dq")):
+                   "flash_attention": ("fwd",), "flash_fused_packed": ("fwd",),
+                   "flash_fused_packed_xattn": ("fwd",)}.get(name, ("dkv", "dq")):
         k = info[kernel]
         out.update({f"{kernel}_regs": f"{k['regs_at_launch']}/{k['consumer_regs']}/{k['producer_regs']}",
                     f"{kernel}_spill_bytes": k["local_bytes"], f"{kernel}_smem": k["smem_bytes"]})
@@ -757,7 +810,9 @@ def _bwd_fails(got, want, d):
 
 def _check_ring_faults(torch, gen):
     """Two faults of a ring of TMA stages must fail the gates of K8 (forward
-    and backward), of K6, of K5 (with its norm pre-pass) and of K3 and K4
+    and backward), of K6, of K5 (with its norm pre-pass), of K1 and K2 (the
+    forward gate; K2 also with the padding rows of a source of 100 keys
+    unmasked) and of K3 and K4
     (the backward gate; the stale stage in both rings: the dq kernel's of k'
     and v', the dk/dv kernel's of c q', dO and the statistics). The kernels have
     no switch to break them, so each fault is planted in the inputs, as the
@@ -879,6 +934,40 @@ def _check_ring_faults(torch, gen):
                 flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), [src.float()], g.float(), h),
                 label + f" (a source of {sf})")
 
+    # K1 and K2 on packed rows, held by the forward gate: the stale stage of
+    # the forward's ring of k' and v' in the self segment (K1) or a source
+    # (K2); the ragged edge of the self segment (qkv padded with zero rows,
+    # the output cut back to S); the padding rows of a source of 100 keys.
+    fwd = flash.flash_packed_info(64, False)
+    check(fwd["stage_rows"] == keys, f"the forward's stages differ from the backward's: {fwd}")
+
+    def fwd_gate(name, got, want, label, s):
+        fails, shown = _fwd_fails(got, want)
+        check(fails, f"{name} with {label} passes the forward gate: {shown}")
+        say("kernel", name=name, fault=f"'{label}, S={s} H={h} d={d}'", **shown, fails_gate=True)
+
+    s, n = 4 * fwd["stages"] * keys, fwd["stages"]
+    qkv, src = packed(s, 3), packed(s, 2)
+    label = f"stage {n - 1} of {n} never refreshed ({keys} keys a stage)"
+    fwd_gate("flash_fused_packed", flash.flash_fused_packed(stale(stale(qkv, 3, 1, n), 3, 2, n), h),
+             flash.flash_fused_packed_ref(qkv.float(), h), label, s)
+    fwd_gate("flash_fused_packed_xattn",
+             flash.flash_fused_packed_xattn(qkv, [stale(stale(src, 2, 0, n), 2, 1, n)], h),
+             flash.flash_fused_packed_xattn_ref(qkv.float(), [src.float()], h),
+             label + " in a source", s)
+    s, sf = 200, 100
+    qkv, src = packed(s, 3), packed(sf, 2)
+    label = "the key mask at the ragged edge dropped"
+    fwd_gate("flash_fused_packed", flash.flash_fused_packed(zero_rows(qkv, -s % keys), h)[:, :s],
+             flash.flash_fused_packed_ref(qkv.float(), h), label, s)
+    fwd_gate("flash_fused_packed_xattn",
+             flash.flash_fused_packed_xattn(zero_rows(qkv, -s % keys), [src], h)[:, :s],
+             flash.flash_fused_packed_xattn_ref(qkv.float(), [src.float()], h), label, s)
+    fwd_gate("flash_fused_packed_xattn",
+             flash.flash_fused_packed_xattn(qkv, [zero_rows(src, -sf % keys)], h),
+             flash.flash_fused_packed_xattn_ref(qkv.float(), [src.float()], h),
+             f"the padding rows of a source of {sf} unmasked", s)
+
 
 def _check_conv_faults(torch, gen):
     """Three faults of K9 must fail its gate. The kernel has no switch to
@@ -924,7 +1013,7 @@ def phase_kernels(table):
     operations over the bf16 peak. The headline case of each kernel fills
     its row of the table and adds the library yardstick. The bound counts a
     third term for every kernel with a softmax, its exponentials (one for
-    every logit) over EXPS_PER_S. K8's, K6's, K5's and K3/K4's lines carry what was built:
+    every logit) over EXPS_PER_S. K8's, K6's, K5's and K1-K4's lines carry what was built:
     registers a thread, spilled bytes and dynamic shared memory. K8's forward output
     is also held, by the forward limits, to K6's on the same inputs: the two
     differ by their rounding only."""
@@ -1003,27 +1092,50 @@ def phase_kernels(table):
                 library_ms=f"{library_ms:.4f}",
                 library_computes=case.get("library_is", CORE_ONLY))
         if "plan" in case and case["label"].startswith(f"S={SHAPES[0][0]} "):
-            say("kernel", name=name, split=f"'{label}'",
-                **_device_ms_by_kernel(torch, case["kernel"], "packed_bwd_"))
+            say("kernel", name=name, split=f"'{label}'", **_device_ms_by_kernel(
+                torch, case["kernel"], "packed_bwd_" if backward else "packed_fwd_"))
 
 
-def _device_ms_by_kernel(torch, fn, key, reps=10):
+def phase_packed_fwd():
+    """K1 and K2 alone at every case `_kernel_cases` gives them: one call
+    through the wrapper (CUDA events, median of 20) and the card's time in
+    each kernel (torch.profiler). It reads no grid and nothing of how the
+    kernels were built, so it also runs on a port from before the wgmma
+    forward: `vivid_tpu_torch/tools/smoke_phase.py packed_fwd --port DIR`
+    times that port's K1/K2 at this checkout's cases. Not part of `main`:
+    phase `kernels` holds and times the same cases."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for case in _kernel_cases(torch, gen, plans=False):
+        if case["name"] in ("flash_fused_packed", "flash_fused_packed_xattn"):
+            say("packed_fwd", name=case["name"], case=f"'{case['label']}'",
+                ms=f"{cuda_ms(case['kernel']):.4f}",
+                **_device_ms_by_kernel(torch, case["kernel"], "packed"))
+
+
+def _device_ms_by_kernel(torch, fn, key, reps=10, tries=3):
     """Device ms a call of `fn` spends in each kernel whose name holds `key`
     (torch.profiler over `reps` calls after a warm-up), keyed
-    `<kernel>_device_ms`: the card's own time, without the host's launch."""
+    `<kernel>_device_ms`: the card's own time, without the host's launch. A
+    profile now and then comes back with no device events at all (seen once
+    in nine splits of one run), so an empty one is taken again, up to
+    `tries` in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
-            kernel = e.name.split("::", 1)[-1].split("<")[0]
-            out[kernel] = out.get(kernel, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    check(out, f"the profiler saw no kernel named *{key}*")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
+                kernel = e.name.split("::", 1)[-1].split("<")[0]
+                out[kernel] = out.get(kernel, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if out:
+            break
+    check(out, f"the profiler saw no kernel named *{key}* in {tries} profiles")
     return {f"{k}_device_ms": f"{v:.4f}" for k, v in sorted(out.items())}
 
 
@@ -1889,7 +2001,8 @@ def phase_train_sr(card):
     # Where the distance comes from (printed, not gated): each kernel family
     # alone through its kernels with the others through their plain versions,
     # and the control under another noise seed.
-    families = {"k1_to_k4": (0, 1, 2, 3), "k3_k4": (2, 3), "k6": (4,), "k8": (5, 6)}
+    families = {"k1_to_k4": (0, 1, 2, 3), "k1_k2": (0, 1), "k3_k4": (2, 3), "k6": (4,),
+                "k8": (5, 6)}
     alone = {}
     for family, own in families.items():
         variants[family] = tuple(k if i in own else r

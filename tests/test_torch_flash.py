@@ -1,8 +1,9 @@
 """The plain versions of the port's packed attention kernels (K1
 flash_fused_packed, K2 flash_fused_packed_xattn) against the JAX package's
 Pallas kernels run in interpret mode, on the same numpy inputs (CPU, fp32,
-atol 3e-5 as in test_flash_fused.py). The CUDA kernels themselves run only
-on a card: chip_smoke.py compares them with these plain versions there."""
+atol 3e-5 as in test_flash_fused.py), and what the CPU can check of the CUDA
+kernels' wrappers (arguments, grids). The kernels themselves run only on a
+card: chip_smoke.py compares them with these plain versions there."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,10 @@ def test_packed_self_matches_pallas(b, s, h, d, sink):
     (1, 64, 2, 32, (128,), False),
     (2, 64, 2, 64, (64, 64), True),
     (1, 128, 1, 64, (64,), True),
+    # sources of no whole number of 64-row tiles: the padding rows of the
+    # kernel's key tiles, which its mask must keep out of the softmax
+    (1, 64, 2, 64, (40, 72), False),
+    (2, 100, 2, 32, (40, 72), True),
 ])
 def test_packed_xattn_matches_pallas(b, s, h, d, sfs, biased):
     qkv = _x(b, s, 3 * h * d)
@@ -51,6 +56,20 @@ def test_packed_xattn_matches_pallas(b, s, h, d, sfs, biased):
     got = flash.flash_fused_packed_xattn(torch.from_numpy(qkv),
                                          [torch.from_numpy(f) for f in feats], h,
                                          biases=[torch.from_numpy(x) for x in biases])
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_packed_xattn_with_a_zero_source_matches_pallas():
+    """The sink beside a source: a source of all-zero rows (the unconditional
+    model's cross features, what the sink stands for) of 40 keys beside a
+    source of 72, both lengths no whole number of 64-row tiles."""
+    b, s, h, d = 1, 64, 2, 64
+    qkv = _x(b, s, 3 * h * d)
+    feats = [np.zeros((b, 40, 2 * h * d), np.float32), _x(b, 72, 2 * h * d, seed=2)]
+    want = np.asarray(j_xattn(jnp.asarray(qkv), [jnp.asarray(f) for f in feats], h,
+                              interpret=True))
+    got = flash.flash_fused_packed_xattn(torch.from_numpy(qkv),
+                                         [torch.from_numpy(f) for f in feats], h)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
@@ -91,6 +110,36 @@ def test_non_cpu_tensors_never_take_the_plain_version(shape, heads, feats, match
             flash.flash_fused_packed_xattn(qkv, fs, heads)
         else:
             flash.flash_fused_packed(qkv, heads)
+
+
+def test_packed_info_needs_a_card(monkeypatch):
+    """What K1/K2's kernel was built with comes from the built library alone:
+    a head dim the kernel lacks raises first, and with no card the call
+    raises before it builds or loads anything."""
+    def no_library():
+        raise AssertionError("flash_packed_info reached the library")
+
+    monkeypatch.setattr(flash.build, "library", no_library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="32 or 64"):
+        flash.flash_packed_info(16)
+    for d in (32, 64):
+        for biased in (False, True):
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                flash.flash_packed_info(d, biased)
+
+
+@pytest.mark.parametrize("b,s,h,blocks", [
+    (8, 1024, 4, 512),   # 32x32: 16 query tiles a head, 1.94 waves
+    (8, 256, 6, 192),    # 16x16
+    (8, 64, 8, 64),      # 8x8: one tile a head
+])
+def test_packed_fwd_plan(b, s, h, blocks):
+    """The grid of K1/K2's forward at the 64px model's three attention
+    shapes: a block for each 64-row query tile, whatever the sources, and
+    the waves it makes at two blocks an SM on 132 SMs."""
+    plan = flash.packed_fwd_plan(b, s, h)
+    assert plan == {"fwd": dict(blocks=blocks, waves=round(blocks / (2 * 132), 3))}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,8 +1,8 @@
-// Device helpers shared by the attention kernels: bf16 fragment loads, the
-// m16n8k16 tensor-core product, the pixel norm of one D-wide row (packed
-// kernels), and the cp.async + ldmatrix feeding of shared-memory tiles (the
-// big-S kernels), with the strided tile copy, the in-place pixel norm of a
-// tile and the normalised query fragments of the kernels that do both.
+// Device helpers shared by the attention kernels: bf16 packing, the
+// m16n8k16 tensor-core product, the pixel norm of one D-wide row, and the
+// cp.async + ldmatrix feeding of shared-memory tiles, with the strided tile
+// copy, the in-place pixel norm of a tile and the normalised query fragments
+// of the kernels that do both.
 
 #pragma once
 
@@ -13,14 +13,7 @@
 
 namespace vivid {
 
-constexpr int kBlockQ = 64;   // query rows per tile, 16 per warp
-constexpr int kBlockK = 64;   // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kMaxSegments = 3;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kMaxSegments = 3;   // key segments of a packed launch: self and two sources
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -1,5 +1,6 @@
-// Packed-layout fused attention for the VIVID blocks: the forward kernel
-// (sm_90a). Its backward is flash_packed_bwd.cu.
+// Packed-layout fused attention for the VIVID blocks: the forward (sm_90a:
+// wgmma, TMA, mbarriers). Its backward is flash_packed_bwd.cu; the pieces
+// both share are in flash_packed.cuh.
 //
 // Replaces the TPU kernels in vivid_tpu/kernels/flash.py:
 //   * flash_fused_packed       (_kernel_packed): self-attention straight off
@@ -9,278 +10,318 @@
 //     plus up to two cross sources [B, Sf, 2*H*D] (k, v part-major) under one
 //     joint softmax, with an optional unscaled per-source logit bias
 //     [B, H, S, Sf] (the self segment carries none).
-// Both are one kernel: a "segment" is the self k/v inside qkv or one cross
-// source, and a launch walks 1 to 3 of them.
+// One launch sequence serves both: the keys are 1 to 3 segments, the self
+// segment and each source.
 //
-// What it computes, per (batch b, head h, 64-row query tile):
-//   q, k, v rows are pixel-normalised in fp32, x / (eps + ||x|| / sqrt(D)),
-//   and rounded to bf16, as the TPU kernel's _rms_norm does; q is then scaled
-//   by 1/sqrt(D) and rounded again. Logits q.k^T (+ bias) accumulate in fp32
-//   on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 out); an online
-//   softmax with a running max keeps the output exact with or without a bias
-//   (the TPU's shiftless exp(s) was a speed trick for its VPU). `zero_sink`
-//   all-zero key columns add zero_sink * exp(-m) to the denominator after
-//   the running max is raised to max(m, 0). Output is bf16 at
-//   out[b, s, h*D + j], the (head, d) order the projection expects.
+// What it computes, per (batch b, head h, query row): q, k, v rows
+// pixel-normalised, x / (eps + ||x|| / sqrt(D)) in fp32 rounded to bf16, as
+// the TPU kernel's _rms_norm does, q then times c = 1/sqrt(D) and rounded
+// again; logits s = (c q').k' (+ bias) in fp32; a softmax about the running
+// row maximum, exact with or without a bias (the TPU's shiftless exp(s) was
+// a speed trick for its VPU); `zero_sink` all-zero key columns add
+// zero_sink * exp(-m) to the denominator after the maximum m is raised to
+// max(m, 0); o = P v' with P rounded to bf16, every sum in fp32, one
+// division, the output rounded to bf16 once, at out[b, s, h*D + j], the
+// (head, d) order the projection reads.
 //
-// What bounds it on the card: at D = 64 each logit costs 2*D FLOPs against a
-// 2*D-byte k row, far below the ~295 FLOP/byte where bf16 tensor cores become
-// the limit, so the kernel is a bandwidth problem: its design keeps the
-// [S, 3S] logits and probabilities in registers, and they never touch device
-// memory, which is what the plain PyTorch version pays for. This first
-// version does not reach that bound either: on an H100 (700 W) it runs at
-// ~25 TFLOP/s and ~50 GB/s of device memory at S = 1024, held back by the
-// synchronous single-buffered tile loads and by every query tile
-// re-normalising the same k/v rows. Double buffering (cp.async or TMA),
-// normalising k/v once per (b, h), ldmatrix/wgmma and warp specialisation
-// are later work.
+// Design for this card, two launches:
+//   packed_fwd_norm_kernel  the pre-pass of flash_packed.cuh (K3/K4 run the
+//                           same): every row of q, k and v normalised once
+//                           into head-major scratch the caller gives, each
+//                           key segment padded with zero rows to whole
+//                           64-row tiles.
+//   packed_fwd_kernel       one block per (b, h, 64 query rows), the layout
+//                           of K3/K4's dq kernel: a TMA producer warpgroup
+//                           keeps a 4-stage ring of 64-key stages (k', v')
+//                           full over every tile of every segment in order,
+//                           and a consumer warpgroup holds its rows of c q'
+//                           as register A fragments. Per tile: S = (c q') k'^T
+//                           on wgmma with k' read K-major, the tile's fp32
+//                           bias rows added, p = 0 for the keys at or past
+//                           the segment's end (the padding), the online
+//                           softmax step in fp32 with ex2, then o += P v' on
+//                           wgmma with P from registers and v' read MN-major
+//                           (the transpose bit): nothing is transposed
+//                           through shared memory. Epilogue: the sink, one
+//                           division, bf16 straight from the accumulator.
+// Two blocks an SM; each output element has one owner and nothing is atomic,
+// so two runs give the same bits. A query row past S reads as zeros and is
+// not written. The softmax step is one function (softmax_step): the no-max
+// form of K7 (p = exp(s), nothing rescaled) would be its other branch.
+//
+// What bounds it on the card: at B = 8, S = 1024, H = 4, D = 64 with two
+// sources of 1024 the function needs 4 B H S Sk D = 26 GFLOP against ~34 MB
+// moved: the bound is operations (with a std-1 fp32 bias of each source it
+// turns to bytes, the bias read once). The exponentials (one a logit) come
+// close: 100 M of them against the SFU's ~3.9e12 a second.
 
-#include "flash_common.cuh"
+#include "flash_packed.cuh"
 
 namespace {
 
-using namespace vivid;
-
-struct Segment {
-  const __nv_bfloat16* base;  // batch 0, row 0, channel 0
-  const float* bias;          // [B, H, S, len] fp32, or nullptr
-  long long batch_stride;     // elements between batch rows
-  int row_stride;             // elements between sequence rows
-  int k_off;                  // channel of head 0's k; head h adds h*D
-  int v_off;
-  int len;
-};
-
-struct Params {
-  const __nv_bfloat16* qkv;
-  __nv_bfloat16* out;
-  Segment seg[kMaxSegments];
-  int n_seg;
-  int S;
-  int H;
-  float eps;
-  float zero_sink;
-};
-
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_packed_kernel(const Params p) {
-  constexpr int kPad = D + 8;      // +16 bytes a row: fragment loads hit 32 banks
-  constexpr int kPadT = kBlockK + 8;
-  constexpr int kPer = D / 32;
-  constexpr int kDk = D / 16;      // k16 steps over the head dim
-  constexpr int kDn = D / 8;       // n8 tiles over the head dim
-  constexpr int kKn = kBlockK / 8; // n8 tiles over a key tile
-  __shared__ __align__(16) __nv_bfloat16 qs[kBlockQ][kPad];
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vt[D][kPadT];  // v tile, transposed
+constexpr int kPackedSmemBytes = kAlignSlack + kStages * 2 * kRows * 2 * D + 2 * kStages * 8;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int S = p.S;
-  const int H = p.H;
-  const int qkv_row = 3 * H * D;
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  const __nv_bfloat16* xb = p.qkv + static_cast<long long>(b) * S * qkv_row;
+// The pre-pass (flash_packed.cuh's norm_rows).
+template <int D>
+__global__ void __launch_bounds__(kNormThreads)
+packed_fwd_norm_kernel(const __grid_constant__ Params p, __nv_bfloat16* __restrict__ qn,
+                       __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
+                       long long q_rows, long long kv_rows) {
+  norm_rows<D>(p, qn, kn, vn, q_rows, kv_rows);
+}
 
-  // Query tile: normalise, round to bf16, scale, round again.
-  for (int r = warp; r < kBlockQ; r += kWarps) {
-    const int s = q0 + r;
-    float x[kPer];
-    const float den = load_row<D>(
-        s < S ? xb + static_cast<long long>(s) * qkv_row + h * D : nullptr,
-        lane, p.eps, x);
+// One tile's step of the online softmax, in place: s (this thread's part of
+// 64 rows x 64 keys of logits, -inf where a key is masked) becomes p =
+// exp(s - m) about the running maximum m of each of its two rows, raised by
+// this tile; the partial row sums l and the accumulator o are rescaled to
+// the new maximum first, then l takes the unrounded p.
+template <int D>
+__device__ __forceinline__ void softmax_step(float (&s)[kRows / 2], float (&m)[2], float (&l)[2],
+                                             float (&o)[D / 2]) {
+  float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      const float qn = __bfloat162float(__float2bfloat16(x[e] / den));
-      qs[r][lane * kPer + e] = __float2bfloat16(qn * scale);
-    }
+  for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
   }
-  __syncthreads();
-
-  // Fragment coordinates: this thread holds rows r0 and r0 + 8 of the warp's
-  // 16 query rows, and columns c0, c0 + 1 of every n8 tile.
-  const int r0 = warp * 16 + lane / 4;
-  const int c0 = (lane % 4) * 2;
-  uint32_t qf[kDk][4];
-#pragma unroll
-  for (int kk = 0; kk < kDk; ++kk) {
-    qf[kk][0] = ld32(&qs[r0][kk * 16 + c0]);
-    qf[kk][1] = ld32(&qs[r0 + 8][kk * 16 + c0]);
-    qf[kk][2] = ld32(&qs[r0][kk * 16 + c0 + 8]);
-    qf[kk][3] = ld32(&qs[r0 + 8][kk * 16 + c0 + 8]);
-  }
-
-  float o[kDn][4];
-#pragma unroll
-  for (int j = 0; j < kDn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  for (int si = 0; si < p.n_seg; ++si) {
-    const Segment sg = p.seg[si];
-    const __nv_bfloat16* seg_b = sg.base + b * sg.batch_stride;
-    const float* bias = sg.bias == nullptr
-        ? nullptr
-        : sg.bias + (static_cast<long long>(b) * H + h) * S * sg.len;
-
-    for (int k0 = 0; k0 < sg.len; k0 += kBlockK) {
-      __syncthreads();  // every warp is done with the previous tile
-      for (int r = warp; r < kBlockK; r += kWarps) {
-        const int j = k0 + r;
-        const __nv_bfloat16* row =
-            j < sg.len ? seg_b + static_cast<long long>(j) * sg.row_stride : nullptr;
-        float x[kPer];
-        float den = load_row<D>(row ? row + sg.k_off + h * D : nullptr, lane, p.eps, x);
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) ks[r][lane * kPer + e] = __float2bfloat16(x[e] / den);
-        den = load_row<D>(row ? row + sg.v_off + h * D : nullptr, lane, p.eps, x);
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) vt[lane * kPer + e][r] = __float2bfloat16(x[e] / den);
-      }
-      __syncthreads();
-
-      // Logits for the warp's 16 rows against this tile's 64 keys.
-      float s[kKn][4];
-#pragma unroll
-      for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kDk; ++kk) {
-          const __nv_bfloat16* kr = &ks[j * 8 + lane / 4][kk * 16 + c0];
-          mma_16816(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-        }
-      }
-
-      // Bias and the ragged edge; then the online-softmax update.
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int j = 0; j < kKn; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + c0 + (e & 1);
-          const int row = q0 + r0 + (e >> 1) * 8;
-          if (col >= sg.len) {
-            s[j][e] = -INFINITY;
-          } else if (bias != nullptr && row < S) {
-            s[j][e] += bias[static_cast<long long>(row) * sg.len + col];
-          }
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
-      }
-      float alpha[2];
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        alpha[i] = expf(m[i] - mx[i]);
-        m[i] = mx[i];
-      }
-#pragma unroll
-      for (int j = 0; j < kKn; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - m[e >> 1]);
-          rs[e >> 1] += s[j][e];
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-        l[i] = alpha[i] * l[i] + rs[i];
-      }
-#pragma unroll
-      for (int j = 0; j < kDn; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-
-      // o += p v, with p rounded to bf16 (the accumulator layout of two n8
-      // logit tiles is the A-fragment layout of one k16 step).
-#pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int j = 0; j < kDn; ++j) {
-          const __nv_bfloat16* vr = &vt[j * 8 + lane / 4][kk * 16 + c0];
-          mma_16816(o[j], a, ld32(vr), ld32(vr + 8));
-        }
-      }
-    }
-  }
-
-  // Zero sink, normalise, write (head, d)-packed bf16.
+  float m2[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float corr = 1.f;
-    if (p.zero_sink > 0.f) {
-      const float m0 = fmaxf(m[i], 0.f);
-      corr = expf(m[i] - m0);
-      l[i] = l[i] * corr + p.zero_sink * expf(-m0);
-    }
-    const int row = q0 + r0 + i * 8;
-    if (row >= S) continue;
-    __nv_bfloat16* orow =
-        p.out + (static_cast<long long>(b) * S + row) * (H * D) + h * D;
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float alpha = fast_exp2((m[i] - mx[i]) * kLog2e);   // 0 on the first tile
+    m[i] = mx[i];
+    m2[i] = mx[i] * kLog2e;
+    l[i] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kDn; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) = __floats2bfloat162_rn(
-          o[j][2 * i] * corr / l[i], o[j][2 * i + 1] * corr / l[i]);
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 2 * i] *= alpha;
+      o[4 * j + 2 * i + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = fast_exp2(fmaf(s[4 * j + e], kLog2e, -m2[e >> 1]));
+      s[4 * j + e] = pe;
+      l[e >> 1] += pe;
     }
   }
 }
 
+// The output of one (b, h, 64 query rows).
+template <int D, bool kBiased>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+packed_fwd_kernel(const __grid_constant__ CUtensorMap kn_map,
+                  const __grid_constant__ CUtensorMap vn_map,
+                  const __grid_constant__ Params p, __nv_bfloat16* __restrict__ out) {
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kBoxBytes = kRows * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = aligned_smem(smem_raw);   // stage: k' box, v' box
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kStages * 2 * kBoxBytes);
+  uint64_t* empty = full + kStages;
+
+  const int wg = threadIdx.x / 128;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * p.H + h;
+  const int n_tiles = p.key_tiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kBoxBytes);
+        tma_load_3d(tiles + s * 2 * kBoxBytes, &kn_map, &full[s], 0, t * kRows, bh);
+        tma_load_3d(tiles + s * 2 * kBoxBytes + kBoxBytes, &vn_map, &full[s], 0, t * kRows, bh);
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int S = p.S;
+    const int q0 = blockIdx.x * kRows;
+    // This thread holds rows r0 and r0 + 8 of the consumer's 64, and
+    // columns c0, c0 + 1 of every n8 group.
+    const int r0 = warp * 16 + lane / 4;
+    const int c0 = (lane % 4) * 2;
+    const int rows[2] = {q0 + r0, q0 + r0 + 8};
+    uint32_t qf[D / 16][4];   // c q' is rounded already: scale 1 repacks it as it is
+    load_a_global<D>(p.qn + static_cast<long long>(bh) * S * D, q0, S, r0, c0, 1.f, qf);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};   // per-thread partial sums; a quad holds a row
+    for (int t = 0; t < n_tiles; ++t) {
+      const Segment& sg = p.seg[segment_of(p, t)];
+      const int k0 = (t - sg.tile0) * kRows;   // the tile's first key in its segment
+      const int cols = sg.len - k0;            // keys of the tile that exist
+      const int stage = t % kStages;
+      mbar_wait(&full[stage], (t / kStages) & 1);
+      const uint8_t* kt = tiles + stage * 2 * kBoxBytes;
+      const uint64_t kd = smem_desc<kRowBytes>(kt);
+      const uint64_t vd = smem_desc<kRowBytes>(kt + kBoxBytes);
+
+      float s[kRows / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<kRows, true>::template run<0>(s, qf[kk], kd + kk * kDescStepK, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(qf);
+      if constexpr (kBiased) {
+        if (sg.bias != nullptr) {
+          const float* at[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            at[i] = rows[i] < S
+                ? sg.bias + (static_cast<long long>(bh) * S + rows[i]) * sg.len + k0 + c0
+                : nullptr;
+          }
+          add_bias<kRows>(s, at, cols - c0, sg.len % 2 == 0 && cols >= kRows, lane);
+        }
+      }
+      if (cols < kRows) {   // the segment's ragged edge: its padding rows get p = 0
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (j * 8 + c0 + (e & 1) >= cols) s[4 * j + e] = -INFINITY;
+          }
+        }
+      }
+      softmax_step<D>(s, m, l, o);
+
+      // o += P v', P rounded to bf16.
+      uint32_t pa[kRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) acc_to_a(s, kk, pa[kk]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with the stage
+    }
+
+    // The sink: the maximum raised to 0 rescales the sum and the
+    // accumulator; one division, as the plain version.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float den = quad_sum(l[i]);
+      float corr = 1.f;
+      if (p.zero_sink > 0.f) {
+        const float m0 = fmaxf(m[i], 0.f);
+        corr = expf(m[i] - m0);
+        den = den * corr + p.zero_sink * expf(-m0);
+      }
+      if (rows[i] >= S) continue;
+      __nv_bfloat16* orow = out + (static_cast<long long>(b) * S + rows[i]) * (p.H * D) + h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) = __floats2bfloat162_rn(
+            o[4 * j + 2 * i] * corr / den, o[4 * j + 2 * i + 1] * corr / den);
+      }
+    }
+  }
+}
+
+// The two launches. `rows` is the pre-pass's scratch: c q' [B*H, S, D],
+// then k' and v' [B*H, key_tiles * 64, D] each.
+template <int D, bool kBiased>
+int launch(Params p, __nv_bfloat16* rows, __nv_bfloat16* out, int B, cudaStream_t st) {
+  const int bh = B * p.H;
+  const int keys = p.key_tiles * kRows;
+  __nv_bfloat16* qn = rows;
+  __nv_bfloat16* kn = qn + static_cast<long long>(bh) * p.S * D;
+  __nv_bfloat16* vn = kn + static_cast<long long>(bh) * keys * D;
+  p.qn = qn;
+  CUtensorMap kn_map, vn_map;
+  int rc = rows_map(&kn_map, kn, bh, keys, D);
+  if (rc == 0) rc = rows_map(&vn_map, vn, bh, keys, D);
+  if (rc == 0) rc = launch_norm<D>(packed_fwd_norm_kernel<D>, p, qn, kn, vn, B, st);
+  if (rc != 0) return rc;
+  auto* kernel = packed_fwd_kernel<D, kBiased>;
+  rc = allow_smem(kernel, kPackedSmemBytes<D>);
+  if (rc != 0) return rc;
+  const dim3 grid((p.S + kRows - 1) / kRows, p.H, B);
+  kernel<<<grid, kThreads, kPackedSmemBytes<D>, st>>>(kn_map, vn_map, p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// C entry for ctypes. All tensors are contiguous: qkv [B, S, 3*H*d] bf16,
-// out [B, S, H*d] bf16, feats_i [B, sf_i, 2*H*d] bf16, bias_i [B, H, S, sf_i]
-// fp32 or null. n_src is 0, 1 or 2; d is 32 or 64. Returns the launch's
-// cudaGetLastError() (0 on success); the caller checks it.
+// C entry for ctypes. All tensors are contiguous and 16-byte aligned: qkv
+// [B, S, 3*H*d] bf16, out [B, S, H*d] bf16, feats_i [B, sf_i, 2*H*d] bf16,
+// bias_i [B, H, S, sf_i] fp32 or null. Scratch: rows bf16 of
+// B*H*(S + 2*keys)*d elements, keys the sum over the self segment (S) and
+// the sources of each length rounded up to 64. n_src is 0, 1 or 2; d is 32
+// or 64. Returns the first error (0 on success; 10000 and above: the
+// tensor-map encoder was not found or refused); the caller checks it.
 extern "C" int vivid_flash_packed_fwd(
-    const void* qkv, void* out, int B, int S, int H, int d, int n_src,
+    const void* qkv, void* out, void* rows, int B, int S, int H, int d, int n_src,
     const void* feats0, int sf0, const void* bias0,
     const void* feats1, int sf1, const void* bias1,
     float eps, float zero_sink, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || n_src < 0 || n_src > 2 || (d != 32 && d != 64)) {
+  if (bad_shape(B, H, S, 1, d) || n_src < 0 || n_src > 2 || !(eps > 0.f) ||
+      !(zero_sink >= 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
+  Params p = {};
   p.qkv = static_cast<const __nv_bfloat16*>(qkv);
-  p.out = static_cast<__nv_bfloat16*>(out);
   p.S = S;
+  p.s_pad = (S + kRows - 1) / kRows * kRows;
   p.H = H;
   p.eps = eps;
   p.zero_sink = zero_sink;
-  p.n_seg = 1 + n_src;
-  const long long hd = static_cast<long long>(H) * d;
-  p.seg[0] = Segment{p.qkv, nullptr, S * 3 * hd, static_cast<int>(3 * hd),
-                     static_cast<int>(hd), static_cast<int>(2 * hd), S};
   const void* feats[2] = {feats0, feats1};
   const void* biases[2] = {bias0, bias1};
+  void* const none[2] = {nullptr, nullptr};
   const int sfs[2] = {sf0, sf1};
-  for (int i = 0; i < n_src; ++i) {
-    if (sfs[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    p.seg[1 + i] = Segment{static_cast<const __nv_bfloat16*>(feats[i]),
-                           static_cast<const float*>(biases[i]),
-                           sfs[i] * 2 * hd, static_cast<int>(2 * hd), 0,
-                           static_cast<int>(hd), sfs[i]};
-  }
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  const int biased = fill_segments(p, d, n_src, feats, none, biases, none, sfs);
+  if (biased < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* r = static_cast<__nv_bfloat16*>(rows);
+  auto* o = static_cast<__nv_bfloat16*>(out);
   if (d == 64) {
-    flash_packed_kernel<64><<<grid, kWarps * 32, 0, st>>>(p);
-  } else {
-    flash_packed_kernel<32><<<grid, kWarps * 32, 0, st>>>(p);
+    return biased ? launch<64, true>(p, r, o, B, st) : launch<64, false>(p, r, o, B, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return biased ? launch<32, true>(p, r, o, B, st) : launch<32, false>(p, r, o, B, st);
+}
+
+// What was built: the forward kernel for head dim d (32 or 64), the instance
+// a launch with (biased != 0) or without a bias takes. info as
+// describe_packed fills it.
+extern "C" int vivid_flash_packed_info(int d, int biased, int* info) {
+  if (d != 32 && d != 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64) {
+    return biased ? describe_packed(packed_fwd_kernel<64, true>, kPackedSmemBytes<64>, info)
+                  : describe_packed(packed_fwd_kernel<64, false>, kPackedSmemBytes<64>, info);
+  }
+  return biased ? describe_packed(packed_fwd_kernel<32, true>, kPackedSmemBytes<32>, info)
+                : describe_packed(packed_fwd_kernel<32, false>, kPackedSmemBytes<32>, info);
 }

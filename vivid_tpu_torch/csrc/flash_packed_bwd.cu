@@ -1,5 +1,5 @@
 // Backward of the packed-layout fused attention in flash_packed.cu (sm_90a:
-// wgmma, TMA, mbarriers).
+// wgmma, TMA, mbarriers; the pieces both share are in flash_packed.cuh).
 //
 // Replaces the TPU kernels in vivid_tpu/kernels/flash.py:
 //   * flash_fused_packed_bwd       (_kernel_packed_bwd): qkv, g -> dqkv, with
@@ -27,7 +27,8 @@
 // so the backward recomputes the statistics, as the reference does.
 //
 // Design for this card, three launches:
-//   packed_bwd_norm_kernel  a pre-pass: every row of q, k and v normalised
+//   packed_bwd_norm_kernel  a pre-pass (flash_packed.cuh's, the forward
+//                           runs the same): every row of q, k and v normalised
 //                           once into head-major scratch the caller gives,
 //                           c q' [B, H, S, D] and k', v' [B, H, keys, D]
 //                           with each segment padded with zero rows to whole
@@ -74,53 +75,9 @@
 // floor of 9/5 of the operations bound, the price of recomputing the
 // statistics and of one owner an element.
 
-#include "flash_fwd.cuh"
+#include "flash_packed.cuh"
 
 namespace {
-
-using namespace vivid;
-
-constexpr int kStages = 4;          // 64 keys (dq) or 64 query rows (dk/dv) a stage
-constexpr int kNormThreads = 256;
-
-struct Segment {
-  const __nv_bfloat16* base;  // batch 0, row 0, channel 0 of the raw rows
-  __nv_bfloat16* dbase;       // gradient of base, same layout
-  const float* bias;          // [B, H, S, len] fp32, or nullptr
-  float* dbias;               // gradient of bias, or nullptr
-  long long batch_stride;     // elements between batch rows
-  int row_stride;             // elements between sequence rows
-  int k_off;                  // channel of head 0's k; head h adds h*D
-  int v_off;
-  int len;
-  int tile0;                  // the segment's first 64-row tile in the key scratch
-};
-
-struct Params {
-  const __nv_bfloat16* qkv;   // [B, S, 3*H*D]
-  const __nv_bfloat16* g;     // [B, S, H*D]
-  __nv_bfloat16* dqkv;
-  const __nv_bfloat16* qn;    // [B*H, S, D] c q', the pre-pass's
-  float* lse2;                // [B*H, s_pad] lse * log2(e), +inf past S
-  float* delta;               // [B*H, s_pad] rowsum(P o dP), 0 past S
-  Segment seg[kMaxSegments];
-  int n_seg;
-  int key_tiles;              // 64-row tiles of all segments
-  int S;
-  int s_pad;                  // S rounded up to a whole tile
-  int H;
-  float eps;
-  float zero_sink;
-};
-
-// A block: one consumer warpgroup, then one producer; two blocks share an SM
-// (128 registers a thread at launch), the registers traded as K8's kernels
-// trade them.
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 2;
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 232;
-constexpr int kEmptyArrivals = 4;   // one lane of every consumer warp
 
 template <int D>
 constexpr int kDqSmemBytes = kAlignSlack + kStages * 2 * kRows * 2 * D + 2 * kStages * 8;
@@ -133,12 +90,6 @@ constexpr int kDkvStageBytes = 2 * kRows * 2 * D + 1024;
 template <int D>
 constexpr int kDkvSmemBytes = kAlignSlack + 2 * kRows * 2 * D
     + kStages * kDkvStageBytes<D> + (2 * kStages + 1) * 8;
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
 
 // VJP of the pixel norm for the two rows of a wgmma accumulator, and the
 // store. dy[4 j + 2 i + e] is the cotangent of column j*8 + c0 + e of row i
@@ -184,80 +135,13 @@ __device__ __forceinline__ void norm_vjp_store(
   }
 }
 
-// Index of the segment that holds key tile `tile`.
-__device__ __forceinline__ int segment_of(const Params& p, int tile) {
-  int si = 0;
-  while (si + 1 < p.n_seg && tile >= p.seg[si + 1].tile0) ++si;
-  return si;
-}
-
-// The pre-pass. Rows [0, q_rows) of its index space are q's ([B*H, S]), the
-// next kv_rows k's and the last kv_rows v's ([B*H, keys], segments padded):
-// x / (eps + ||x|| / sqrt(D)) rounded to bf16, for q then times c and
-// rounded again; padding rows are zeros.
+// The pre-pass (flash_packed.cuh's norm_rows).
 template <int D>
 __global__ void __launch_bounds__(kNormThreads)
 packed_bwd_norm_kernel(const __grid_constant__ Params p, __nv_bfloat16* __restrict__ qn,
                        __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
                        long long q_rows, long long kv_rows) {
-  constexpr int kLanes = D / 8;   // threads a row, 8 values each
-  const long long t = static_cast<long long>(blockIdx.x) * kNormThreads + threadIdx.x;
-  const long long row = t / kLanes;
-  const int col = static_cast<int>(t % kLanes) * 8;
-  const bool ok = row < q_rows + 2 * kv_rows;   // the grid's last threads lie past v's end
-  const __nv_bfloat16* src = nullptr;           // stays null for a padding row
-  __nv_bfloat16* dst = nullptr;
-  const bool is_q = row < q_rows;
-  if (ok && is_q) {
-    const int bh = static_cast<int>(row / p.S);
-    const int r = static_cast<int>(row % p.S);
-    const int b = bh / p.H, h = bh % p.H;
-    src = p.qkv + (static_cast<long long>(b) * p.S + r) * (3 * p.H * D) + h * D + col;
-    dst = qn + row * D + col;
-  } else if (ok) {
-    long long kr = row - q_rows;
-    const bool is_v = kr >= kv_rows;
-    if (is_v) kr -= kv_rows;
-    dst = (is_v ? vn : kn) + kr * D + col;
-    const int keys = p.key_tiles * kRows;
-    const int bh = static_cast<int>(kr / keys);
-    const int pos = static_cast<int>(kr % keys);
-    const int b = bh / p.H, h = bh % p.H;
-    const Segment& sg = p.seg[segment_of(p, pos / kRows)];
-    const int r = pos - sg.tile0 * kRows;
-    if (r < sg.len) {
-      src = sg.base + b * sg.batch_stride + static_cast<long long>(r) * sg.row_stride
-          + (is_v ? sg.v_off : sg.k_off) + h * D + col;
-    }
-  }
-  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-  if (src != nullptr) raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  float x[8];
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __bfloat162float(pairs[i].x);
-    x[2 * i + 1] = __bfloat162float(pairs[i].y);
-    ss += x[2 * i] * x[2 * i] + x[2 * i + 1] * x[2 * i + 1];
-  }
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1) ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  // Rounded as flash._rms_norm rounds it: product, then sum (no contraction).
-  const float den = __fadd_rn(p.eps, __fmul_rn(1.0f / sqrtf(static_cast<float>(D)), sqrtf(ss)));
-  uint4 y;
-  uint32_t* packed = reinterpret_cast<uint32_t*>(&y);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float lo = __bfloat162float(__float2bfloat16(x[2 * i] / den));
-    float hi = __bfloat162float(__float2bfloat16(x[2 * i + 1] / den));
-    if (is_q) {
-      lo *= kScaleOf<D>;
-      hi *= kScaleOf<D>;
-    }
-    packed[i] = pack_bf16(lo, hi);
-  }
-  if (dst != nullptr) *reinterpret_cast<uint4*>(dst) = y;
+  norm_rows<D>(p, qn, kn, vn, q_rows, kv_rows);
 }
 
 // Statistics, dbias and dq of one (b, h, 64 query rows).
@@ -749,35 +633,11 @@ int launch(Params p, __nv_bfloat16* rows, int B, cudaStream_t st) {
   if (rc == 0) rc = rows_map(&kn_map, kn, bh, keys, D);
   if (rc == 0) rc = rows_map(&vn_map, vn, bh, keys, D);
   if (rc == 0) rc = g_map(&g_tiles, p.g, B, p.S, p.H, D);
-  if (rc != 0) return rc;
-
-  const long long q_rows = static_cast<long long>(bh) * p.S;
-  const long long kv_rows = static_cast<long long>(bh) * keys;
-  const long long threads = (q_rows + 2 * kv_rows) * (D / 8);
-  packed_bwd_norm_kernel<D><<<static_cast<unsigned>((threads + kNormThreads - 1) / kNormThreads),
-                              kNormThreads, 0, st>>>(p, qn, kn, vn, q_rows, kv_rows);
-  rc = static_cast<int>(cudaGetLastError());
+  if (rc == 0) rc = launch_norm<D>(packed_bwd_norm_kernel<D>, p, qn, kn, vn, B, st);
   if (rc != 0) return rc;
   rc = launch_dq<D, kBiased>(kn_map, vn_map, p, B, st);
   if (rc != 0) return rc;
   return launch_dkv<D, kBiased>(kn_map, vn_map, qn_map, g_tiles, p, B, st);
-}
-
-template <typename Kernel>
-int describe_packed(Kernel kernel, int smem_bytes, int* info) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = smem_bytes;
-  info[3] = kRows;
-  info[4] = kRows;
-  info[5] = kStages;
-  info[6] = kConsumerRegs;
-  info[7] = kProducerRegs;
-  info[8] = kThreads;
-  return 0;
 }
 
 template <int D, bool kBiased>
@@ -820,31 +680,18 @@ extern "C" int vivid_flash_packed_bwd(
   p.H = H;
   p.eps = eps;
   p.zero_sink = zero_sink;
-  p.n_seg = 1 + n_src;
-  const long long hd = static_cast<long long>(H) * d;
-  p.seg[0] = Segment{p.qkv, p.dqkv, nullptr, nullptr, S * 3 * hd, static_cast<int>(3 * hd),
-                     static_cast<int>(hd), static_cast<int>(2 * hd), S, 0};
-  int tiles = (S + kRows - 1) / kRows;
   const void* feats[2] = {feats0, feats1};
   void* dfeats[2] = {dfeats0, dfeats1};
   const void* biases[2] = {bias0, bias1};
   void* dbiases[2] = {dbias0, dbias1};
   const int sfs[2] = {sf0, sf1};
-  bool biased = false;
   for (int i = 0; i < n_src; ++i) {
-    if (sfs[i] < 1 || (biases[i] == nullptr) != (dbiases[i] == nullptr)) {
+    if ((biases[i] == nullptr) != (dbiases[i] == nullptr)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    biased = biased || biases[i] != nullptr;
-    p.seg[1 + i] = Segment{static_cast<const __nv_bfloat16*>(feats[i]),
-                           static_cast<__nv_bfloat16*>(dfeats[i]),
-                           static_cast<const float*>(biases[i]),
-                           static_cast<float*>(dbiases[i]),
-                           sfs[i] * 2 * hd, static_cast<int>(2 * hd), 0,
-                           static_cast<int>(hd), sfs[i], tiles};
-    tiles += (sfs[i] + kRows - 1) / kRows;
   }
-  p.key_tiles = tiles;
+  const int biased = fill_segments(p, d, n_src, feats, dfeats, biases, dbiases, sfs);
+  if (biased < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* r = static_cast<__nv_bfloat16*>(rows);
   if (d == 64) {

@@ -22,7 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu", "flash_bwd.cu",
            "flash_fused.cu", "flash_nomax_packed.cu", "flash_nomax_lab.cu", "conv3x3_silu.cu")
-HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "flash_fwd.cuh")
+HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "flash_fwd.cuh", "flash_packed.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvivid_kernels.so"
@@ -99,10 +99,13 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vivid_flash_packed_fwd.argtypes = [
-        ptr, ptr, i32, i32, i32, i32, i32,      # qkv, out, B, S, H, d, n_src
+        ptr, ptr, ptr,                          # qkv, out, rows (scratch)
+        i32, i32, i32, i32, i32,                # B, S, H, d, n_src
         ptr, i32, ptr, ptr, i32, ptr,           # feats/len/bias for 2 sources
         f32, f32, ptr]                          # eps, zero_sink, stream
     lib.vivid_flash_packed_fwd.restype = i32
+    lib.vivid_flash_packed_info.argtypes = [i32, i32, ptr]   # d, biased, info[9]
+    lib.vivid_flash_packed_info.restype = i32
     lib.vivid_flash_packed_bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,           # qkv, g, dqkv, lse, delta, rows (scratch)
         i32, i32, i32, i32, i32,                # B, S, H, d, n_src

@@ -5,10 +5,11 @@ Counterparts of `flash_fused_packed` (self-attention, optional zero sink)
 and `flash_fused_packed_xattn` (self segment plus cross sources, one joint
 softmax, optional per-source logit bias) in vivid_tpu/kernels/flash.py, and
 of their backward kernels `flash_fused_packed_bwd` and
-`flash_fused_packed_xattn_bwd`. The forward wrappers launch the one kernel
-in csrc/flash_packed.cu, the backward wrappers the three of
-csrc/flash_packed_bwd.cu (a norm pre-pass into scratch allocated here, then
-the dq and the dk/dv kernels on wgmma and TMA, whose grids
+`flash_fused_packed_xattn_bwd`. The forward wrappers launch the two kernels
+of csrc/flash_packed.cu (a norm pre-pass into scratch allocated here, then
+the forward on wgmma and TMA, whose grid `packed_fwd_plan` gives), the
+backward wrappers the three of csrc/flash_packed_bwd.cu (the same pre-pass,
+then the dq and the dk/dv kernels on wgmma and TMA, whose grids
 `packed_bwd_plan` gives). `packed_self_attention` and `packed_xattn` are the
 differentiable entries: autograd functions whose forward and backward are
 those wrappers. `flash_nomax` is the big-S forward kernel of the 256px model
@@ -58,7 +59,7 @@ launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             # the kernels of vivid_tpu_torch/tools, counted here with the rest
             "conv3x3_silu": 0, "nomax_lab_attention": 0}
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
-BWD_ROWS = 64   # the backward kernels (csrc/flash_bwd.cu, flash_packed_bwd.cu) pad rows to 64-row tiles
+BWD_ROWS = 64   # csrc/flash_bwd.cu and the packed kernels' pre-pass pad rows to 64-row tiles
 
 
 def _rms_norm(x, eps=NORM_EPS):
@@ -191,11 +192,15 @@ def _launch(qkv, feats, biases, num_heads, zero_sink, eps):
     b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink, eps)
     dev = qkv.device
     out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=dev)
+    # Scratch of the norm pre-pass, one allocation: q's rows [B, H, S, d],
+    # then k's and v's [B, H, keys, d] with every segment padded to whole tiles.
+    rows = torch.empty(b * h * (s + 2 * _key_rows(s, srcs)) * d, dtype=torch.bfloat16,
+                       device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vivid_flash_packed_fwd(
-            _ptr(qkv), _ptr(out), b, s, h, d, len(feats),
+            _ptr(qkv), _ptr(out), _ptr(rows), b, s, h, d, len(feats),
             _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[0][2]),
             _ptr(srcs[1][0]), srcs[1][1], _ptr(srcs[1][2]),
             ctypes.c_float(eps), ctypes.c_float(zero_sink),
@@ -207,6 +212,21 @@ def _launch(qkv, feats, biases, num_heads, zero_sink, eps):
 
 def _tiles(n):
     return -(-n // BWD_ROWS)
+
+
+def _key_rows(s, srcs):
+    """Rows of the pre-pass's k' (and of its v'): the self segment and every
+    source, each padded to whole tiles (an absent source has length 0)."""
+    return sum(_tiles(n) for n in (s, *(sf for _, sf, _ in srcs))) * BWD_ROWS
+
+
+def packed_fwd_plan(b: int, s: int, h: int, sms: int = 132):
+    """The grid of K1/K2's wgmma kernel at a shape: a block for each 64-row
+    query tile of each (b, h), each block one consumer warpgroup, two blocks
+    on each of `sms` streaming multiprocessors. -> {"fwd": dict(blocks,
+    waves)}; the sources set no block's count, only its walk."""
+    blocks = _tiles(s) * b * h
+    return {"fwd": dict(blocks=blocks, waves=round(blocks / (2 * sms), 3))}
 
 
 def packed_bwd_plan(b: int, s: int, h: int, lens=(), sms: int = 132):
@@ -229,13 +249,12 @@ def _launch_bwd(qkv, feats, biases, g, num_heads, zero_sink, eps):
     g = g.contiguous()   # autograd may hand over a strided cotangent
     _check(g, "g", torch.bfloat16, (b, s, h * d), dev)
     dqkv = torch.empty_like(qkv)
-    lens = tuple(sf for _, sf, _ in srcs[:len(feats)])
     # Scratch, one allocation: the row statistics (lse * log2(e), then
     # delta) padded to whole 64-row tiles, fp32; then the normalised rows,
     # q's [B, H, S, d] and k's and v's [B, H, keys, d] with every segment
     # padded to whole tiles, bf16.
     stat_bytes = 2 * b * h * _tiles(s) * BWD_ROWS * 4
-    keys = sum(_tiles(n) for n in (s, *lens)) * BWD_ROWS
+    keys = _key_rows(s, srcs)
     scratch = torch.empty(stat_bytes + b * h * (s + 2 * keys) * d * 2, dtype=torch.uint8,
                           device=dev)
     base = scratch.data_ptr()
@@ -751,6 +770,13 @@ def flash_attention_info(d: int, biased: bool = False):
             raise RuntimeError(f"flash_attn_info failed: CUDA error {rc}")
         out[kernel] = dict(zip(_INFO_KEYS, info))
     return out
+
+
+def flash_packed_info(d: int, biased: bool = False):
+    """What K1/K2's wgmma kernel for head dim `d` (32 or 64) was built with,
+    from the loaded library, so only where there is a card: the keys of
+    `flash_nomax_info`; `biased` the instance a launch with a bias takes."""
+    return _forward_info("flash_packed_info", d, biased)
 
 
 def flash_packed_bwd_info(d: int, biased: bool = False):
