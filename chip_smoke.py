@@ -6,11 +6,12 @@
 It runs every phase, in this order, each printing its results on lines of
 its own:
   device   the card's name and power limit; TF32 off for the fp32 references
-  build    compiles csrc/ with nvcc (route: shared library + ctypes); the big-S
-           attention kernels (K8's three, K6, K5), the packed attention
-           forward (K1/K2) and backward's two (K3/K4) and the fused SiLU + 3x3
-           convolution (K9) must hold wgmma and TMA instructions and no
-           mma.sync
+  build    compiles csrc/ with nvcc (route: shared library + ctypes); every
+           kernel on the tensor cores (the big-S attention kernels K8's
+           three, K6 and K5, the packed attention forward K1/K2 and
+           backward's two K3/K4, the no-max packed forward K7, the fused
+           SiLU + 3x3 convolution K9 and the no-max lab's K10) must hold
+           wgmma and TMA instructions and no mma.sync
   kernels  each of the CUDA kernels (packed attention and cross attention,
            forward and backward; the big-S no-max attention of the 256px
            model; the big-S flash attention forward with row statistics and
@@ -20,8 +21,8 @@ its own:
            against its plain PyTorch version at every shape the paths give
            it, with times (CUDA events); a kernel run twice must give the same
            bits; two faults of a TMA ring, planted in the inputs, must fail
-           the gates (K8, K6, K5, K1, K2, K3, K4; K2 also with a source's
-           padding rows unmasked), and so must three faults of K9 (the image
+           the gates (K8, K6, K5, K1, K2, K3, K4, K7; K2 and K7 also with a
+           source's padding rows unmasked), and so must three faults of K9 (the image
            boundary lost, the taps transposed, the SiLU applied twice)
   model    full-width vivid-base / vivid-uncond / vivid-sr from a seed:
            parameter counts, and one NVPrecond call through the kernels vs
@@ -182,21 +183,25 @@ def phase_build():
 
 
 # The kernels on wgmma + TMA, with their template instances in the library:
-# the attention kernels (d 32, 64) x (bias, none), K9 with and without the
-# SiLU. The packed kernels' norm pre-pass (packed_fwd_norm_kernel,
-# packed_bwd_norm_kernel) is no wgmma kernel. Names match by substring.
+# the attention kernels (d 32, 64) x (bias, none), K7 (d 32, 64; no bias),
+# K9 with and without the SiLU, K10 (d 32, 64) x fold_l x chains 1, 2, 4 x
+# prescale. The packed kernels' norm pre-passes (packed_fwd_norm_kernel,
+# packed_bwd_norm_kernel, nomax_packed_norm_kernel) are no wgmma kernels.
+# Names match by substring.
 WGMMA_KERNELS = {"flash_fwd_kernel": 4, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 4,  # K8
                  "flash_nomax_kernel": 4,                                                   # K6
                  "flash_fused_kernel": 4,                                                   # K5
                  "packed_fwd_kernel": 4,                                                    # K1/K2
                  "packed_bwd_dq_kernel": 4, "packed_bwd_dkv_kernel": 4,                     # K3/K4
-                 "conv3x3_silu_kernel": 2}                                                  # K9
+                 "nomax_packed_kernel": 2,                                                  # K7
+                 "conv3x3_silu_kernel": 2,                                                  # K9
+                 "flash_nomax_lab_kernel": 24}                                              # K10
 
 
 def _check_wgmma_machine_code(build, lib_path):
     """The kernels on wgmma in the built library (K8's three, K6, K5, K1/K2's,
-    K3/K4's two, K9),
-    read with the toolkit's cuobjdump: each has its expected number of
+    K3/K4's two, K7, K9, K10), read with the toolkit's cuobjdump: each has
+    its expected number of
     instances, and every instance multiplies on wgmma (HGMMA), gets its tiles
     by TMA (UTMALDG) and holds no mma.sync product (HMMA)."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -243,9 +248,10 @@ def _kernel_cases(torch, gen, plans=True):
     """One dict per case of K1-K4 and K7 at every shape: `kernel` and `plain32`
     (the plain version on fp32 copies) return tuples of tensors to compare,
     `plain` is the plain version as a CPU-less path would run it, `library`
-    (headline cases and K2 at the SR denoiser's shape) the PyTorch attention
-    call timed beside them. K7 runs on the inputs of every K1 case and every
-    unbiased K2 case, and its output is also held to theirs (`against`).
+    (headline cases, K2 at the SR denoiser's shape and K7 wherever it has no
+    sink) the PyTorch attention call timed beside them. K7 runs on the
+    inputs of every K1 case and every unbiased K2 case, and its output is
+    also held to theirs (`against`).
     `plans=False` leaves out K1/K2's grids (`plan`), which a port from before
     the wgmma forward cannot give."""
     import torch.nn.functional as F
@@ -279,12 +285,13 @@ def _kernel_cases(torch, gen, plans=True):
         main_shape = (s, h, d) == SHAPES[0]
         io_self = 2 * (qkv.numel() + g.numel())           # bytes of qkv and out / g
         io_x = io_self + 2 * sum(f.numel() for f in feats)
+        q, k, v = _sdpa_inputs(torch, qkv, (), h)
+        core_self = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
         for sink in (0, 2 * s):
             head = main_shape and sink == 0
             lib = lib_bwd = None
             if head:
-                q, k, v = _sdpa_inputs(torch, qkv, (), h)
-                lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
+                lib = core_self
                 lib_bwd = _sdpa_backward(torch, q, k, v, g, h)
             cases.append(dict(
                 name="flash_fused_packed", d=d, label=f"S={s} H={h} d={d} sink={sink}",
@@ -299,8 +306,9 @@ def _kernel_cases(torch, gen, plans=True):
                 plain32=tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed_ref(qkv.float(), (), h, sink)),
                 plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_nomax_packed_ref(qkv, (), h, sink),
                 against=("k1", tup(lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed(qkv, h, zero_sink=sink))),
-                headline=False, library=lib, library_is=CORE_ONLY, bytes=io_self,
-                flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
+                headline=False, library=None if sink else core_self, library_is=CORE_ONLY,
+                bytes=io_self,
+                flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s, **fwd_plan(s, h)))
             cases.append(dict(
                 name="flash_fused_packed_bwd", d=d, label=f"S={s} H={h} d={d} sink={sink}",
                 kernel=tup(lambda qkv=qkv, g=g, h=h, sink=sink: flash.flash_fused_packed_bwd(qkv, g, h, sink)),
@@ -309,13 +317,14 @@ def _kernel_cases(torch, gen, plans=True):
                 headline=head, library=lib_bwd, bytes=io_self + 2 * qkv.numel(),
                 flops=10 * BATCH * h * s * s * d, exps=BATCH * h * s * s,
                 plan=flash.packed_bwd_plan(BATCH, s, h)))
+        q, k, v = _sdpa_inputs(torch, qkv, feats, h)
+        core_x = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
         for biased in (False, True):
             bs = bias if biased else ()
             head = main_shape and not biased
             lib = lib_bwd = None
             if head:
-                q, k, v = _sdpa_inputs(torch, qkv, feats, h)
-                lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
+                lib = core_x
                 lib_bwd = _sdpa_backward(torch, q, k, v, g, h)
             io_b = 4 * sum(x.numel() for x in bs)
             cases.append(dict(
@@ -332,8 +341,9 @@ def _kernel_cases(torch, gen, plans=True):
                     plain32=tup(lambda qkv=qkv, h=h, f32=f32: flash.flash_nomax_packed_ref(qkv.float(), f32, h)),
                     plain=lambda qkv=qkv, h=h, feats=feats: flash.flash_nomax_packed_ref(qkv, feats, h),
                     against=("k2", tup(lambda qkv=qkv, h=h, feats=feats: flash.flash_fused_packed_xattn(qkv, feats, h))),
-                    headline=head, library=lib, library_is=CORE_ONLY, bytes=io_x,
-                    flops=4 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s))
+                    headline=head, library=core_x, library_is=CORE_ONLY, bytes=io_x,
+                    flops=4 * BATCH * h * s * 3 * s * d, exps=BATCH * h * s * 3 * s,
+                    **fwd_plan(s, h)))
             cases.append(dict(
                 name="flash_fused_packed_xattn_bwd", d=d, label=f"S={s} H={h} d={d} n_src=2 bias={biased}",
                 kernel=tup(lambda qkv=qkv, g=g, h=h, bs=bs, feats=feats: flash.flash_fused_packed_xattn_bwd(qkv, feats, g, h, bs)),
@@ -504,9 +514,11 @@ def _fused_lab_conv_cases(torch, gen):
     128 keys a stage; d 32 and 64, raw and normalised rows, with and without
     a bias; one with a sink). Its library call is SDPA on the normalised
     rows: the same function without the norm, the core only with.
-    K10: every (fold_l, chains, prescale) of the lab at the lab's parity shape,
-    and the one the model's kernel uses (two chains, prescale) at 16384/32768;
-    SDPA computes the same function. K9 at [8, 64, 256, 256], at a ragged
+    K10: every variant of the lab at the lab's parity shape, every one of its
+    24 instances (d 32 and 64, fold_l, chains 1, 2 and 4, prescale) at a
+    ragged shape, and two chains with prescale at the lab's three timing
+    shapes (16384/32768 H 4 d 32 the headline, 4096/8192 H 6 d 32,
+    16384/32768 H 2 d 64); SDPA computes the same function. K9 at [8, 64, 256, 256], at a ragged
     30 x 50 and at the edges of its output tiles (sized from
     `conv3x3_silu_info`: rows one short of, at and one past a tile, pixels
     likewise, 1 x 1, one pixel wide, a batch of 3), each with and without the
@@ -577,7 +589,8 @@ def _fused_lab_conv_cases(torch, gen):
         sk = k.shape[2]
         return dict(
             name="nomax_lab_attention", d=d, headline=headline, plain_reps=plain_reps,
-            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} '{variant}'",
+            label=f"B={b} H={h} Sq={sq} Sk={sk} d={d} '{variant}'", variant=triple,
+            plan={"k10": nomax_attn_lab.nomax_attention_plan(b, h, sq)},
             kernel=one(lambda: nomax_attn_lab.nomax_attention(q, k, v, *triple)),
             plain32=one(lambda: nomax_attn_lab.nomax_attention_ref(
                 q.float(), k.float(), v.float(), *triple)),
@@ -591,11 +604,17 @@ def _fused_lab_conv_cases(torch, gen):
     q, k, v = (flash._rms_norm(raw(b, h, n, d)) for n in (sq, sk, sk))
     for variant, triple in nomax_attn_lab.VARIANTS.items():
         cases.append(lab_case(q, k, v, variant, triple))
-    sq, sk, h, d = NOMAX_SHAPES[0]
-    q, k, v = (flash._rms_norm(raw(BATCH, h, n, d)) for n in (sq, sk, sk))
+    for d in (32, 64):   # every instance, keys and query rows ragged against the tiles
+        q, k, v = (flash._rms_norm(raw(2, 2, n, d)) for n in (193, 333, 333))
+        for triple in [(f, c, p) for f in (False, True) for c in (1, 2, 4) for p in (False, True)]:
+            cases.append(lab_case(q, k, v, "fold_l={} chains={} prescale={}".format(*triple),
+                                  triple))
     variant = "v6 chains2 prescale"
-    cases.append(lab_case(q, k, v, variant, nomax_attn_lab.VARIANTS[variant], headline=True,
-                          plain_reps=3))
+    for name in ("sr128", "sr64", "sr128d64"):
+        sq, sk, h, d = nomax_attn_lab.SHAPES[name][1:]
+        q, k, v = (flash._rms_norm(raw(BATCH, h, n, d)) for n in (sq, sk, sk))
+        cases.append(lab_case(q, k, v, variant, nomax_attn_lab.VARIANTS[variant],
+                              headline=name == "sr128", plain_reps=3))
 
     c = fused_conv_lab.CHANNELS
     tr, tp = (fused_conv_lab.conv3x3_silu_info()[k] for k in ("tile_rows", "tile_pixels"))
@@ -640,8 +659,8 @@ def _sdpa_backward(torch, q, k, v, g, h):
 
 def _check_zero_rows(torch, gen):
     """All-zero q, k and v rows (r = 0 in the norm and its VJP) must give
-    finite gradients and finite forward outputs (K2, and K1 with a sink) that
-    agree with the plain versions."""
+    finite gradients and finite forward outputs (K2, K1 with a sink, and K7
+    in both forms) that agree with the plain versions."""
     from vivid_tpu_torch.kernels import flash
     s, h, d = 100, 4, 64
     qkv = torch.randn(2, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
@@ -664,7 +683,11 @@ def _check_zero_rows(torch, gen):
             ("flash_fused_packed_xattn", flash.flash_fused_packed_xattn(qkv, feats, h),
              flash.flash_fused_packed_xattn_ref(qkv.float(), [feats[0].float()], h), "n_src=1"),
             ("flash_fused_packed", flash.flash_fused_packed(qkv, h, 2 * s),
-             flash.flash_fused_packed_ref(qkv.float(), h, 2 * s), f"sink={2 * s}")):
+             flash.flash_fused_packed_ref(qkv.float(), h, 2 * s), f"sink={2 * s}"),
+            ("flash_nomax_packed", flash.flash_nomax_packed(qkv, feats, h),
+             flash.flash_nomax_packed_ref(qkv.float(), [feats[0].float()], h), "n_src=1"),
+            ("flash_nomax_packed", flash.flash_nomax_packed(qkv, (), h, 2 * s),
+             flash.flash_nomax_packed_ref(qkv.float(), (), h, 2 * s), f"sink={2 * s}")):
         fails, shown = _fwd_fails(got, want)
         check(bool(torch.isfinite(got).all()) and not fails, f"zero rows: {name} {shown}")
         say("kernel", name=name, case=f"'zero rows, S={s} H={h} d={d} {label}'", finite=True,
@@ -745,13 +768,13 @@ def _check_fused_norm(torch, gen):
 
 
 def _built(name, case):
-    """What K8's, K6's, K5's, K1/K2's, K3/K4's and K9's kernels were built
-    with, for their `kernel` lines: registers a thread at launch and after
-    the warpgroups have traded them, bytes of local memory a thread (spills),
-    dynamic shared memory; for K1-K4 also each launch's grid in blocks and in
-    waves on 132 SMs."""
+    """What K8's, K6's, K5's, K1/K2's, K3/K4's, K7's, K9's and K10's kernels
+    were built with, for their `kernel` lines: registers a thread at launch
+    and after the warpgroups have traded them, bytes of local memory a thread
+    (spills), dynamic shared memory; for K1-K4 and K7 also each launch's grid
+    in blocks and in waves on 132 SMs."""
     from vivid_tpu_torch.kernels import flash
-    from vivid_tpu_torch.tools import fused_conv_lab
+    from vivid_tpu_torch.tools import fused_conv_lab, nomax_attn_lab
     biased = "bias=True" in case["label"]
     if name == "conv3x3_silu":
         info = {"k9": fused_conv_lab.conv3x3_silu_info("silu=True" in case["label"])}
@@ -763,6 +786,10 @@ def _built(name, case):
         info = flash.flash_attention_info(case["d"], biased)
     elif name in ("flash_fused_packed", "flash_fused_packed_xattn"):
         info = {"fwd": flash.flash_packed_info(case["d"], biased)}
+    elif name == "flash_nomax_packed":
+        info = {"fwd": flash.flash_nomax_packed_info(case["d"])}
+    elif name == "nomax_lab_attention":
+        info = {"k10": nomax_attn_lab.nomax_attention_info(case["d"], *case["variant"])}
     elif name in ("flash_fused_packed_bwd", "flash_fused_packed_xattn_bwd"):
         info = flash.flash_packed_bwd_info(case["d"], biased)
     else:
@@ -772,7 +799,8 @@ def _built(name, case):
         out[f"{k}_grid"] = f"{p['blocks']}_blocks_{p['waves']}_waves"
     for kernel in {"flash_nomax": ("k6",), "flash_fused": ("k5",), "conv3x3_silu": ("k9",),
                    "flash_attention": ("fwd",), "flash_fused_packed": ("fwd",),
-                   "flash_fused_packed_xattn": ("fwd",)}.get(name, ("dkv", "dq")):
+                   "flash_fused_packed_xattn": ("fwd",), "flash_nomax_packed": ("fwd",),
+                   "nomax_lab_attention": ("k10",)}.get(name, ("dkv", "dq")):
         k = info[kernel]
         out.update({f"{kernel}_regs": f"{k['regs_at_launch']}/{k['consumer_regs']}/{k['producer_regs']}",
                     f"{kernel}_spill_bytes": k["local_bytes"], f"{kernel}_smem": k["smem_bytes"]})
@@ -810,9 +838,9 @@ def _bwd_fails(got, want, d):
 
 def _check_ring_faults(torch, gen):
     """Two faults of a ring of TMA stages must fail the gates of K8 (forward
-    and backward), of K6, of K5 (with its norm pre-pass), of K1 and K2 (the
-    forward gate; K2 also with the padding rows of a source of 100 keys
-    unmasked) and of K3 and K4
+    and backward), of K6, of K5 (with its norm pre-pass), of K1, K2 and K7
+    (the forward gate; K2 and K7 also with the padding rows of a source of
+    100 keys unmasked) and of K3 and K4
     (the backward gate; the stale stage in both rings: the dq kernel's of k'
     and v', the dk/dv kernel's of c q', dO and the statistics). The kernels have
     no switch to break them, so each fault is planted in the inputs, as the
@@ -934,39 +962,50 @@ def _check_ring_faults(torch, gen):
                 flash.flash_fused_packed_xattn_bwd_ref(qkv.float(), [src.float()], g.float(), h),
                 label + f" (a source of {sf})")
 
-    # K1 and K2 on packed rows, held by the forward gate: the stale stage of
-    # the forward's ring of k' and v' in the self segment (K1) or a source
-    # (K2); the ragged edge of the self segment (qkv padded with zero rows,
-    # the output cut back to S); the padding rows of a source of 100 keys.
+    # K1, K2 and K7 on packed rows, held by the forward gate: the stale stage
+    # of the forward's ring of k' and v' in the self segment (K1, K7) or a
+    # source (K2, K7); the ragged edge of the self segment (qkv padded with
+    # zero rows, the output cut back to S); the padding rows of a source of
+    # 100 keys.
     fwd = flash.flash_packed_info(64, False)
     check(fwd["stage_rows"] == keys, f"the forward's stages differ from the backward's: {fwd}")
+    k7 = flash.flash_nomax_packed_info(64)
+    check((k7["stage_rows"], k7["stages"]) == (keys, fwd["stages"]),
+          f"K7's ring differs from K1/K2's: {k7}")
 
     def fwd_gate(name, got, want, label, s):
         fails, shown = _fwd_fails(got, want)
         check(fails, f"{name} with {label} passes the forward gate: {shown}")
         say("kernel", name=name, fault=f"'{label}, S={s} H={h} d={d}'", **shown, fails_gate=True)
 
+    k1, k1_ref = flash.flash_fused_packed, flash.flash_fused_packed_ref
+    k2, k2_ref = flash.flash_fused_packed_xattn, flash.flash_fused_packed_xattn_ref
+    k7, k7_ref = flash.flash_nomax_packed, flash.flash_nomax_packed_ref
     s, n = 4 * fwd["stages"] * keys, fwd["stages"]
     qkv, src = packed(s, 3), packed(s, 2)
     label = f"stage {n - 1} of {n} never refreshed ({keys} keys a stage)"
-    fwd_gate("flash_fused_packed", flash.flash_fused_packed(stale(stale(qkv, 3, 1, n), 3, 2, n), h),
-             flash.flash_fused_packed_ref(qkv.float(), h), label, s)
-    fwd_gate("flash_fused_packed_xattn",
-             flash.flash_fused_packed_xattn(qkv, [stale(stale(src, 2, 0, n), 2, 1, n)], h),
-             flash.flash_fused_packed_xattn_ref(qkv.float(), [src.float()], h),
-             label + " in a source", s)
+    stale_self, stale_src = stale(stale(qkv, 3, 1, n), 3, 2, n), stale(stale(src, 2, 0, n), 2, 1, n)
+    fwd_gate("flash_fused_packed", k1(stale_self, h), k1_ref(qkv.float(), h), label, s)
+    fwd_gate("flash_nomax_packed", k7(stale_self, (), h), k7_ref(qkv.float(), (), h), label, s)
+    fwd_gate("flash_fused_packed_xattn", k2(qkv, [stale_src], h),
+             k2_ref(qkv.float(), [src.float()], h), label + " in a source", s)
+    fwd_gate("flash_nomax_packed", k7(qkv, [stale_src], h),
+             k7_ref(qkv.float(), [src.float()], h), label + " in a source", s)
     s, sf = 200, 100
     qkv, src = packed(s, 3), packed(sf, 2)
     label = "the key mask at the ragged edge dropped"
-    fwd_gate("flash_fused_packed", flash.flash_fused_packed(zero_rows(qkv, -s % keys), h)[:, :s],
-             flash.flash_fused_packed_ref(qkv.float(), h), label, s)
-    fwd_gate("flash_fused_packed_xattn",
-             flash.flash_fused_packed_xattn(zero_rows(qkv, -s % keys), [src], h)[:, :s],
-             flash.flash_fused_packed_xattn_ref(qkv.float(), [src.float()], h), label, s)
-    fwd_gate("flash_fused_packed_xattn",
-             flash.flash_fused_packed_xattn(qkv, [zero_rows(src, -sf % keys)], h),
-             flash.flash_fused_packed_xattn_ref(qkv.float(), [src.float()], h),
-             f"the padding rows of a source of {sf} unmasked", s)
+    padded, padded_src = zero_rows(qkv, -s % keys), zero_rows(src, -sf % keys)
+    fwd_gate("flash_fused_packed", k1(padded, h)[:, :s], k1_ref(qkv.float(), h), label, s)
+    fwd_gate("flash_nomax_packed", k7(padded, (), h)[:, :s], k7_ref(qkv.float(), (), h), label, s)
+    fwd_gate("flash_fused_packed_xattn", k2(padded, [src], h)[:, :s],
+             k2_ref(qkv.float(), [src.float()], h), label, s)
+    fwd_gate("flash_nomax_packed", k7(padded, [src], h)[:, :s],
+             k7_ref(qkv.float(), [src.float()], h), label, s)
+    label = f"the padding rows of a source of {sf} unmasked"
+    fwd_gate("flash_fused_packed_xattn", k2(qkv, [padded_src], h),
+             k2_ref(qkv.float(), [src.float()], h), label, s)
+    fwd_gate("flash_nomax_packed", k7(qkv, [padded_src], h),
+             k7_ref(qkv.float(), [src.float()], h), label, s)
 
 
 def _check_conv_faults(torch, gen):
@@ -1092,22 +1131,25 @@ def phase_kernels(table):
                 library_ms=f"{library_ms:.4f}",
                 library_computes=case.get("library_is", CORE_ONLY))
         if "plan" in case and case["label"].startswith(f"S={SHAPES[0][0]} "):
+            key = "packed_bwd_" if backward else (
+                "nomax_packed" if name == "flash_nomax_packed" else "packed_fwd_")
             say("kernel", name=name, split=f"'{label}'", **_device_ms_by_kernel(
-                torch, case["kernel"], "packed_bwd_" if backward else "packed_fwd_"))
+                torch, case["kernel"], key))
 
 
 def phase_packed_fwd():
-    """K1 and K2 alone at every case `_kernel_cases` gives them: one call
+    """K1, K2 and K7 alone at every case `_kernel_cases` gives them: one call
     through the wrapper (CUDA events, median of 20) and the card's time in
     each kernel (torch.profiler). It reads no grid and nothing of how the
     kernels were built, so it also runs on a port from before the wgmma
-    forward: `vivid_tpu_torch/tools/smoke_phase.py packed_fwd --port DIR`
-    times that port's K1/K2 at this checkout's cases. Not part of `main`:
-    phase `kernels` holds and times the same cases."""
+    forwards: `vivid_tpu_torch/tools/smoke_phase.py packed_fwd --port DIR`
+    times that port's K1/K2 and K7 at this checkout's cases. Not part of
+    `main`: phase `kernels` holds and times the same cases."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
     for case in _kernel_cases(torch, gen, plans=False):
-        if case["name"] in ("flash_fused_packed", "flash_fused_packed_xattn"):
+        if case["name"] in ("flash_fused_packed", "flash_fused_packed_xattn",
+                            "flash_nomax_packed"):
             say("packed_fwd", name=case["name"], case=f"'{case['label']}'",
                 ms=f"{cuda_ms(case['kernel']):.4f}",
                 **_device_ms_by_kernel(torch, case["kernel"], "packed"))
@@ -1220,6 +1262,7 @@ def main():
         check(row.get("launches", 0) > 0 and "ms" in row,
               f"{row['name']}: no launch on its path, or no headline case: {row}")
     phase_profile(*nets[:2])
+    phase_profile(*nets[:2], nomax=True)
     phase_profile_sr(nets[2])
     del nets
     phase_profile_train()
@@ -2194,7 +2237,8 @@ def _profile(tag, fn, units, unit):
     kinds = {"attention_nomax": ("flash_nomax",),
              "attention_k8_fwd": ("flash_fwd_kernel",),
              "attention_k8_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "bwd_prep_kernel"),
-             "attention_fwd": ("flash_packed",), "attention_bwd": ("packed_bwd_",),
+             "attention_fwd": ("packed_fwd_", "nomax_packed"),
+             "attention_bwd": ("packed_bwd_",),
              "conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn"),
              "gemm": ("gemm", "nvjet", "cutlass"), "reduce": ("reduce_kernel",)}
     shares = dict.fromkeys(list(kinds) + ["other"], 0.0)
@@ -2210,11 +2254,15 @@ def _profile(tag, fn, units, unit):
             **{f"ms_per_{unit}": f"{us / 1e3 / units:.3f}"}, kernel=f"'{name[:110]}'")
 
 
-def phase_profile(base, gnet):
+def phase_profile(base=None, gnet=None, nomax=False):
     """Where the time of a guided evaluation goes: the sampler's own loop
-    (2 Heun steps = 3 guided evaluations of base + uncond at batch 8)."""
+    (2 Heun steps = 3 guided evaluations of base + uncond at batch 8), with
+    `nomax` under VIVID_NOMAX_PACKED=1 (K7 in place of K1/K2). Without nets
+    it builds the full-width pair from their seeds."""
     import torch
     from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+    if base is None:
+        base, gnet = _full_width(uncond=False), _full_width(uncond=True)
     gen = torch.Generator(device="cuda").manual_seed(3)
     src = torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1)
     geo = torch.randn(BATCH, 2, 20, generator=gen, device="cuda")
@@ -2226,7 +2274,15 @@ def phase_profile(base, gnet):
                                gnet_denoise=make_denoiser(gnet), num_steps=2,
                                guidance=1.5)
 
-    _profile("profile", sample, 3, "eval")
+    with nomax_packed(nomax):
+        _profile("profile_nomax" if nomax else "profile", sample, 3, "eval")
+
+
+def phase_profile_nomax():
+    """`phase_profile` under VIVID_NOMAX_PACKED=1 on the full-width pair from
+    their seeds: `vivid_tpu_torch/tools/smoke_phase.py profile_nomax --port
+    DIR` profiles another checkout's K7 on the same evaluations."""
+    phase_profile(nomax=True)
 
 
 def phase_profile_sr(sr):

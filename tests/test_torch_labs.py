@@ -98,6 +98,68 @@ def test_lab_attention_ref_matches_pallas(variant, dtype, monkeypatch):
                                atol={"float32": 3e-5, "bfloat16": 1e-2}[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", list(nomax_attn_lab.VARIANTS))
+def test_lab_attention_ref_matches_pallas_d64_ragged_keys(variant, dtype, monkeypatch):
+    """d 64, and 192 keys: no multiple of the kernel's 128-key stage (its
+    last stage is half padding) nor of the TPU kernel's default block; the
+    TPU kernel takes blocks of 64 keys here, four chains 16 each."""
+    lab = _jax_lab("nomax_attn_lab", monkeypatch)
+    fold_l, chains, prescale = nomax_attn_lab.VARIANTS[variant]
+    b, h, sq, sk, d = 1, 2, 128, 192, 64
+    rng = np.random.RandomState(3)
+
+    def rows(s, normalised=True):
+        x = rng.randn(b, h, s, d) * np.exp(rng.randn(b, h, s, 1))
+        if normalised:
+            x = x / (1e-4 + np.linalg.norm(x, axis=-1, keepdims=True) / np.sqrt(d))
+        return x.astype(np.float32)
+
+    arrays = [rows(sq), rows(sk), rows(sk, normalised=False)]
+    want = lab.nomax_attention(*(jnp.asarray(a).astype(dtype) for a in arrays), block_q=128,
+                               block_k=64, fold_l=fold_l, chains=chains, prescale=prescale,
+                               interpret=True)
+    got = nomax_attn_lab.nomax_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays),
+        fold_l=fold_l, chains=chains, prescale=prescale)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol={"float32": 3e-5, "bfloat16": 1e-2}[dtype], rtol=0)
+
+
+def test_lab_attention_info_needs_a_card(monkeypatch):
+    """What an instance of the lab kernel was built with comes from the
+    built library alone: a head dim or chain count the kernel lacks raises
+    first, and with no card the call raises before it builds or loads
+    anything."""
+    def no_library():
+        raise AssertionError("nomax_attention_info reached the library")
+
+    monkeypatch.setattr(nomax_attn_lab.build, "library", no_library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="32 or 64"):
+        nomax_attn_lab.nomax_attention_info(16)
+    with pytest.raises(ValueError, match="chains"):
+        nomax_attn_lab.nomax_attention_info(32, chains=3)
+    for fold_l, chains, prescale in nomax_attn_lab.VARIANTS.values():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            nomax_attn_lab.nomax_attention_info(64, fold_l, chains, prescale)
+
+
+@pytest.mark.parametrize("b,h,sq,grid", [
+    (8, 4, 16384, (86, 4, 8)),   # the lab's three timing shapes: 85 full blocks and a third
+    (8, 6, 4096, (22, 6, 8)),
+    (8, 2, 16384, (86, 2, 8)),
+    (2, 2, 1024, (6, 2, 2)),     # the parity shape
+])
+def test_lab_attention_plan(b, h, sq, grid):
+    """The lab kernel's grid is K6's: ceil(Sq / 192) x H x B, one block an
+    SM on 132 SMs."""
+    plan = nomax_attn_lab.nomax_attention_plan(b, h, sq)
+    blocks = grid[0] * grid[1] * grid[2]
+    assert plan == dict(grid=grid, blocks=blocks, waves=round(blocks / 132, 3))
+
+
 def test_lab_attention_fold_l_sums_the_rounded_p():
     """bf16: with fold_l the denominator is the sum of the rounded p (the
     product sums it), without it of the unrounded: other bits, same function."""

@@ -41,7 +41,8 @@ def _packed(b, s, parts, h, d, seed):
     return x.reshape(b, s, parts * h * d).astype(np.float32)
 
 
-# tests/test_nomax_packed.py's cases: self, the sink, one and two sources.
+# tests/test_nomax_packed.py's cases: self, the sink, one and two sources;
+# then two sources of different lengths, at d 32 and at d 64.
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,d,sink,feat_lens", [
     (1, 128, 4, 32, 0, ()),
@@ -50,6 +51,8 @@ def _packed(b, s, parts, h, d, seed):
     (1, 128, 4, 32, 0, (128, 128)),
     (1, 256, 4, 32, 0, (128,)),
     (2, 128, 2, 64, 0, (128, 128)),
+    (1, 128, 4, 32, 0, (256, 128)),
+    (2, 128, 2, 64, 0, (128, 384)),
 ])
 def test_nomax_packed_ref_matches_pallas(b, s, h, d, sink, feat_lens, dtype):
     qkv = _packed(b, s, 3, h, d, seed=s + sink)
@@ -93,6 +96,42 @@ def test_nomax_packed_cpu_takes_plain_version_and_counts_nothing():
     torch.testing.assert_close(flash.flash_nomax_packed(qkv, (), 2, 5),
                                flash.flash_nomax_packed_ref(qkv, (), 2, 5))
     assert flash.launches == before and before["flash_nomax_packed"] == 0
+
+
+def test_nomax_packed_info_needs_a_card(monkeypatch):
+    """What K7's kernel was built with comes from the built library alone: a
+    head dim the kernel lacks raises first, and with no card the call raises
+    before it builds or loads anything."""
+    def no_library():
+        raise AssertionError("flash_nomax_packed_info reached the library")
+
+    monkeypatch.setattr(flash.build, "library", no_library)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="32 or 64"):
+        flash.flash_nomax_packed_info(16)
+    for d in (32, 64):
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            flash.flash_nomax_packed_info(d)
+
+
+@pytest.mark.parametrize("b,s,h,d,lens,rows,blocks", [
+    # the 64px model's three shapes with two sources of S keys: q's S rows
+    # and k's and v's 3 S keys a head, each segment whole 64-row tiles
+    (8, 1024, 4, 64, (1024, 1024), 8 * 4 * (1024 + 2 * 3072) * 64, 512),
+    (8, 256, 6, 64, (256, 256), 8 * 6 * (256 + 2 * 768) * 64, 192),
+    (8, 64, 8, 64, (64, 64), 8 * 8 * (64 + 2 * 192) * 64, 64),
+    # the self form, and ragged segments padded apart: 100 -> 128, 77 -> 128
+    (8, 1024, 4, 64, (), 8 * 4 * (1024 + 2 * 1024) * 64, 512),
+    (2, 100, 4, 32, (77, 100), 2 * 4 * (100 + 2 * 384) * 32, 16),
+])
+def test_nomax_packed_scratch_and_grid(b, s, h, d, lens, rows, blocks):
+    """K7 runs K1/K2's two launches: the pre-pass's scratch (c q' rows, then
+    k' and v' with every segment padded to whole 64-row tiles, one bf16
+    allocation) and the forward's grid, a block for each 64-row query tile,
+    two blocks an SM on 132 SMs."""
+    assert flash.packed_fwd_rows(b, s, h, d, lens) == rows
+    assert flash.packed_fwd_plan(b, s, h) == {
+        "fwd": dict(blocks=blocks, waves=round(blocks / (2 * 132), 3))}
 
 
 @pytest.mark.parametrize("shape,heads,feats,match", [

@@ -1,13 +1,20 @@
 // The forward of the big-S attention kernels on wgmma and TMA (sm_90a), one
-// body for three kernels, chosen at compile time by kNoMax and kFused:
+// body for four kernels, chosen at compile time by kNoMax, kFused and
+// kChains:
 //   K8's forward  (flash_bwd.cu `flash_fwd_kernel`): softmax about a running
 //                 row maximum, the output and lse = max + log(sum) written;
 //   K6            (flash_nomax.cu `flash_nomax_kernel`): no maximum, p =
 //                 exp(s) or exp(s + bias - shift), the output alone;
 //   K5            (flash_fused.cu `flash_fused_kernel`, kFused): K8's softmax
 //                 with q loaded as it is and the scale on the fp32 logits,
-//                 the zero sink in the epilogue, the output alone.
-// Beside it, the block layout and the pieces the three files' kernels and
+//                 the zero sink in the epilogue, the output alone;
+//   K10           (flash_nomax_lab.cu `flash_nomax_lab_kernel`, kChains > 0):
+//                 K6's no-max softmax with the constant shift sqrt(D) in the
+//                 exponentials' fused multiply-add, and the no-max lab's
+//                 switches: q unscaled and the scale in that multiply-add
+//                 (!kPrescale), the row sums formed by the tensor cores
+//                 (kFoldL), and kChains accumulator sets over parts of a stage.
+// Beside it, the block layout and the pieces the four files' kernels and
 // launches use: q fragments from device memory, the bias of a tile, the
 // tensor-map encoder, the shared-memory opt-in and what a kernel was built
 // with.
@@ -41,6 +48,18 @@
 // fragments stay in their registers until then; writing a product's input
 // registers while one runs makes ptxas serialise the products). It costs
 // the registers of one more tile's A fragments.
+//
+// K10's switches, each a compile-time branch whose default is K6's:
+//   kFoldL   the denominator is the fp32 sum of the rounded p, formed by the
+//            tensor cores: one more m64n8 product a k16 step, the same P A
+//            fragments against a tile of bf16 ones that the block writes
+//            once into shared memory (wgmma reads B from there only), so
+//            every column of its accumulator is the row's sum
+//   kChains  2 or 4: the 128-key stage in parts of 64 or 32 keys, each with
+//            its own o (and row sums); a part's P V is issued, and runs on
+//            the tensor cores, while the next part's exponentials are taken;
+//            the parts' sums meet after the last tile. With 1 the stage is
+//            one part and the schedule is K6's (kOverlap at D = 32).
 
 #pragma once
 
@@ -68,6 +87,11 @@ constexpr int kEmptyArrivals = kConsumers * 4;   // one lane of every consumer w
 template <int D>
 constexpr float kScaleOf = D == 32 ? 0.17677669529663687f : 0.125f;
 
+// sqrt(D) as the nearest fp32: K10's constant shift, above every scaled
+// logit of pixel-normalised rows.
+template <int D>
+constexpr float kShiftOf = D == 32 ? 5.656854249492381f : 8.0f;
+
 // Dynamic shared memory starts at no particular alignment: tiles start at the
 // next multiple of 1024 bytes (kAlignSlack is asked for on top).
 constexpr int kAlignSlack = 1024;
@@ -79,6 +103,15 @@ __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
 
 template <int D>
 constexpr int kFwdSmemBytes = kAlignSlack + kFwStages * 2 * kFwK * 2 * D + 2 * kFwStages * 8;
+
+// K10 with kFoldL: the tile of bf16 ones (8 rows of 128 bytes, 1024-byte
+// aligned, past the barriers), and the shared memory it then needs.
+constexpr int kOnesBytes = 1024;
+template <int D>
+constexpr int kOnesOffset = kFwStages * 2 * kFwK * 2 * D + 1024;
+template <int D, bool kFoldL>
+constexpr int kLabSmemBytes = kFoldL ? kAlignSlack + kOnesOffset<D> + kOnesBytes
+                                     : kFwdSmemBytes<D>;
 
 // A-operand fragments of 16 rows starting at `row0` of a [rows, D] matrix in
 // device memory: this thread's rows r0 and r0 + 8, scaled by `scale` in fp32
@@ -219,14 +252,39 @@ __device__ __forceinline__ void nomax_exps(float (&s)[kFwK / 2], float shift2, f
   }
 }
 
+// K10's p of the n8 groups [j0, j0 + n_groups) of a tile of logits, in place:
+// exp2 of one fused multiply-add, log2(e) (times 1/sqrt(D) without
+// kPrescale) and the shift sqrt(D) * log2(e) folded in; the unrounded p
+// added into the thread's partial row sums unless the tensor cores sum the
+// rounded p (kFoldL).
+template <int D, bool kPrescale, bool kFoldL>
+__device__ __forceinline__ void lab_exps(float (&s)[kFwK / 2], int j0, int n_groups,
+                                         float (&l)[2]) {
+  constexpr float kMul = (kPrescale ? 1.f : kScaleOf<D>) * kLog2e;
+  constexpr float kShift2 = kShiftOf<D> * kLog2e;
+#pragma unroll
+  for (int j = j0; j < j0 + n_groups; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(s[4 * j + e], kMul, -kShift2));
+      s[4 * j + e] = p;
+      if constexpr (!kFoldL) l[e >> 1] += p;
+    }
+  }
+}
+
 // The body of K8's forward (kNoMax false: out and lse written), of K6
 // (kNoMax true: out alone; with a bias, shift = sqrt(D) + max(bias) read from
 // device memory; kOverlap: exponentials under the product before, no-max
 // only) and of K5 (kFused: K8's softmax on s = (q . k) / sqrt(D) + bias, out
-// alone, `zero_sink` all-zero key columns joined after the last tile). Grid
+// alone, `zero_sink` all-zero key columns joined after the last tile) and of
+// K10 (kChains > 0: K6 unbiased with the constant shift and the lab's
+// switches kFoldL and kPrescale; kOverlap with one chain only). Grid
 // (ceil(Sq / kBlockRows), H, B), kThreads threads, kFwdSmemBytes<D> of
-// dynamic shared memory; k_map and v_map as rows_map encodes them.
-template <int D, bool kBiased, bool kNoMax, bool kOverlap, bool kFused = false>
+// dynamic shared memory (K10: kLabSmemBytes<D, kFoldL>); k_map and v_map as
+// rows_map encodes them.
+template <int D, bool kBiased, bool kNoMax, bool kOverlap, bool kFused = false,
+          int kChains = 0, bool kFoldL = false, bool kPrescale = true>
 __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtensorMap* v_map,
                                          const __nv_bfloat16* __restrict__ q,
                                          const float* __restrict__ bias,
@@ -235,6 +293,11 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
                                          float* __restrict__ lse, int Sq, int Sk,
                                          float zero_sink = 0.f) {
   static_assert(!(kFused && (kNoMax || kOverlap)), "K5 keeps a running maximum");
+  constexpr bool kLab = kChains > 0;   // K10
+  static_assert(!kLab || (kNoMax && !kBiased && !kFused && (kChains == 1 || !kOverlap)),
+                "K10 is K6 unbiased; its chains have a schedule of their own");
+  static_assert(kLab || (!kFoldL && kPrescale), "the lab's switches are K10's");
+  static_assert(kChains == 0 || kChains == 1 || kChains == 2 || kChains == 4, "chains 1, 2, 4");
   // log2(e) per unit of the logits the maximum is taken of: K5 without a bias
   // keeps them unscaled and folds 1/sqrt(D) in here (the maximum of the
   // scaled logits is the scaled maximum: rounding is monotonic).
@@ -256,6 +319,11 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
       mbar_init(&empty[s], kEmptyArrivals);
     }
     mbar_fence_init();
+  }
+  if constexpr (kFoldL) {   // the tile of ones, written once, read by wgmma
+    uint32_t* ones = reinterpret_cast<uint32_t*>(tiles + kOnesOffset<D>);
+    for (int i = threadIdx.x; i < kOnesBytes / 4; i += blockDim.x) ones[i] = 0x3f803f80u;
+    fence_shared_to_async();
   }
   __syncthreads();
 
@@ -292,7 +360,10 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
       const int c0 = (lane % 4) * 2;
       const long long qrow0 = static_cast<long long>(bh) * Sq;
       uint32_t qf[D / 16][4];
-      load_a_global<D>(q + qrow0 * D, q0, Sq, r0, c0, kFused ? 1.f : kScaleOf<D>, qf);
+      load_a_global<D>(q + qrow0 * D, q0, Sq, r0, c0,
+                       kFused || (kLab && !kPrescale) ? 1.f : kScaleOf<D>, qf);
+      // K10 with kFoldL: B of the row sums' products, the ones read K-major.
+      const uint64_t ones_d = kFoldL ? smem_desc<128>(tiles + kOnesOffset<D>) : 0;
 
       float o[D / 2];
 #pragma unroll
@@ -317,6 +388,7 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
         // second product.
         float s[kFwK / 2];
         uint32_t pa[kFwK / 16][4];
+        float ls[4] = {0.f, 0.f, 0.f, 0.f};   // K10 kFoldL: the tensor cores' row sums
         mbar_wait(&full[0], 0);
         wgmma_fence();
 #pragma unroll
@@ -328,7 +400,11 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
         wgmma_wait<0>();
         fence_regs(s);
         bias_and_edge<kBiased>(s, brow, 0, c0, Sk, pairs, lane);
-        nomax_exps<kBiased>(s, shift2, l);
+        if constexpr (kLab) {
+          lab_exps<D, kPrescale, kFoldL>(s, 0, kFwK / 8, l);
+        } else {
+          nomax_exps<kBiased>(s, shift2, l);
+        }
 #pragma unroll
         for (int kk = 0; kk < kFwK / 16; ++kk) acc_to_a(s, kk, pa[kk]);
 
@@ -339,6 +415,7 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
           const uint64_t kd = smem_desc<kRowBytes>(tiles + stage * 2 * kTileBytes);
           const uint64_t vd = smem_desc<kRowBytes>(tiles + prev * 2 * kTileBytes + kTileBytes);
           fence_regs(o);
+          if constexpr (kFoldL) fence_regs(ls);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
@@ -349,13 +426,24 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
           for (int kk = 0; kk < kFwK / 16; ++kk) {
             Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
           }
+          if constexpr (kFoldL) {
+#pragma unroll
+            for (int kk = 0; kk < kFwK / 16; ++kk) {
+              Wgmma<8, true>::template run<0>(ls, pa[kk], ones_d, 1);
+            }
+          }
           wgmma_commit();
           wgmma_wait<1>();   // the logits; p(t-1) V(t-1) may still run
           fence_regs(s);
           bias_and_edge<kBiased>(s, brow, t * kFwK, c0, Sk, pairs, lane);
-          nomax_exps<kBiased>(s, shift2, l);
+          if constexpr (kLab) {
+            lab_exps<D, kPrescale, kFoldL>(s, 0, kFwK / 8, l);
+          } else {
+            nomax_exps<kBiased>(s, shift2, l);
+          }
           wgmma_wait<0>();
           fence_regs(o);
+          if constexpr (kFoldL) fence_regs(ls);
           fence_regs(pa);
           if (lane == 0) mbar_arrive(&empty[prev]);   // this warp is done with the stage
 #pragma unroll
@@ -364,16 +452,97 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
         const int last = (n_tiles - 1) % kFwStages;
         const uint64_t vd = smem_desc<kRowBytes>(tiles + last * 2 * kTileBytes + kTileBytes);
         fence_regs(o);
+        if constexpr (kFoldL) fence_regs(ls);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kFwK / 16; ++kk) {
           Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
         }
+        if constexpr (kFoldL) {
+#pragma unroll
+          for (int kk = 0; kk < kFwK / 16; ++kk) {
+            Wgmma<8, true>::template run<0>(ls, pa[kk], ones_d, 1);
+          }
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
+        if constexpr (kFoldL) {
+          fence_regs(ls);
+          l[0] = ls[0];   // every column is the row's sum: rows r0 and r0 + 8
+          l[1] = ls[2];
+        }
         if (lane == 0) mbar_arrive(&empty[last]);
+      } else if constexpr (kChains > 1) {
+        // K10's chains: the stage's logits at once; then part by part the
+        // exponentials, and the part's P V (and with kFoldL its row sums)
+        // issued into the part's own accumulators, running on the tensor
+        // cores while the next part's exponentials are taken. The parts meet
+        // after the last tile.
+        constexpr int kPart = kFwK / kChains;   // keys of a part
+        float oc[kChains][D / 2];
+        float lc[kChains][2];
+        float ls[kChains][4];
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) oc[c][i] = 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ls[c][i] = 0.f;
+          lc[c][0] = lc[c][1] = 0.f;
+        }
+        for (int t = 0; t < n_tiles; ++t) {
+          const int stage = t % kFwStages;
+          mbar_wait(&full[stage], (t / kFwStages) & 1);
+          const uint8_t* kt = tiles + stage * 2 * kTileBytes;
+          const uint64_t kd = smem_desc<kRowBytes>(kt);
+          const uint64_t vd = smem_desc<kRowBytes>(kt + kTileBytes);
+
+          float s[kFwK / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            Wgmma<kFwK, true>::template run<0>(s, qf[kk], kd + kk * kDescStepK, kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          bias_and_edge<false>(s, brow, t * kFwK, c0, Sk, pairs, lane);
+
+          uint32_t pa[kFwK / 16][4];
+#pragma unroll
+          for (int c = 0; c < kChains; ++c) {
+            lab_exps<D, kPrescale, kFoldL>(s, c * kPart / 8, kPart / 8, lc[c]);
+#pragma unroll
+            for (int kk = c * kPart / 16; kk < (c + 1) * kPart / 16; ++kk) acc_to_a(s, kk, pa[kk]);
+            fence_regs(oc[c]);
+            if constexpr (kFoldL) fence_regs(ls[c]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = c * kPart / 16; kk < (c + 1) * kPart / 16; ++kk) {
+              Wgmma<D, true>::template run<1>(oc[c], pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
+              if constexpr (kFoldL) Wgmma<8, true>::template run<0>(ls[c], pa[kk], ones_d, 1);
+            }
+            wgmma_commit();
+          }
+          wgmma_wait<0>();
+#pragma unroll
+          for (int c = 0; c < kChains; ++c) {
+            fence_regs(oc[c]);
+            if constexpr (kFoldL) fence_regs(ls[c]);
+          }
+          fence_regs(pa);
+          if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with the stage
+        }
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] += oc[c][i];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) l[i] += kFoldL ? ls[c][2 * i] : lc[c][i];
+        }
       } else {
+        float ls[4] = {0.f, 0.f, 0.f, 0.f};   // K10 kFoldL: the tensor cores' row sums
         for (int t = 0; t < n_tiles; ++t) {
           const int stage = t % kFwStages;
           mbar_wait(&full[stage], (t / kFwStages) & 1);
@@ -394,7 +563,9 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
           // Bias (K5: after the scale), the ragged edge, and (K8, K5) the
           // tile's row maxima.
           bias_and_edge<kBiased, kFused ? D : 0>(s, brow, t * kFwK, c0, Sk, pairs, lane);
-          if constexpr (kNoMax) {
+          if constexpr (kLab) {
+            lab_exps<D, kPrescale, kFoldL>(s, 0, kFwK / 8, l);
+          } else if constexpr (kNoMax) {
             nomax_exps<kBiased>(s, shift2, l);
           } else {
             float mx[2] = {m[0], m[1]};
@@ -434,22 +605,39 @@ __device__ __forceinline__ void attn_fwd(const CUtensorMap* k_map, const CUtenso
 #pragma unroll
           for (int kk = 0; kk < kFwK / 16; ++kk) acc_to_a(s, kk, pa[kk]);
           fence_regs(o);
+          if constexpr (kFoldL) fence_regs(ls);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kFwK / 16; ++kk) {
             Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
           }
+          if constexpr (kFoldL) {
+#pragma unroll
+            for (int kk = 0; kk < kFwK / 16; ++kk) {
+              Wgmma<8, true>::template run<0>(ls, pa[kk], ones_d, 1);
+            }
+          }
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(o);
+          if constexpr (kFoldL) {
+            fence_regs(ls);
+            fence_regs(pa);
+          }
           if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with the stage
+        }
+        if constexpr (kFoldL) {
+          l[0] = ls[0];   // every column is the row's sum: rows r0 and r0 + 8
+          l[1] = ls[2];
         }
       }
 
+      if constexpr (!kFoldL) {   // with kFoldL every thread holds its rows' whole sums
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-        l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        for (int i = 0; i < 2; ++i) {
+          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+          l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+        }
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {

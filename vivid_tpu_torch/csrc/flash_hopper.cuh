@@ -142,6 +142,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
 }
 
+// This thread's ordinary writes to shared memory, before a later read of the
+// same bytes through the async proxy (wgmma operands, TMA): after this fence,
+// a barrier hands them over.
+__device__ __forceinline__ void fence_shared_to_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Pins accumulators at this point of the program: the compiler moves no read
 // of them above a wait, and no write below an issue.
 template <int kN>
@@ -157,6 +164,23 @@ __device__ __forceinline__ void fence_regs(float (&r)[kN]) {
 // reads it MN-major. scale_d = 0 overwrites d.
 template <int kN, bool kFromRegs>
 struct Wgmma;
+
+template <>
+struct Wgmma<8, true> {
+  template <int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+  }
+};
 
 template <>
 struct Wgmma<32, true> {

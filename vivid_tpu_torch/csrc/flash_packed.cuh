@@ -1,13 +1,16 @@
 // What the packed-layout attention kernels share, forward (flash_packed.cu,
-// K1/K2) and backward (flash_packed_bwd.cu, K3/K4): the segment table of a
-// launch, the norm pre-pass that both run first, the block layout of their
-// wgmma kernels and the host code around them.
+// K1/K2; flash_nomax_packed.cu, K7) and backward (flash_packed_bwd.cu,
+// K3/K4): the segment table of a launch, the norm pre-pass that all run
+// first, the block layout of their wgmma kernels, the forward's body (K1/K2
+// with a running maximum, K7 its kNoMax branch) and the host code around
+// them.
 //
 // A launch's keys are 1 to 3 segments: the self k/v inside the packed qkv
 // [B, S, 3*H*D], then each cross source [B, Sf, 2*H*D] (k, v part-major),
 // each with an optional fp32 logit bias [B, H, S, Sf]. The pre-pass writes
 // every row of q, k and v pixel-normalised, x / (eps + ||x|| / sqrt(D))
-// rounded to bf16 (q then times c = 1/sqrt(D) and rounded again), once, into
+// rounded to bf16 (q then times c = 1/sqrt(D) and rounded again; for K7
+// x * (c / (eps + ||x|| / sqrt(D))) rounded once), once, into
 // head-major scratch the caller gives: c q' [B*H, S, D], then k' and v'
 // [B*H, keys, D] with every segment padded with zero rows to whole 64-row
 // tiles, so that no key tile straddles two segments. A kernel that reads the
@@ -85,8 +88,10 @@ __device__ __forceinline__ int segment_of(const Params& p, int tile) {
 // [0, q_rows) of its index space are q's ([B*H, S]), the next kv_rows k's
 // and the last kv_rows v's ([B*H, keys], segments padded): x / (eps +
 // ||x|| / sqrt(D)) rounded to bf16, for q then times c and rounded again;
-// padding rows are zeros. D / 8 threads a row, 16 bytes each.
-template <int D>
+// padding rows are zeros. kFoldScale (K7): q's rows are x * (c / (eps +
+// ||x|| / sqrt(D))) in fp32, rounded once. D / 8 threads a row, 16 bytes
+// each.
+template <int D, bool kFoldScale = false>
 __device__ __forceinline__ void norm_rows(const Params& p, __nv_bfloat16* __restrict__ qn,
                                           __nv_bfloat16* __restrict__ kn,
                                           __nv_bfloat16* __restrict__ vn,
@@ -143,12 +148,220 @@ __device__ __forceinline__ void norm_rows(const Params& p, __nv_bfloat16* __rest
     float lo = __bfloat162float(__float2bfloat16(x[2 * i] / den));
     float hi = __bfloat162float(__float2bfloat16(x[2 * i + 1] / den));
     if (is_q) {
-      lo *= kScaleOf<D>;
-      hi *= kScaleOf<D>;
+      if constexpr (kFoldScale) {   // c / den in one factor, as the TPU kernel's _rms_norm
+        lo = x[2 * i] * (kScaleOf<D> / den);
+        hi = x[2 * i + 1] * (kScaleOf<D> / den);
+      } else {
+        lo *= kScaleOf<D>;
+        hi *= kScaleOf<D>;
+      }
     }
     packed[i] = pack_bf16(lo, hi);
   }
   if (dst != nullptr) *reinterpret_cast<uint4*>(dst) = y;
+}
+
+// ---- the forward body (flash_packed.cu's K1/K2, flash_nomax_packed.cu's K7)
+
+template <int D>
+constexpr int kPackedSmemBytes = kAlignSlack + kStages * 2 * kRows * 2 * D + 2 * kStages * 8;
+
+// One tile's step of the softmax, in place: s (this thread's part of 64
+// rows x 64 keys of logits, -inf where a key is masked) becomes p. With a
+// running maximum (K1/K2): p = exp(s - m) about the maximum m of each of its
+// two rows, raised by this tile; the partial row sums l and the accumulator
+// o are rescaled to the new maximum first, then l takes the unrounded p.
+// kNoMax (K7): p = exp(s), nothing rescaled, l takes the unrounded p.
+template <int D, bool kNoMax = false>
+__device__ __forceinline__ void softmax_step(float (&s)[kRows / 2], float (&m)[2], float (&l)[2],
+                                             float (&o)[D / 2]) {
+  if constexpr (kNoMax) {
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = fast_exp2(s[4 * j + e] * kLog2e);
+        s[4 * j + e] = pe;
+        l[e >> 1] += pe;
+      }
+    }
+  } else {
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+    float m2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float alpha = fast_exp2((m[i] - mx[i]) * kLog2e);   // 0 on the first tile
+      m[i] = mx[i];
+      m2[i] = mx[i] * kLog2e;
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = fast_exp2(fmaf(s[4 * j + e], kLog2e, -m2[e >> 1]));
+        s[4 * j + e] = pe;
+        l[e >> 1] += pe;
+      }
+    }
+  }
+}
+
+// The body of the forward kernels: the output of one (b, h, 64 query rows).
+// Grid (ceil(S / 64), H, B), kThreads threads, kPackedSmemBytes<D> of
+// dynamic shared memory; kn_map and vn_map as rows_map encodes the
+// pre-pass's k' and v', p.qn its c q'. kNoMax: K7's softmax (softmax_step),
+// the sink's columns exp(0) = 1 each in the denominator; no bias.
+template <int D, bool kBiased, bool kNoMax = false>
+__device__ __forceinline__ void packed_fwd(const CUtensorMap* kn_map, const CUtensorMap* vn_map,
+                                           const Params& p, __nv_bfloat16* __restrict__ out) {
+  static_assert(!(kNoMax && kBiased), "a bias breaks the bound that makes a maximum unnecessary");
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kBoxBytes = kRows * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tiles = aligned_smem(smem_raw);   // stage: k' box, v' box
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + kStages * 2 * kBoxBytes);
+  uint64_t* empty = full + kStages;
+
+  const int wg = threadIdx.x / 128;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * p.H + h;
+  const int n_tiles = p.key_tiles;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 1) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kBoxBytes);
+        tma_load_3d(tiles + s * 2 * kBoxBytes, kn_map, &full[s], 0, t * kRows, bh);
+        tma_load_3d(tiles + s * 2 * kBoxBytes + kBoxBytes, vn_map, &full[s], 0, t * kRows, bh);
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int S = p.S;
+    const int q0 = blockIdx.x * kRows;
+    // This thread holds rows r0 and r0 + 8 of the consumer's 64, and
+    // columns c0, c0 + 1 of every n8 group.
+    const int r0 = warp * 16 + lane / 4;
+    const int c0 = (lane % 4) * 2;
+    const int rows[2] = {q0 + r0, q0 + r0 + 8};
+    uint32_t qf[D / 16][4];   // c q' is rounded already: scale 1 repacks it as it is
+    load_a_global<D>(p.qn + static_cast<long long>(bh) * S * D, q0, S, r0, c0, 1.f, qf);
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};   // per-thread partial sums; a quad holds a row
+    for (int t = 0; t < n_tiles; ++t) {
+      const Segment& sg = p.seg[segment_of(p, t)];
+      const int k0 = (t - sg.tile0) * kRows;   // the tile's first key in its segment
+      const int cols = sg.len - k0;            // keys of the tile that exist
+      const int stage = t % kStages;
+      mbar_wait(&full[stage], (t / kStages) & 1);
+      const uint8_t* kt = tiles + stage * 2 * kBoxBytes;
+      const uint64_t kd = smem_desc<kRowBytes>(kt);
+      const uint64_t vd = smem_desc<kRowBytes>(kt + kBoxBytes);
+
+      float s[kRows / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        Wgmma<kRows, true>::template run<0>(s, qf[kk], kd + kk * kDescStepK, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(qf);
+      if constexpr (kBiased) {
+        if (sg.bias != nullptr) {
+          const float* at[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            at[i] = rows[i] < S
+                ? sg.bias + (static_cast<long long>(bh) * S + rows[i]) * sg.len + k0 + c0
+                : nullptr;
+          }
+          add_bias<kRows>(s, at, cols - c0, sg.len % 2 == 0 && cols >= kRows, lane);
+        }
+      }
+      if (cols < kRows) {   // the segment's ragged edge: its padding rows get p = 0
+#pragma unroll
+        for (int j = 0; j < kRows / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (j * 8 + c0 + (e & 1) >= cols) s[4 * j + e] = -INFINITY;
+          }
+        }
+      }
+      softmax_step<D, kNoMax>(s, m, l, o);
+
+      // o += P v', P rounded to bf16.
+      uint32_t pa[kRows / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) acc_to_a(s, kk, pa[kk]);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        Wgmma<D, true>::template run<1>(o, pa[kk], vd + kk * kDescStepMN<kRowBytes>, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      if (lane == 0) mbar_arrive(&empty[stage]);   // this warp is done with the stage
+    }
+
+    // The sink. With a maximum, the maximum raised to 0 rescales the sum and
+    // the accumulator; without one, each sink column adds exp(0) = 1. One
+    // division, as the plain version.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float den = quad_sum(l[i]);
+      float corr = 1.f;
+      if constexpr (kNoMax) {
+        den += p.zero_sink;
+      } else if (p.zero_sink > 0.f) {
+        const float m0 = fmaxf(m[i], 0.f);
+        corr = expf(m[i] - m0);
+        den = den * corr + p.zero_sink * expf(-m0);
+      }
+      if (rows[i] >= S) continue;
+      __nv_bfloat16* orow = out + (static_cast<long long>(b) * S + rows[i]) * (p.H * D) + h * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + c0) = __floats2bfloat162_rn(
+            o[4 * j + 2 * i] * corr / den, o[4 * j + 2 * i + 1] * corr / den);
+      }
+    }
+  }
 }
 
 // ---- host side -----------------------------------------------------------
@@ -193,6 +406,46 @@ int launch_norm(Kernel kernel, const Params& p, __nv_bfloat16* qn, __nv_bfloat16
   kernel<<<static_cast<unsigned>((threads + kNormThreads - 1) / kNormThreads), kNormThreads, 0,
            st>>>(p, qn, kn, vn, q_rows, kv_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The two launches of a forward: the pre-pass kernel `norm` over the
+// scratch `rows` (c q' [B*H, S, D], then k' and v' [B*H, key_tiles * 64, D]
+// each), then the forward kernel `fwd` (packed_fwd's body) on its grid.
+// -> the first error.
+template <int D, typename Norm, typename Fwd>
+int launch_fwd(Norm norm, Fwd fwd, Params p, __nv_bfloat16* rows, __nv_bfloat16* out, int B,
+               cudaStream_t st) {
+  const int bh = B * p.H;
+  const int keys = p.key_tiles * kRows;
+  __nv_bfloat16* qn = rows;
+  __nv_bfloat16* kn = qn + static_cast<long long>(bh) * p.S * D;
+  __nv_bfloat16* vn = kn + static_cast<long long>(bh) * keys * D;
+  p.qn = qn;
+  CUtensorMap kn_map, vn_map;
+  int rc = rows_map(&kn_map, kn, bh, keys, D);
+  if (rc == 0) rc = rows_map(&vn_map, vn, bh, keys, D);
+  if (rc == 0) rc = launch_norm<D>(norm, p, qn, kn, vn, B, st);
+  if (rc == 0) rc = allow_smem(fwd, kPackedSmemBytes<D>);
+  if (rc != 0) return rc;
+  const dim3 grid((p.S + kRows - 1) / kRows, p.H, B);
+  fwd<<<grid, kThreads, kPackedSmemBytes<D>, st>>>(kn_map, vn_map, p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The segment table of a forward launch: qkv and the unbiased or biased
+// sources, eps and the sink. -> as fill_segments.
+inline int forward_params(Params& p, const void* qkv, int S, int H, int d, int n_src,
+                          const void* const (&feats)[2], const void* const (&biases)[2],
+                          const int (&sfs)[2], float eps, float zero_sink) {
+  p = Params{};
+  p.qkv = static_cast<const __nv_bfloat16*>(qkv);
+  p.S = S;
+  p.s_pad = (S + kRows - 1) / kRows * kRows;
+  p.H = H;
+  p.eps = eps;
+  p.zero_sink = zero_sink;
+  void* const none[2] = {nullptr, nullptr};
+  return fill_segments(p, d, n_src, feats, none, biases, none, sfs);
 }
 
 // info[0..2]: registers a thread at launch, local-memory bytes a thread,

@@ -197,10 +197,8 @@ packed_bwd_dq_kernel(const __grid_constant__ CUtensorMap kn_map,
     const int rows[2] = {q0 + r0, q0 + r0 + 8};
     const int hd = p.H * D;
     uint32_t qf[D / 16][4], gf[D / 16][4];
-    load_q_fragments<D, false, false>(p.qn + static_cast<long long>(bh) * S * D, D, q0, S,
-                                      r0, c0, 0.f, 1.f, qf);
-    load_q_fragments<D, false, false>(p.g + static_cast<long long>(b) * S * hd + h * D, hd,
-                                      q0, S, r0, c0, 0.f, 1.f, gf);
+    load_q_fragments<D>(p.qn + static_cast<long long>(bh) * S * D, D, q0, S, r0, c0, qf);
+    load_q_fragments<D>(p.g + static_cast<long long>(b) * S * hd + h * D, hd, q0, S, r0, c0, gf);
 
     float s[kRows / 2], dp[kRows / 2];
     // S = (c q') k'^T and dP = dO v'^T of step n, key tile t: the bias

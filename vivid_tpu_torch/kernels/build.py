@@ -145,15 +145,20 @@ def library() -> ctypes.CDLL:
     lib.vivid_flash_fused_info.argtypes = [i32, i32, ptr]   # d, biased, info[9]
     lib.vivid_flash_fused_info.restype = i32
     lib.vivid_flash_nomax_packed_fwd.argtypes = [
-        ptr, ptr, i32, i32, i32, i32, i32,      # qkv, out, B, S, H, d, n_src
+        ptr, ptr, ptr,                          # qkv, out, rows (scratch)
+        i32, i32, i32, i32, i32,                # B, S, H, d, n_src
         ptr, i32, ptr, i32,                     # feats/len for 2 sources
         f32, f32, ptr]                          # eps, zero_sink, stream
     lib.vivid_flash_nomax_packed_fwd.restype = i32
+    lib.vivid_flash_nomax_packed_info.argtypes = [i32, i32, ptr]   # d, biased (0), info[9]
+    lib.vivid_flash_nomax_packed_info.restype = i32
     lib.vivid_flash_nomax_lab_fwd.argtypes = [
         ptr, ptr, ptr, ptr,                     # q, k, v, out
         i32, i32, i32, i32, i32,                # B, H, Sq, Sk, d
         i32, i32, i32, ptr]                     # fold_l, chains, prescale, stream
     lib.vivid_flash_nomax_lab_fwd.restype = i32
+    lib.vivid_flash_nomax_lab_info.argtypes = [i32, i32, i32, i32, ptr]   # d, fold_l, chains, prescale, info[9]
+    lib.vivid_flash_nomax_lab_info.restype = i32
     lib.vivid_conv3x3_silu_fwd.argtypes = [
         ptr, ptr, ptr, i32, i32, i32,           # x, w, y, B, H, W
         i32, i32, ptr]                          # fuse_silu, blocks, stream

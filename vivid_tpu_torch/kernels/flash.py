@@ -28,7 +28,9 @@ backward `flash_attention` again for the output and the statistics, then
 pre-pass (`flash_fused_norm` launches it alone), and takes a bias and a zero
 sink. `flash_nomax_packed` (csrc/flash_nomax_packed.cu,
 counterpart of `flash_nomax_packed`) computes what the unbiased packed
-forwards compute by the no-max schedule; `packed_self_attention` and
+forwards compute by the no-max schedule, in K1/K2's two launches (the
+pre-pass with q's scale folded into its rounding, then the no-max branch of
+the same wgmma body); `packed_self_attention` and
 `packed_xattn` take it as their forward when asked (`nomax=True`), with the
 same backward kernels.
 
@@ -188,25 +190,32 @@ def _checked(qkv, feats, biases, num_heads, zero_sink, eps):
     return b, s, h, d, srcs
 
 
-def _launch(qkv, feats, biases, num_heads, zero_sink, eps):
+def _launch(qkv, feats, biases, num_heads, zero_sink, eps, nomax=False):
+    """The two launches of a packed forward: K1/K2's, or with `nomax` K7's
+    (no bias)."""
     b, s, h, d, srcs = _checked(qkv, feats, biases, num_heads, zero_sink, eps)
     dev = qkv.device
     out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=dev)
     # Scratch of the norm pre-pass, one allocation: q's rows [B, H, S, d],
     # then k's and v's [B, H, keys, d] with every segment padded to whole tiles.
-    rows = torch.empty(b * h * (s + 2 * _key_rows(s, srcs)) * d, dtype=torch.bfloat16,
-                       device=dev)
+    rows = torch.empty(packed_fwd_rows(b, s, h, d, [sf for _, sf, _ in srcs]),
+                       dtype=torch.bfloat16, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.vivid_flash_packed_fwd(
-            _ptr(qkv), _ptr(out), _ptr(rows), b, s, h, d, len(feats),
-            _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[0][2]),
-            _ptr(srcs[1][0]), srcs[1][1], _ptr(srcs[1][2]),
-            ctypes.c_float(eps), ctypes.c_float(zero_sink),
-            ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        tail = (ctypes.c_float(eps), ctypes.c_float(zero_sink), stream)
+        if nomax:
+            rc = lib.vivid_flash_nomax_packed_fwd(
+                _ptr(qkv), _ptr(out), _ptr(rows), b, s, h, d, len(feats),
+                _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[1][0]), srcs[1][1], *tail)
+        else:
+            rc = lib.vivid_flash_packed_fwd(
+                _ptr(qkv), _ptr(out), _ptr(rows), b, s, h, d, len(feats),
+                _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[0][2]),
+                _ptr(srcs[1][0]), srcs[1][1], _ptr(srcs[1][2]), *tail)
     if rc != 0:
-        raise RuntimeError(f"flash_packed kernel launch failed: CUDA error {rc}")
+        name = "flash_nomax_packed" if nomax else "flash_packed"
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out
 
 
@@ -220,11 +229,20 @@ def _key_rows(s, srcs):
     return sum(_tiles(n) for n in (s, *(sf for _, sf, _ in srcs))) * BWD_ROWS
 
 
+def packed_fwd_rows(b: int, s: int, h: int, d: int, lens=()) -> int:
+    """bf16 elements of the scratch a packed forward (K1/K2, K7) allocates
+    for its norm pre-pass: q's rows [B, H, S, d], then k's and v's
+    [B, H, keys, d], keys the self segment's S and each source's length
+    `lens[i]`, each padded to whole 64-row tiles."""
+    return b * h * (s + 2 * _key_rows(s, [(None, n, None) for n in lens])) * d
+
+
 def packed_fwd_plan(b: int, s: int, h: int, sms: int = 132):
-    """The grid of K1/K2's wgmma kernel at a shape: a block for each 64-row
-    query tile of each (b, h), each block one consumer warpgroup, two blocks
-    on each of `sms` streaming multiprocessors. -> {"fwd": dict(blocks,
-    waves)}; the sources set no block's count, only its walk."""
+    """The grid of K1/K2's wgmma kernel at a shape, and of K7's (the same
+    body): a block for each 64-row query tile of each (b, h), each block one
+    consumer warpgroup, two blocks on each of `sms` streaming
+    multiprocessors. -> {"fwd": dict(blocks, waves)}; the sources set no
+    block's count, only its walk."""
     blocks = _tiles(s) * b * h
     return {"fwd": dict(blocks=blocks, waves=round(blocks / (2 * sms), 3))}
 
@@ -358,19 +376,16 @@ def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0,
     feats = tuple(feats)
     if qkv.device.type == "cpu":
         return flash_nomax_packed_ref(qkv, feats, num_heads, zero_sink, eps)
-    b, s, h, d, srcs = _checked(qkv, feats, (), num_heads, zero_sink, eps)
-    out = torch.empty(b, s, h * d, dtype=torch.bfloat16, device=qkv.device)
-    lib = build.library()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.vivid_flash_nomax_packed_fwd(
-            _ptr(qkv), _ptr(out), b, s, h, d, len(feats),
-            _ptr(srcs[0][0]), srcs[0][1], _ptr(srcs[1][0]), srcs[1][1],
-            ctypes.c_float(eps), ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"flash_nomax_packed kernel launch failed: CUDA error {rc}")
+    out = _launch(qkv, feats, (), num_heads, zero_sink, eps, nomax=True)
     launches["flash_nomax_packed"] += 1
     return out
+
+
+def flash_nomax_packed_info(d: int):
+    """What K7's wgmma kernel for head dim `d` (32 or 64) was built with,
+    from the loaded library, so only where there is a card: the keys of
+    `flash_nomax_info`. K7 takes no bias, so it has one instance a head dim."""
+    return _forward_info("flash_nomax_packed_info", d, False)
 
 
 class _PackedSelfAttention(torch.autograd.Function):

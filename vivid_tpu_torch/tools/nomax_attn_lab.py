@@ -4,7 +4,8 @@ Counterpart of tools/nomax_attn_lab.py. The model pixel-normalises q and k
 before attention, so every scaled logit lies below sqrt(D) and softmax needs
 no running max: exp(s - sqrt(D)) <= 1 cannot overflow. The lab times the
 ways to spend what that saves, each a variant of one CUDA kernel
-(csrc/flash_nomax_lab.cu), against the forward with a running max:
+(csrc/flash_nomax_lab.cu: compile-time switches of K6's wgmma + TMA body in
+csrc/flash_fwd.cuh), against the forward with a running max:
 
   v0  `flash.flash_fused` on the normalised rows (online max)
   v1  no max, fp32 row sums
@@ -15,7 +16,8 @@ ways to spend what that saves, each a variant of one CUDA kernel
   v6  v5 with the softmax scale folded into q (`prescale`)
 
 and beside them K6 itself, `flash.flash_nomax` (csrc/flash_nomax.cu: the
-same function on wgmma and TMA), the kernel the model runs.
+same body with every switch at its default and no shift), the kernel the
+model runs.
 
 (The TPU lab's v3b and v7 differ from v3 and v6 by block sizes only, which
 this kernel does not have.) Every variant is first held against
@@ -93,6 +95,32 @@ def nomax_attention(q, k, v, fold_l=False, chains=1, prescale=False):
         raise RuntimeError(f"flash_nomax_lab kernel launch failed: CUDA error {rc}")
     flash.launches["nomax_lab_attention"] += 1
     return out
+
+
+def nomax_attention_info(d: int, fold_l=False, chains=1, prescale=False):
+    """What the lab kernel's instance for (d, fold_l, chains, prescale) was
+    built with, from the loaded library, so only where there is a card: the
+    keys of `flash.flash_nomax_info`."""
+    if d not in (32, 64) or chains not in (1, 2, 4):
+        raise ValueError(f"d must be 32 or 64 and chains 1, 2 or 4, got {d}, {chains}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("nomax_attention_info reads the built kernel: it needs a CUDA card")
+    info = (ctypes.c_int * len(flash._INFO_KEYS))()
+    rc = build.library().vivid_flash_nomax_lab_info(d, int(fold_l), chains, int(prescale),
+                                                     ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"flash_nomax_lab_info failed: CUDA error {rc}")
+    return dict(zip(flash._INFO_KEYS, info))
+
+
+def nomax_attention_plan(b: int, h: int, sq: int, sms: int = 132):
+    """The lab kernel's grid, K6's: a block for each 192 query rows (three
+    consumer warpgroups of 64) of each (b, h), one block an SM (its 512
+    threads take all 65,536 registers), on `sms` streaming multiprocessors.
+    -> dict(grid (x, y, z), blocks, waves)."""
+    grid = (-(-sq // 192), h, b)
+    blocks = grid[0] * h * b
+    return dict(grid=grid, blocks=blocks, waves=round(blocks / sms, 3))
 
 
 def _inputs(b, h, sq, sk, d, device, gen):
