@@ -50,6 +50,19 @@ its own:
            recompute modes, 3 steps of the vivid-sr preset through the
            trainer's entry point with the preset's recompute and 3 without,
            and the snapshot sampled as the SR model alone
+  shell    in a process of its own, with cuBLAS's deterministic workspace:
+           the trainer shell at full width (vivid-base, batch 8 of 1024),
+           deterministic, through the trainer's entry point: 4 steps
+           straight with checkpoints, snapshots and a sample grid through
+           the vivid-sr snapshot of the train phase (K1/K2 and K6 launches
+           per evaluation against the plan); the same as a 2-step slice and
+           a resume, which must end with the straight run's bits (params,
+           both Adam moments, both EMAs), and two planted faults in the
+           resume (the loader not fast-forwarded, adam_v zeroed) that must
+           break that; a suspend at a status tick that must checkpoint the
+           96-nimg state; the post-hoc EMA at std 0.075, evaluated through
+           the kernels; ms per step with and without the deterministic
+           mode, the checkpoint's size and its copy and write seconds
   labs     the [B, H, S, D] entries (attention_from_raw and fused_attention,
            outputs and gradients against the plain composite) and the three
            kernel labs of vivid_tpu_torch/tools, each at one timing case; a
@@ -104,6 +117,7 @@ NOMAX_SHAPES = [(16384, 32768, 4, 32), (16384, 16384, 2, 64),
                 (4096, 8192, 6, 32), (4096, 4096, 3, 64)]
 SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xattn": 3}
 SR_PER_EVAL_NOMAX = {"flash_nomax": 8, "flash_nomax_packed": 6}   # VIVID_NOMAX_PACKED=1
+SHELL_CUBLAS_WORKSPACE = ":4096:8"   # cuBLAS's deterministic workspace, for the shell phase
 BATCH = 8
 SAME_FUNCTION = "the_same_function"             # what a case's library call computes
 CORE_ONLY = "the_attention_core_only"
@@ -1252,9 +1266,11 @@ def main():
     for name, n in phase_train(card).items():
         if name.endswith("_bwd"):   # the packed backward kernels: the 64px training path's
             table[name]["launches"] = n
-    for name, n in phase_train_sr(card).items():
-        if name.startswith("flash_attention"):   # K8: the SR training path's
-            table[name]["launches"] = n
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_keep_") as keep:
+        for name, n in phase_train_sr(card, keep_dir=keep).items():
+            if name.startswith("flash_attention"):   # K8: the SR training path's
+                table[name]["launches"] = n
+        run_shell_phase(os.path.join(keep, "vivid-sr.pkl"))
     for name, n in phase_labs().items():
         if name in ("flash_fused", "conv3x3_silu", "nomax_lab_attention"):
             table[name]["launches"] = n   # K5, K9, K10: the entries' and the labs' count
@@ -1932,7 +1948,7 @@ def _run_trainer(card, run_dir, data, preset, steps, remat, preset_batch):
     return os.path.join(run_dir, snaps[0]), launches
 
 
-def phase_train_sr(card):
+def phase_train_sr(card, keep_dir=None):
     """The 256px training step at full width, batch 8 of the preset's 128.
 
     First the whole gradient of one `vivid-sr` `SRNVLoss` (same sigma, noise
@@ -1943,7 +1959,8 @@ def phase_train_sr(card):
     (dk of the cross keys zeroed in K8's backward) must fail the gate, and the
     distance is split by kernel family. Then the recompute modes, then the trainer's entry point takes 3 steps of the
     `vivid-sr` preset with the preset's recompute and 3 without, and the
-    snapshot it wrote is sampled as the SR model alone. Returns the kernels'
+    snapshot it wrote is sampled as the SR model alone, and copied into
+    `keep_dir` (as vivid-sr.pkl) when one is given. Returns the kernels'
     launch counts of the preset's run."""
     import contextlib
     import dataclasses
@@ -2097,7 +2114,295 @@ def phase_train_sr(card):
         say("train_sr", sampled_seeds=seeds, snapshot=os.path.basename(snapshot),
             latents_absmax=f"{lat.abs().max().item():.3f}",
             pngs=len(os.listdir(os.path.join(tmp, "out"))))
+        if keep_dir is not None:
+            import shutil
+            shutil.copy(snapshot, os.path.join(keep_dir, "vivid-sr.pkl"))
     return launches
+
+
+def run_shell_phase(sr_model):
+    """The `shell` phase in a process of its own, with
+    CUBLAS_WORKSPACE_CONFIG set before its first cuBLAS call, so that the
+    deterministic mode it turns on reaches no other phase's timings. Prints
+    the phase's own lines; the trainer's, too, if the phase fails."""
+    import torch
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=SHELL_CUBLAS_WORKSPACE)
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vivid_tpu_torch",
+                          "tools", "smoke_phase.py")
+    proc = subprocess.run([sys.executable, script, "shell", "--sr-model", sr_model], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          timeout=900)
+    lines = proc.stdout.splitlines()
+    print("\n".join(l for l in lines if l.startswith("[shell]")) if proc.returncode == 0
+          else "\n".join(lines[-300:]), flush=True)
+    check(proc.returncode == 0, f"shell: the phase's process exited with {proc.returncode}")
+
+
+def _same_state(a, b):
+    """The parts of two TrainStates that differ in any bit."""
+    import torch
+    equal = lambda xs, ys: all(torch.equal(x, y) for x, y in zip(xs, ys))
+    diff = [g for g in ("params", "adam_m", "adam_v") if not equal(getattr(a, g), getattr(b, g))]
+    diff += [f"emas[{i}]" for i, (x, y) in enumerate(zip(a.emas, b.emas)) if not equal(x, y)]
+    return diff + (["adam_step"] if a.adam_step != b.adam_step else [])
+
+
+def phase_shell(card, sr_model=None):
+    """The trainer shell at full width: `vivid-base` (ch 128, 64px, dual
+    source), batch 8 of the preset's 1024 (only the batch is cut), synthetic
+    scenes, through `cli.train_nvs.launch_training`, deterministic. Run A
+    takes 4 steps straight, with checkpoints and snapshots every 2 steps and
+    a sample grid at its last (EMA 0, unguided, 32 Heun steps, then the SR
+    model `sr_model`, a `vivid-sr` snapshot: a full-width random one when
+    none is given). Run B takes the same as a slice of 2 steps and a resume;
+    it must end with A's bits in the parameters, both Adam moments, both
+    EMAs and the step count, and two planted faults in its resume (the
+    loader not fast-forwarded; adam_v zeroed in the checkpoint) must break
+    that. Run C is suspended at its third status tick and must leave a
+    checkpoint of the 96-nimg state. Then the post-hoc EMA at std 0.075 from
+    C's and A's snapshots, loaded and evaluated through the kernels; then ms
+    per step with and without the deterministic mode, and the checkpoint's
+    size and write times. Needs CUBLAS_WORKSPACE_CONFIG (`run_shell_phase`)."""
+    import re
+    from unittest import mock
+    import numpy as np
+    import PIL.Image
+    import torch
+    from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
+    from vivid_tpu_torch.core import checkpoint, dist
+    from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate
+    from vivid_tpu_torch.data.encoders import StandardRGBEncoder
+    from vivid_tpu_torch.data.scenes import SceneDataset, make_synthetic_dataset
+    from vivid_tpu_torch.diffusion import phema
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.nn.precond import NVPrecond
+    from vivid_tpu_torch.nn.unet import attention_feature_spec
+    from vivid_tpu_torch.train import loop
+    from vivid_tpu_torch.train.snapshots import load_snapshot, save_snapshot
+
+    check(os.environ.get("CUBLAS_WORKSPACE_CONFIG") == SHELL_CUBLAS_WORKSPACE,
+          "shell: run it through run_shell_phase (CUBLAS_WORKSPACE_CONFIG unset)")
+    step = BATCH * 6                      # nimg a step: the dual-source collate counts 6 a pair
+    evals = 2 * 32 - 1
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_shell_") as tmp:
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=16,
+                                      num_views=8, imsize=64, seed=0)
+        test_data = make_synthetic_dataset(os.path.join(tmp, "scenes256"), num_scenes=8,
+                                           num_views=8, imsize=256, seed=1)
+        if sr_model is None:
+            sr_model = os.path.join(tmp, "sr.pkl")
+            save_snapshot(sr_model, _full_width_sr())
+
+        def train(name, **kw):
+            c = setup_training_config(
+                preset="vivid-base", data=data, batch=BATCH, duration=4 * step, seed=0,
+                device="cuda", deterministic=True, status=step, checkpoint=2 * step,
+                snapshot=2 * step, samples=4 * step, test_data_path=test_data,
+                sr_model=sr_model)
+            c.lr_kwargs.rampup_Mimg = 0.0   # the preset's ramp-up starts at LR 0
+            c.update(kw)
+            run_dir = os.path.join(tmp, name)
+            return run_dir, launch_training(run_dir, c)
+
+        # Run A, with the sample grid's sampler calls counted.
+        sampled = {"base": [], "sr": []}
+
+        def counted(fn, key):
+            def run(*args, **kwargs):
+                before = dict(flash.launches)
+                out = fn(*args, **kwargs)
+                sampled[key].append(({k: n - before[k] for k, n in flash.launches.items()
+                                      if n != before[k]}, out))
+                return out
+            return run
+
+        for name in flash.launches:
+            flash.launches[name] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(loop, "edm_sampler", counted(loop.edm_sampler, "base")), \
+                mock.patch.object(loop, "sr_cascade", counted(loop.sr_cascade, "sr")):
+            a_dir, a = train("a")
+        torch.cuda.synchronize()
+        a_seconds = time.perf_counter() - t0
+        launches = dict(flash.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cfg = a.state.net.cfg
+        check(a.state.cur_nimg == 4 * step and a.state.adam_step == 4,
+              f"shell: run A ended at {a.state.cur_nimg} nimg, step {a.state.adam_step}")
+        per_eval = {"flash_fused_packed": len(attention_feature_spec(cfg.encoder_cfg)),
+                    "flash_fused_packed_xattn": len(attention_feature_spec(cfg.unet_cfg))}
+        want_base = {k: n * evals for k, n in per_eval.items()}
+        want_sr = {k: n * evals for k, n in SR_PER_EVAL.items()}
+        check(len(sampled["base"]) == len(sampled["sr"]) == 1,
+              f"shell: {len(sampled['base'])} grids sampled, want 1")
+        (base_used, base_lat), (sr_used, sr_lat) = sampled["base"][0], sampled["sr"][0]
+        check(base_used == want_base and sr_used == want_sr,
+              f"shell: the grid launched {base_used} + {sr_used}, want {want_base} + {want_sr}")
+        want = {k: 4 * n + want_base.get(k, 0) + want_sr.get(k, 0)
+                for k, n in _train_launches(cfg).items()}
+        check(launches == want, f"shell: run A launched {launches}, want {want}")
+        check(bool(torch.isfinite(base_lat).all() and torch.isfinite(sr_lat).all())
+              and sr_lat.shape == (8, 256, 256, 3), f"shell: grid latents {sr_lat.shape}")
+        grid_path = os.path.join(a_dir, "results", "generated-samples-0000000.png")
+        grid = PIL.Image.open(grid_path)
+        check(grid.size == (8 * 256, 3 * 256), f"shell: grid {grid.size}, want 3 rows of 256 px")
+        check(float(np.asarray(grid, np.float32).std()) > 0, "shell: a constant grid")
+        say("shell", run="A", steps=4, seconds=f"{a_seconds:.2f}", launches=launches,
+            grid=f"{grid.size[0]}x{grid.size[1]}", grid_launches_base=base_used,
+            grid_launches_sr=sr_used, peak_memory_GB=f"{peak_gb:.2f}", card=f"'{card}'")
+
+        # The checkpoint's size and the holder's two times: the first save
+        # allocates the pinned host copies, the second reuses them.
+        io = checkpoint.CheckpointIO(state=a.state)
+        path = os.path.join(tmp, "timing.pt")
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            io.save(path, async_=True)
+            call_s = time.perf_counter() - t0
+            io.wait()
+            times.append((call_s, io.copy_seconds, io.write_seconds))
+        size_gb = os.path.getsize(path) / 1e9
+        os.remove(path)
+        del io
+        say("shell", checkpoint_GB=f"{size_gb:.3f}",
+            save_call_s=[f"{t[0]:.3f}" for t in times],
+            device_to_host_s=[f"{t[1]:.3f}" for t in times],
+            background_write_s=[f"{t[2]:.3f}" for t in times],
+            write_GB_per_s=f"{size_gb / times[1][2]:.2f}", card=f"'{card}'")
+
+        # Run B: a slice of 2 steps, then a resume.
+        b_dir, b1 = train("b", slice_nimg=2 * step)
+        log = open(os.path.join(b_dir, "log.txt")).read()
+        saved = os.path.join(b_dir, "training-state-0000000.pt")
+        check(b1.state.cur_nimg == 2 * step and os.path.exists(saved)
+              and f"Suspending at {2 * step} nimg with a checkpoint" in log,
+              f"shell: the slice ended at {b1.state.cur_nimg} nimg:\n{log[-2000:]}")
+        del b1
+        # Links to the slice's checkpoint, for the faults and for run C.
+        for name in ("fault_a", "fault_b"):
+            os.makedirs(os.path.join(tmp, name))
+            os.link(saved, os.path.join(tmp, name, "training-state-0000000.pt"))
+        os.link(saved, os.path.join(tmp, "slice_96.pt"))
+        _, b2 = train("b", slice_nimg=2 * step)
+        log = open(os.path.join(b_dir, "log.txt")).read()
+        resumed = re.search(r"Resumed at (\d+) nimg, step (\d+), in ([0-9.]+) s", log)
+        check("Resuming from" in log and resumed and int(resumed.group(1)) == 2 * step,
+              f"shell: run B did not resume:\n{log[-2000:]}")
+        diff = _same_state(a.state, b2.state)
+        check(not diff and b2.state.cur_nimg == 4 * step,
+              f"shell: killed and resumed differs from straight in {diff}")
+        del b2
+        say("shell", run="B", gate="bitwise_equal_to_A", slice_nimg=2 * step,
+            resume_s=resumed.group(3), card=f"'{card}'")
+
+        # Planted faults in the resume: each must break the gate.
+        quiet = dict(slice_nimg=2 * step, checkpoint_nimg=None, snapshot_nimg=None,
+                     samples_nimg=None, test_dataset_path=None, sr_model=None)
+        real_load = checkpoint.load_checkpoint
+
+        def zero_adam_v(p):
+            data = real_load(p)
+            for t in data["state"]["adam_v"].values():
+                t.zero_()
+            return data
+
+        faults = {"fault_a": mock.patch.object(
+                      loop, "BatchLoader", lambda *args, skip_rows=0, **kw: BatchLoader(*args, **kw)),
+                  "fault_b": mock.patch.object(checkpoint, "load_checkpoint", zero_adam_v)}
+        for name, planted in faults.items():
+            with planted:
+                _, f = train(name, **quiet)
+            diff = _same_state(a.state, f.state)
+            check(f.state.cur_nimg == 4 * step and diff,
+                  f"shell: {name} passes the gate (differs in {diff})")
+            say("shell", planted=name, differs_in=diff)
+            del f
+
+        # Run C: suspended at its third status tick, no checkpoint interval reached.
+        ticks = []
+
+        def suspend_at_third_tick():
+            ticks.append(1)
+            return len(ticks) > 2
+
+        with mock.patch.object(dist, "should_suspend", suspend_at_third_tick):
+            c_dir, c = train("c", checkpoint_nimg=10 ** 9, samples_nimg=None)
+        files = sorted(f for f in os.listdir(c_dir) if f.startswith("training-state-"))
+        check(c.state.cur_nimg == 2 * step and files == ["training-state-0000000.pt"],
+              f"shell: run C stopped at {c.state.cur_nimg} nimg with {files}")
+        del c
+        got = checkpoint.load_checkpoint(os.path.join(c_dir, files[0]))["state"]
+        want_state = checkpoint.load_checkpoint(os.path.join(tmp, "slice_96.pt"))["state"]
+        check(got["cur_nimg"] == 2 * step and got["adam_step"] == 2,
+              f"shell: run C's checkpoint is at {got['cur_nimg']} nimg")
+        for key in ("params", "adam_m", "adam_v"):
+            check(all(torch.equal(got[key][n], want_state[key][n]) for n in want_state[key]),
+                  f"shell: run C's {key} at 96 nimg differ from the slice's")
+        check(all(torch.equal(x[n], y[n]) for x, y in zip(got["emas"], want_state["emas"])
+                  for n in y), "shell: run C's EMAs at 96 nimg differ from the slice's")
+        del got, want_state
+        say("shell", run="C", suspended_at_nimg=2 * step, checkpoint=files[0],
+            equal_to_the_slice_checkpoint=True)
+
+        # Post-hoc EMA at std 0.075 from 2 points x 2 stds: C's snapshots at
+        # 96 nimg and A's at 192 (both named for kimg 0).
+        triples = [(nimg, std, load_snapshot(os.path.join(
+                        d, f"network-snapshot-0000000-{std:.3f}.pkl")).net.state_dict())
+                   for nimg, d in ((2 * step, c_dir), (4 * step, a_dir)) for std in (0.050, 0.100)]
+        t0 = time.perf_counter()
+        res = phema.reconstruct_phema(triples, 0.075, verbose=False)[0]
+        phema_s = time.perf_counter() - t0
+        coef = phema.solve_posthoc_coefficients([t[0] for t in triples], [t[1] for t in triples],
+                                                [4 * step], [0.075])[:, 0]
+        worst = 0.0
+        for name, value in res.params.items():
+            mix = sum(float(k) * t[2][name].double() for k, t in zip(coef, triples))
+            worst = max(worst, ((value.double() - mix).abs().max()
+                                / mix.abs().max().clamp_min(1e-30)).item())
+        check(res.nimg == 4 * step and worst <= 1e-6,
+              f"shell: post-hoc weights off the fp64 combination by {worst} (relative)")
+        net = NVPrecond(cfg, device="meta").to_empty(device="cuda")
+        net.load_state_dict(res.params)
+        net.eval().requires_grad_(False)
+        del triples, res
+        loader = BatchLoader(iter(SceneDataset(data, seed=1)), DualSourceCollate(64, seed=1),
+                             batch_size=BATCH)
+        raw = next(loader)
+        loader.close()
+        enc = StandardRGBEncoder()
+        src = enc.encode_latents(raw["src_image"], device="cuda")
+        noisy = torch.randn((BATCH, 64, 64, 3), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+        for name in flash.launches:
+            flash.launches[name] = 0
+        with torch.no_grad():
+            out = net(src, noisy, torch.full((BATCH,), 1.0, device="cuda"),
+                      torch.as_tensor(raw["geometry"], device="cuda"))
+        torch.cuda.synchronize()
+        used = {k: n for k, n in flash.launches.items() if n}
+        check(bool(torch.isfinite(out).all()) and used == per_eval,
+              f"shell: the post-hoc model's evaluation: finite {bool(torch.isfinite(out).all())}, "
+              f"launches {used}, want {per_eval}")
+        del net, out
+        say("shell", phema_std=0.075, inputs="2_nimg_x_2_std", coefficients=[
+            f"{k:+.5f}" for k in coef], max_rel_err_vs_fp64_mix=f"{worst:.2e}",
+            reconstruct_s=f"{phema_s:.2f}", evaluation_launches=used)
+
+        # ms per step with and without the deterministic mode, in turns.
+        step_ms = {True: [], False: []}
+        for det in (True, False, False, True):
+            _, r = train(f"timing_{len(step_ms[True]) + len(step_ms[False])}", deterministic=det,
+                         **dict(quiet, slice_nimg=None))
+            step_ms[det].append(statistics.median(t["seconds"] for t in r.ticks[2:]) * 1e3)
+            del r
+        torch.cuda.empty_cache()
+        say("shell", ms_per_step_deterministic=[f"{x:.1f}" for x in step_ms[True]],
+            ms_per_step_default=[f"{x:.1f}" for x in step_ms[False]],
+            note="median_of_steps_2_to_4", card=f"'{card}'")
 
 
 def phase_labs():

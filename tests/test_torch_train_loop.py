@@ -129,7 +129,7 @@ def test_cli_presets_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--depth-input"], ["--metrics", "1Ki"],
-                                   ["--single-image-mix", "0.25"], ["--checkpoint", "1Ki"]])
+                                   ["--depth-model", "small"], ["--warp-depth-coor"]])
 def test_cli_unported_options_raise(flags):
     with pytest.raises(NotImplementedError):
         train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)

@@ -8,9 +8,13 @@ package's.
 
 `vivid-sr` trains the 256px super-resolution model (single source);
 `--vanilla-mode` with a 64px preset trains the single-source base model. It
-trains on the first CUDA card unless `--device cpu` is given. A flag whose
-feature is not ported yet raises NotImplementedError; none is silently
-ignored.
+trains on the first CUDA card unless `--device cpu` is given. Running the
+same command again resumes from the latest training-state checkpoint in
+`<outdir>/experiments`; `--slice` stops each run after that many images, at
+a checkpoint. `--deterministic` makes a killed and resumed run end with the
+bits of one that was never killed; on a CUDA card it needs
+CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment. A flag whose feature is
+not ported yet raises NotImplementedError; none is silently ignored.
 """
 
 import json
@@ -35,9 +39,7 @@ config_presets = {
 }
 
 # Flags of the JAX package's CLI whose features the port does not have yet.
-NOT_PORTED = ("fsdp", "depth_input", "depth_model", "warp_depth_coor", "metrics",
-              "single_image_mix", "sr_model", "test_data_path", "samples", "checkpoint",
-              "slice", "deterministic")
+NOT_PORTED = ("fsdp", "depth_input", "depth_model", "warp_depth_coor", "metrics")
 
 
 def parse_nimg(s):
@@ -79,6 +81,7 @@ def setup_training_config(preset="vivid-base", **opts):
 
     c = EasyDict()
     c.dataset_kwargs = EasyDict(path=opts.data)
+    c.test_dataset_path = opts.get("test_data_path") or None
     c.vanilla_mode = bool(opts.get("vanilla_mode"))
     c.plain_mse = bool(opts.get("plain_mse"))
     num_sources = 1 if c.vanilla_mode else 2
@@ -105,17 +108,63 @@ def setup_training_config(preset="vivid-base", **opts):
     c.batch_gpu = opts.get("batch_gpu") or None
     c.sr_training = bool(opts.get("sr_training"))
     c.status_nimg = opts.get("status") or None
+    c.samples_nimg = opts.get("samples") or None
     c.snapshot_nimg = opts.get("snapshot") or None
+    c.checkpoint_nimg = opts.get("checkpoint") or None
     c.seed = opts.get("seed", 0)
+    c.sr_model = opts.get("sr_model") or None
+    c.single_image_mix = opts.get("single_image_mix") or None
+    c.single_image_mix_path = opts.get("single_image_path") or None
+    c.slice_nimg = opts.get("slice") or None
+    c.deterministic = bool(opts.get("deterministic"))
     c.max_steps = opts.get("max_steps") or None
     c.device = opts.get("device") or None
     return c
+
+
+def save_code_snapshot(run_dir):
+    """The run's provenance in `<run_dir>/code/`: provenance.json (argv,
+    launch time, Python and torch versions, the git revision and whether the
+    tree was dirty, where there is a git checkout) and source.tar.gz, the
+    `vivid_tpu_torch` package as it ran."""
+    import subprocess
+    import sys
+    import tarfile
+    import time
+
+    import torch
+    code_dir = os.path.join(run_dir, "code")
+    os.makedirs(code_dir, exist_ok=True)
+    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prov = {"argv": list(sys.argv), "launch_time": time.time(),
+            "python": sys.version.split()[0], "torch_version": torch.__version__}
+    try:
+        git = ["git", "-C", os.path.dirname(pkg_dir)]
+        rev = subprocess.run(git + ["rev-parse", "HEAD"], capture_output=True, text=True,
+                             timeout=10)
+        if rev.returncode == 0:
+            prov["git_rev"] = rev.stdout.strip()
+            dirty = subprocess.run(git + ["status", "--porcelain"], capture_output=True,
+                                   text=True, timeout=10)
+            prov["git_dirty"] = bool(dirty.stdout.strip())
+    except (OSError, subprocess.SubprocessError):
+        pass
+    with open(os.path.join(code_dir, "provenance.json"), "wt") as f:
+        json.dump(prov, f, indent=2)
+
+    def keep(info):
+        return None if "__pycache__" in info.name or info.name.endswith((".pyc", ".so")) \
+            else info
+
+    with tarfile.open(os.path.join(code_dir, "source.tar.gz"), "w:gz") as tar:
+        tar.add(pkg_dir, arcname="vivid_tpu_torch", filter=keep)
 
 
 def launch_training(run_dir, c):
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
         json.dump(c, f, indent=2)
+    save_code_snapshot(run_dir)
     from vivid_tpu_torch.train.loop import training_loop
     return training_loop(run_dir=run_dir, **c)
 
@@ -142,17 +191,18 @@ def launch_training(run_dir, c):
 @click.option("--depth-model", help="Depth model type (not ported)", metavar="small|base|large", type=str, default=None)
 @click.option("--depth-input", help="Adds depth in input (not ported)", is_flag=True)
 @click.option("--warp-depth-coor", help="Add coordinates and warped coordinates as input (not ported)", is_flag=True)
-@click.option("--single-image-mix", help="Use single image augmentations, percent of batch (not ported)", type=float, default=None)
+@click.option("--single-image-mix", help="Use single image augmentations, percent of batch", type=float, default=None)
+@click.option("--single-image-path", help="Directory of single images for the mix  [default: --data]", metavar="DIR", type=str, default=None)
 @click.option("--uncond", help="Regular (unconditional) diffusion", is_flag=True)
 @click.option("--noisy-sr", help="Adds noise to low-res image", type=float, default=None)
-@click.option("--sr-model", help="Path to SR model to use for evaluation (not ported)", metavar="STR", type=str, required=False)
-@click.option("--test-data-path", help="Path to the test dataset (not ported)", metavar="DIR", type=str, default=None)
+@click.option("--sr-model", help="Path to SR model to use for evaluation", metavar="STR", type=str, required=False)
+@click.option("--test-data-path", help="Path to the test dataset (sample grids)", metavar="DIR", type=str, default=None)
 @click.option("--vanilla-mode", help="Single-source conditioning", is_flag=True)
 @click.option("--plain-mse", help="Plain MSE loss instead of learned variance", is_flag=True)
 # Performance-related options.
 @click.option("--batch-gpu", help="Limit the microbatch size (gradient accumulation)", metavar="NIMG", type=parse_nimg, default=None)
 @click.option("--fsdp", help="Shard the train state over several cards (not ported)", is_flag=True)
-@click.option("--deterministic", help="Bit-reproducible kill and resume (not ported: there is no resume yet)", is_flag=True)
+@click.option("--deterministic", help="Bit-reproducible kill and resume: the resumed loaders replay the consumed rows; deterministic algorithms on the card (needs CUBLAS_WORKSPACE_CONFIG=:4096:8)", is_flag=True)
 @click.option("--bf16", help="Enable bfloat16 compute", metavar="BOOL", type=bool, default=True, show_default=True)
 @click.option("--force-wn", help="Forced weight normalization (EDM2 Eq. 66)", metavar="BOOL", type=bool, default=False, show_default=True)
 @click.option("--remat", help="Recompute blocks in backward: true, false, or save_dots (keep conv and matrix-product outputs, recompute elementwise)", metavar="BOOL|save_dots", type=str, default="true", show_default=True)
@@ -160,11 +210,11 @@ def launch_training(run_dir, c):
 @click.option("--device", help="Device to train on  [default: cuda]", metavar="STR", type=str, default=None)
 # I/O-related options.
 @click.option("--status", help="Interval of status prints", metavar="NIMG", type=parse_nimg, default="960", show_default=True)
-@click.option("--samples", help="Interval of sample generation (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--samples", help="Interval of sample generation", metavar="NIMG", type=parse_nimg, default="9600", show_default=True)
 @click.option("--metrics", help="Interval of metrics prints (not ported)", metavar="NIMG", type=parse_nimg, default=None)
 @click.option("--snapshot", help="Interval of network snapshots", metavar="NIMG", type=parse_nimg, default="10000", show_default=True)
-@click.option("--checkpoint", help="Interval of training checkpoints (not ported)", metavar="NIMG", type=parse_nimg, default=None)
-@click.option("--slice", help="Train in slices of this many nimg (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--checkpoint", help="Interval of training checkpoints", metavar="NIMG", type=parse_nimg, default="10000", show_default=True)
+@click.option("--slice", help="Train in slices of this many nimg", metavar="NIMG", type=parse_nimg, default=None)
 @click.option("--max-steps", help="Stop after this many optimizer steps", metavar="INT", type=click.IntRange(min=1), default=None)
 @click.option("--seed", help="Random seed", metavar="INT", type=int, default=0, show_default=True)
 @click.option("--dry-run", help="Print training options and exit", is_flag=True)

@@ -189,26 +189,36 @@ def generate_images_nvs(
         def _sr_stage(self, raw, n, r, latents, gen):
             """Sample the SR model on the base latents upsampled to its
             resolution; sets r.src / r.tgt to the SR-size views."""
-            scfg = sr_model.cfg
-            sr_src_raw = raw["sr_src_image"][:n]
-            sr_geometry = raw["sr_geometry"][:n]
-            # The rows carry the base model's source count; an SR model with
-            # fewer sources is conditioned on the first views, and its target
-            # label narrows with them (per-source geometry, 20 values each).
-            if sr_src_raw.shape[1] < scfg.num_sources:
-                raise ValueError(f"SR model wants {scfg.num_sources} source views but the "
-                                 f"collate provides {sr_src_raw.shape[1]}")
-            sr_src_raw = sr_src_raw[:, :scfg.num_sources]
-            sr_geometry = torch.as_tensor(sr_geometry[:, :scfg.num_sources], device=device)
-            res = scfg.img_resolution
-            sr_src = encoder.encode_latents(sr_src_raw, device=device)
-            sr_noise = seeded_normal(r.seeds, (res, res, scfg.img_channels), device)
-            # Half-pixel bilinear, no antialiasing: jax.image.resize's upscale.
-            low_res = F.interpolate(latents.permute(0, 3, 1, 2), size=(res, res),
-                                    mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
-            denoise = make_denoiser(sr_model.net, sr_src, sr_geometry,
-                                    conditioning_image=low_res, generator=gen)
-            r.src, r.tgt = sr_src_raw[:, 0], raw["sr_tgt_image"][:n]
-            return edm_sampler(denoise, sr_noise, seeds=r.seeds, **sampler_kwargs)
+            res = sr_model.cfg.img_resolution
+            sr_noise = seeded_normal(r.seeds, (res, res, sr_model.cfg.img_channels), device)
+            r.src, r.tgt = raw["sr_src_image"][:n, 0], raw["sr_tgt_image"][:n]
+            return sr_cascade(sr_model, encoder, latents, raw["sr_src_image"][:n],
+                              raw["sr_geometry"][:n], sr_noise, gen, seeds=r.seeds,
+                              **sampler_kwargs)
 
     return ImageIterable()
+
+
+def sr_cascade(sr_model, encoder, latents, sr_src_raw, sr_geometry, sr_noise, generator,
+               **sampler_kwargs):
+    """Sample `sr_model` (a loaded EasyDict) conditioned on the base latents
+    [B, h, w, C] upsampled to its resolution, on the SR-size source views
+    `sr_src_raw` [B, S, H, W, 3] (pixels) and their geometry [B, S, 20],
+    from the unit noise `sr_noise`. The rows carry the base model's source
+    count; an SR model with fewer sources is conditioned on the first views,
+    and its target label narrows with them (per-source geometry, 20 values
+    each). `generator` draws the noise on the conditioning image."""
+    scfg = sr_model.cfg
+    device = latents.device
+    if sr_src_raw.shape[1] < scfg.num_sources:
+        raise ValueError(f"SR model wants {scfg.num_sources} source views but the "
+                         f"collate provides {sr_src_raw.shape[1]}")
+    sr_src = encoder.encode_latents(sr_src_raw[:, :scfg.num_sources], device=device)
+    sr_geometry = torch.as_tensor(sr_geometry[:, :scfg.num_sources], device=device)
+    res = scfg.img_resolution
+    # Half-pixel bilinear, no antialiasing: jax.image.resize's upscale.
+    low_res = F.interpolate(latents.permute(0, 3, 1, 2), size=(res, res),
+                            mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    denoise = make_denoiser(sr_model.net, sr_src, sr_geometry,
+                            conditioning_image=low_res, generator=generator)
+    return edm_sampler(denoise, sr_noise, **sampler_kwargs)

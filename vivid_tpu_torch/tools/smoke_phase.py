@@ -1,6 +1,8 @@
 """Runs one phase of chip_smoke.py, optionally on the port of another checkout.
 
     python3 vivid_tpu_torch/tools/smoke_phase.py train_sr [--port DIR]
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 vivid_tpu_torch/tools/smoke_phase.py shell \
+        [--sr-model vivid-sr.pkl]
 
 The phase's code is this checkout's `chip_smoke.py` (its `phase_<name>`,
 after `phase_device`); `--port DIR` puts DIR, the root of another checkout,
@@ -26,6 +28,8 @@ def main(argv=None):
     ap.add_argument("phase", help="a phase of chip_smoke.py: train, train_sr, ...")
     ap.add_argument("--port", default=ROOT,
                     help="root of the checkout whose vivid_tpu_torch the phase drives")
+    ap.add_argument("--sr-model", default=None,
+                    help="a vivid-sr snapshot, for a phase that takes one (shell)")
     args = ap.parse_args(argv)
     sys.path[:0] = [os.path.abspath(args.port)]
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -35,7 +39,9 @@ def main(argv=None):
     print(f"port: {os.path.dirname(os.path.dirname(vivid_tpu_torch.__file__))}", flush=True)
     card = smoke.phase_device()
     phase = getattr(smoke, f"phase_{args.phase}")
-    phase(*([card] if "card" in inspect.signature(phase).parameters else []))
+    params = inspect.signature(phase).parameters
+    kwargs = {"sr_model": args.sr_model} if args.sr_model and "sr_model" in params else {}
+    phase(*([card] if "card" in params else []), **kwargs)
     return 0
 
 

@@ -1,48 +1,84 @@
-"""Training loop: scenes -> batches -> train steps -> status lines and
-per-EMA snapshots.
+"""Training loop: scenes -> batches -> train steps, with status ticks and
+`stats.jsonl`, per-EMA snapshots, training-state checkpoints, resume,
+slices and suspend, and sample grids.
 
-Counterpart of vivid_tpu/train/loop.py `training_loop`, cut to what a run
-on one card needs: it trains `vivid-base` / `vivid-uncond` style models, the
-256px super-resolution model (`sr_training`) and single-source models
-(`vanilla_mode`) on a directory of scene files. Not ported yet, and absent
-here: resume and training-state checkpoints, sample grids, metric ticks, the
-stats file, single-image co-training, depth conditioning and more than one
-process.
+Counterpart of vivid_tpu/train/loop.py `training_loop` on one process. It
+trains `vivid-base` / `vivid-uncond` style models, the 256px
+super-resolution model (`sr_training`) and single-source models
+(`vanilla_mode`) on a directory of scene files, optionally mixed with rows
+synthesised from single images (`single_image_mix`). Not ported yet: metric
+ticks, depth conditioning and sharding the state over cards; their
+arguments raise NotImplementedError.
 
-Every `Status:` line goes to stdout and to `<run_dir>/log.txt`. Intervals are
-in images (nimg), as in the JAX package; one step advances the count by
-`batch_size * collate.nimg_mult` (6 in dual-source mode, 1 in vanilla mode).
+Intervals are in images (nimg), as in the JAX package; one step advances the
+count by `batch_size * collate.nimg_mult` (6 in dual-source mode, 1 in
+vanilla mode). Everything the loop prints goes to stdout and to
+`<run_dir>/log.txt`. A run resumes from the latest `training-state-*.pt` in
+`run_dir`. It stops at `total_nimg`, after `max_steps` steps, at the end of
+a slice (`slice_nimg`), or when a suspend is requested (SIGTERM); the last
+two write a checkpoint where they stop. With `deterministic`, a resumed
+run's loaders replay the rows the earlier run consumed, so killing and
+resuming a run changes no bit of its result; on a CUDA card it also selects
+deterministic algorithms, which needs CUBLAS_WORKSPACE_CONFIG=:4096:8 in the
+environment before the process makes its first cuBLAS call.
 """
 
+import contextlib
+import json
 import os
+import resource
 import time
 from typing import Optional
 
+import numpy as np
+import PIL.Image
 import torch
 
+from vivid_tpu_torch.core import checkpoint, dist, stats as stats_mod
 from vivid_tpu_torch.core.easydict import EasyDict
+from vivid_tpu_torch.core.logger import Logger, format_time
 from vivid_tpu_torch.core.rngs import fold_in
+from vivid_tpu_torch.core.summary import count_params, param_table
 from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
-from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss
-from vivid_tpu_torch.generate import open_scene_dataset
+from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss, down_up_resize
+from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+from vivid_tpu_torch.generate import open_scene_dataset, resolve_model, sr_cascade
 from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
 from vivid_tpu_torch.train.snapshots import save_snapshot
 from vivid_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
 
+CUBLAS_WORKSPACE = (":4096:8", ":16:8")   # the values that make cuBLAS deterministic
 
-def format_time(seconds: float) -> str:
-    s = int(round(seconds))
-    if s < 60:
-        return f"{s}s"
-    if s < 3600:
-        return f"{s // 60}m {s % 60:02d}s"
-    return f"{s // 3600}h {s // 60 % 60:02d}m {s % 60:02d}s"
+
+@contextlib.contextmanager
+def deterministic_algorithms(enabled: bool):
+    """Deterministic algorithms and cuDNN for the block, then the previous
+    settings back."""
+    if not enabled:
+        yield
+        return
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") not in CUBLAS_WORKSPACE:
+        raise RuntimeError(
+            "deterministic training on a CUDA card needs CUBLAS_WORKSPACE_CONFIG=:4096:8 "
+            "(or :16:8) in the environment before the first cuBLAS call; set it when "
+            "starting the process")
+    cudnn = torch.backends.cudnn
+    old = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        cudnn.deterministic, cudnn.benchmark = old[1], old[2]
 
 
 def training_loop(
     run_dir: str,
     dataset_kwargs: Optional[dict] = None,
+    test_dataset_path: Optional[str] = None,
+    encoder_kwargs: Optional[dict] = None,
     network_kwargs: Optional[dict] = None,
     loss_kwargs: Optional[dict] = None,
     lr_kwargs: Optional[dict] = None,
@@ -51,29 +87,63 @@ def training_loop(
     batch_size: int = 64,
     batch_gpu: Optional[int] = None,
     total_nimg: int = 192_000_000,
+    slice_nimg: Optional[int] = None,
     status_nimg: Optional[int] = 960,
+    samples_nimg: Optional[int] = 9600,
+    metrics_nimg: Optional[int] = None,
     snapshot_nimg: Optional[int] = 10000,
+    checkpoint_nimg: Optional[int] = 10000,
     loss_scaling: float = 1.0,
     force_finite: bool = True,
+    eval_samples: int = 8,
     sr_training: bool = False,
     vanilla_mode: bool = False,
     plain_mse: bool = False,
+    single_image_mix: Optional[float] = None,
+    single_image_mix_path: Optional[str] = None,
+    sr_model=None,
+    depth_model=None,
+    metrics_fn=None,
+    metrics_list=None,
     max_steps: Optional[int] = None,
+    debug: Optional[bool] = None,
+    fsdp: bool = False,
+    deterministic: bool = False,
+    progress_bar: bool = False,
     device=None,
 ):
     """Train an NVS diffusion model; `max_steps` also bounds the number of
     optimizer steps. `sr_training` trains a `super_res` model at 256px with
-    `SRNVLoss`; `vanilla_mode` feeds one source view per pair. Runs on the
-    first CUDA card unless `device` says otherwise. Returns
-    EasyDict(state, ticks): the final TrainState and one dict per status tick
-    (nimg, steps, loss, loss_std, learning_rate, grad_norm as means over the
-    tick's steps, seconds)."""
-    start_time = time.time()
-    device = torch.device(device or "cuda")
+    `SRNVLoss`; `vanilla_mode` feeds one source view per pair. Sample grids
+    (EMA 0, unguided, 32 Heun steps; through `sr_model` when given) need
+    `test_dataset_path`. `debug` turns off the stats file, the progress bar
+    and wandb; the progress bar (tqdm) is drawn only with `progress_bar`,
+    wandb only when WANDB_PROJECT is set. Runs on the first CUDA card unless
+    `device` says otherwise. Returns EasyDict(state, ticks): the final
+    TrainState and one dict per status tick (nimg, steps, loss, loss_std,
+    learning_rate, grad_norm as means over the tick's steps, seconds)."""
+    args = dict(locals())
+    for name in ("metrics_nimg", "metrics_fn", "metrics_list", "depth_model", "fsdp"):
+        if args.pop(name):
+            raise NotImplementedError(f"{name} is not ported to vivid_tpu_torch yet")
+    args["device"] = device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card found; pass device='cpu' to train on the CPU")
-    os.makedirs(run_dir, exist_ok=True)
+    os.makedirs(os.path.join(run_dir, "results"), exist_ok=True)
+    dist.init()
+    with Logger(os.path.join(run_dir, "log.txt"), "a"), \
+            deterministic_algorithms(deterministic and device.type == "cuda"):
+        return _train(**args)
 
+
+def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_kwargs,
+           loss_kwargs, lr_kwargs, ema_stds, seed, batch_size, batch_gpu, total_nimg,
+           slice_nimg, status_nimg, samples_nimg, snapshot_nimg, checkpoint_nimg,
+           loss_scaling, force_finite, eval_samples, sr_training, vanilla_mode, plain_mse,
+           single_image_mix, single_image_mix_path, sr_model, max_steps, debug,
+           deterministic, progress_bar, device):
+    start_time = time.time()
+    print0 = dist.print0
     num_sources = 1 if vanilla_mode else 2
     net_kwargs = dict(network_kwargs or {})
     net_kwargs.setdefault("img_resolution", 256 if sr_training else 64)
@@ -87,14 +157,38 @@ def training_loop(
             f"network_kwargs (num_sources {model_cfg.num_sources}, super_res "
             f"{model_cfg.super_res}) disagree with vanilla_mode={vanilla_mode}, "
             f"sr_training={sr_training}")
+    resolution = model_cfg.img_resolution
 
     dataset_kwargs = dict(dataset_kwargs or {})
     dataset = open_scene_dataset(
         dataset_kwargs["path"], seed=seed,
         **{k: v for k, v in dataset_kwargs.items() if k not in ("path", "class_name")})
     collate_cls = VanillaCollate if vanilla_mode else DualSourceCollate
-    collate = collate_cls(imsize=model_cfg.img_resolution, seed=seed)
-    encoder = StandardRGBEncoder()
+    collate = collate_cls(imsize=resolution, seed=seed)
+
+    # Single-image co-training: a fixed share of every batch is synthesised
+    # from single images by random camera rotations.
+    main_batch, n_single, single_ds = batch_size, 0, None
+    if single_image_mix:
+        from vivid_tpu_torch.data.single_images import SingleImages
+        n_single = min(batch_size - 1, max(1, int(batch_size * single_image_mix)))
+        single_ds = SingleImages(single_image_mix_path or dataset_kwargs["path"],
+                                 imsize=resolution, num_sources=num_sources, seed=seed + 2)
+        main_batch = batch_size - n_single
+
+    sr_model = resolve_model(sr_model, device)
+    test_loader = None
+    if test_dataset_path and eval_samples:
+        test_collate = collate_cls(imsize=resolution, seed=seed + 1,
+                                   sr_size=sr_model.cfg.img_resolution if sr_model else None)
+        test_loader = BatchLoader(iter(open_scene_dataset(test_dataset_path, seed=seed + 1)),
+                                  test_collate, batch_size=eval_samples, prefetch=1)
+
+    if encoder_kwargs:
+        from vivid_tpu_torch.core.registry import construct_class_by_name
+        encoder = construct_class_by_name(**dict(encoder_kwargs))
+    else:
+        encoder = StandardRGBEncoder()
     loss_cls = SRNVLoss if sr_training else NVLoss
     loss_fn = loss_cls(plain_mse=plain_mse, **dict(loss_kwargs or {}))
 
@@ -116,69 +210,237 @@ def training_loop(
     step_fn = make_train_step(loss_fn, train_cfg)
     generator = torch.Generator(device=device)
     nimg_per_step = batch_size * train_cfg.nimg_mult
-    n_params = sum(t.numel() for t in net.state_dict().values())
+    print0(param_table(net.state_dict()))
+    print0(f"Parameters: {count_params(net.state_dict()) / 1e6:.2f} M on {device}; batch "
+           f"{batch_size} in {num_accum} microbatch(es); {nimg_per_step} nimg per step "
+           f"(nimg_mult {train_cfg.nimg_mult})")
 
-    log = open(os.path.join(run_dir, "log.txt"), "a")
+    ckpt = checkpoint.CheckpointIO(state=state)
+    resumed = checkpoint.latest_checkpoint(run_dir)
+    if resumed is not None:
+        print0(f"Resuming from {resumed} ...")
+        t0 = time.perf_counter()
+        ckpt.load(resumed)
+        print0(f"Resumed at {state.cur_nimg} nimg, step {state.adam_step}, in "
+               f"{time.perf_counter() - t0:.3f} s")
 
-    def say(line):
-        print(line, flush=True)
-        log.write(line + "\n")
-        log.flush()
+    stop_at_nimg = total_nimg
+    if slice_nimg is not None:
+        granularity = checkpoint_nimg or snapshot_nimg or batch_size
+        stop_at_nimg = min(stop_at_nimg,
+                           (state.cur_nimg + slice_nimg) // granularity * granularity)
+    if stop_at_nimg <= state.cur_nimg:
+        raise ValueError(f"nothing to train: at {state.cur_nimg} nimg, stop at {stop_at_nimg}")
+    print0(f"Training from {state.cur_nimg // 1000} kimg to {stop_at_nimg // 1000} kimg "
+           f"({(stop_at_nimg - state.cur_nimg) // nimg_per_step} steps):")
+
+    # The loaders come after the resume: in deterministic mode they replay
+    # the draws of the rows the earlier run consumed, one batch per step.
+    steps_prev = state.cur_nimg // nimg_per_step
+    loader = BatchLoader(iter(dataset), collate, batch_size=main_batch,
+                         skip_rows=steps_prev * main_batch if deterministic else 0)
+    single_loader = None
+    if single_ds is not None:
+        single_loader = BatchLoader(iter(single_ds), single_ds, batch_size=n_single,
+                                    prefetch=1,
+                                    skip_rows=steps_prev * n_single if deterministic else 0)
+
+    wandb_run = None
+    if not debug and os.environ.get("WANDB_PROJECT"):
+        try:
+            import wandb
+            wandb_run = wandb.init(project=os.environ["WANDB_PROJECT"], dir=run_dir,
+                                   config=dict(batch_size=batch_size, seed=seed,
+                                               network=net_kwargs))
+        except ImportError:
+            print0("wandb not installed; skipping wandb logging")
+    pbar = None
+    if progress_bar and not debug:
+        try:
+            from tqdm.auto import tqdm
+            pbar = tqdm(total=stop_at_nimg, initial=state.cur_nimg, unit="img",
+                        unit_scale=True, dynamic_ncols=True, desc="train")
+        except ImportError:
+            pass
+
+    loader_wait = [0.0, 0]   # seconds blocked on the scene loader, rows fetched
+
+    def fetch_batch():
+        t0 = time.time()
+        raw = next(loader)
+        loader_wait[0] += time.time() - t0
+        loader_wait[1] += len(raw["tgt_image"])
+        if single_loader is not None:
+            extra = next(single_loader)
+            raw = {k: np.concatenate([raw[k], extra[k]], axis=0) for k in raw}
+        return {"src": encoder.encode_latents(raw["src_image"], device=device),
+                "tgt": encoder.encode_latents(raw["tgt_image"], device=device),
+                "geometry": torch.as_tensor(raw["geometry"], device=device)}
+
+    def save_snapshots(cur_nimg):
+        for i, std in enumerate(train_cfg.ema_stds):
+            fname = os.path.join(run_dir,
+                                 f"network-snapshot-{cur_nimg // 1000:07d}-{std:.3f}.pkl")
+            save_snapshot(fname, net, state.ema_state_dict(i),
+                          dataset_kwargs=dataset_kwargs, loss_kwargs=loss_kwargs)
+            print0(f"Saved {fname}")
+
+    eval_net = None   # a model holding EMA 0's weights, made at the first grid
+
+    def generate_sample_grid(cur_nimg):
+        """Sources, samples and targets of `eval_samples` test rows in three
+        rows of one PNG; the samples from EMA 0, unguided, 32 Heun steps, and
+        through `sr_model` at its resolution when given."""
+        nonlocal eval_net
+        raw = next(test_loader)
+        if eval_net is None:
+            eval_net = NVPrecond(model_cfg, device="meta").to_empty(device=device)
+            eval_net.eval().requires_grad_(False)
+        eval_net.load_state_dict(state.ema_state_dict(0))
+        gen = torch.Generator(device=device).manual_seed(fold_in(seed, cur_nimg + 1))
+        src = encoder.encode_latents(raw["src_image"], device=device)
+        geometry = torch.as_tensor(raw["geometry"], device=device)
+        noise = torch.randn(raw["tgt_image"].shape, generator=gen, device=device)
+        cond = None
+        if model_cfg.super_res:
+            cond = down_up_resize(encoder.encode_latents(raw["tgt_image"], device=device), 4)
+        with torch.no_grad():
+            latents = edm_sampler(make_denoiser(eval_net, src, geometry,
+                                                conditioning_image=cond, generator=gen),
+                                  noise, num_steps=32)
+            if sr_model is not None:
+                res = sr_model.cfg.img_resolution
+                sr_noise = torch.randn((len(latents), res, res, sr_model.cfg.img_channels),
+                                       generator=gen, device=device)
+                latents = sr_cascade(sr_model, encoder, latents, raw["sr_src_image"],
+                                     raw["sr_geometry"], sr_noise, gen, num_steps=32)
+                raw = dict(raw, src_image=raw["sr_src_image"], tgt_image=raw["sr_tgt_image"])
+        rows = (np.clip(raw["src_image"][:, 0], 0, 255).astype(np.uint8),
+                encoder.decode(latents), np.clip(raw["tgt_image"], 0, 255).astype(np.uint8))
+        grid = np.concatenate([np.concatenate(list(row), axis=1) for row in rows], axis=0)
+        out = os.path.join(run_dir, "results", f"generated-samples-{cur_nimg // 1000:07d}.png")
+        PIL.Image.fromarray(grid, "RGB").save(out)
+        print0(f"Saved {out}")
+        if wandb_run is not None:
+            import wandb
+            wandb_run.log({"samples": wandb.Image(grid)}, step=cur_nimg)
+
+    start_nimg = state.cur_nimg
 
     def interval_hit(interval, cur, prev):
+        """True when an interval boundary was crossed since the previous step."""
         if interval is None:
             return False
-        return cur // interval != prev // interval or cur == 0
+        return cur // interval != prev // interval or cur == start_nimg == 0
 
-    say(f"Parameters: {n_params / 1e6:.2f} M on {device}; batch {batch_size} in "
-        f"{num_accum} microbatch(es); {nimg_per_step} nimg per step "
-        f"(nimg_mult {train_cfg.nimg_mult})")
-    loader = BatchLoader(iter(dataset), collate, batch_size=batch_size)
+    # Reports left over by an earlier run in this process are not this run's.
+    stats_mod.default_collector.update()
+    stats_mod.default_collector.as_dict()
+    stats_jsonl = None
     ticks, pending = [], []
     steps_done = 0
+    cumulative_training_time = 0.0
     tick_start = time.time()
+    prev_status_nimg = state.cur_nimg
+    suspend_save = False   # set at a suspend tick: forces a checkpoint there
     try:
         while True:
             cur_nimg = state.cur_nimg
             prev_nimg = cur_nimg - nimg_per_step
-            done = cur_nimg >= total_nimg or (max_steps is not None
-                                              and steps_done >= max_steps)
+            done = cur_nimg >= stop_at_nimg or (max_steps is not None
+                                                and steps_done >= max_steps)
             if interval_hit(status_nimg, cur_nimg, prev_nimg) or done:
                 # Reading the stats waits for the device: a tick's time is real.
-                vals = [{k: float(v) for k, v in s.items()} for s in pending]
-                mean = lambda k: (sum(v[k] for v in vals) / len(vals)) if vals else float("nan")
+                for s in pending:
+                    stats_mod.report_dict({k: float(v) for k, v in s.items()})
                 now = time.time()
-                tick = dict(nimg=cur_nimg, steps=len(vals), loss=mean("Loss/loss"),
+                tick_time = now - tick_start
+                report0 = stats_mod.report0
+                report0("Progress/kimg", cur_nimg / 1e3)
+                report0("Progress/iter", cur_nimg / nimg_per_step)
+                report0("Timing/total_sec", now - start_time)
+                report0("Timing/sec_per_tick", tick_time)
+                report0("Timing/sec_per_kimg", cumulative_training_time
+                        / max(cur_nimg - prev_status_nimg, 1) * 1e3)
+                report0("Timing/maintenance_sec", tick_time - cumulative_training_time)
+                report0("Timing/loader_wait_sec", loader_wait[0])
+                report0("Timing/loader_rows_per_s", loader_wait[1] / max(tick_time, 1e-9))
+                loader_wait[:] = [0.0, 0]
+                report0("Resources/cpu_mem_gb",
+                        resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+                if device.type == "cuda":
+                    report0("Resources/peak_gpu_mem_gb",
+                            torch.cuda.max_memory_allocated(device) / 2**30)
+                    report0("Resources/peak_gpu_mem_reserved_gb",
+                            torch.cuda.max_memory_reserved(device) / 2**30)
+                stats_mod.default_collector.update()
+                snap = stats_mod.default_collector.as_dict()
+                mean = lambda k: snap[k].mean if k in snap else float("nan")
+                tick = dict(nimg=cur_nimg, steps=len(pending), loss=mean("Loss/loss"),
                             loss_std=mean("Loss/loss_std"),
                             learning_rate=mean("Loss/learning_rate"),
-                            grad_norm=mean("Grad/global_norm"), seconds=now - tick_start)
+                            grad_norm=mean("Grad/global_norm"), seconds=tick_time)
                 ticks.append(tick)
+                if pbar is not None:
+                    pbar.set_postfix(loss=f"{tick['loss']:.4f}", refresh=False)
                 # The JAX package's fields first, at its widths; the port's after.
-                say(f"Status: kimg {cur_nimg / 1e3:<9.1f} loss {tick['loss']:<8.4f} "
-                    f"time {format_time(now - start_time):<12s} "
-                    f"sec/tick {tick['seconds']:<8.2f} "
-                    f"gnorm {tick['grad_norm']:<10.4f} lr {tick['learning_rate']:<10.3e}")
+                print0(f"Status: kimg {cur_nimg / 1e3:<9.1f} loss {tick['loss']:<8.4f} "
+                       f"time {format_time(now - start_time):<12s} "
+                       f"sec/tick {tick_time:<8.2f} "
+                       f"gnorm {tick['grad_norm']:<10.4f} lr {tick['learning_rate']:<10.3e}",
+                       flush=True)
+                if not debug and dist.get_rank() == 0:
+                    if stats_jsonl is None:
+                        stats_jsonl = open(os.path.join(run_dir, "stats.jsonl"), "at")
+                    items = {name: v.mean for name, v in snap.items()}
+                    items["timestamp"] = time.time()
+                    stats_jsonl.write(json.dumps(items) + "\n")
+                    stats_jsonl.flush()
+                    if wandb_run is not None:
+                        wandb_run.log({k.replace("/", "_"): v for k, v in items.items()},
+                                      step=cur_nimg)
                 pending = []
+                cumulative_training_time = 0.0
+                prev_status_nimg = cur_nimg
                 tick_start = now
-            if interval_hit(snapshot_nimg, cur_nimg, prev_nimg) and cur_nimg != 0:
-                for i, std in enumerate(train_cfg.ema_stds):
-                    fname = os.path.join(
-                        run_dir, f"network-snapshot-{cur_nimg // 1000:07d}-{std:.3f}.pkl")
-                    save_snapshot(fname, net, state.ema_state_dict(i),
-                                  dataset_kwargs=dataset_kwargs, loss_kwargs=loss_kwargs)
-                    say(f"Saved {fname}")
+                dist.update_progress(cur_nimg // 1000, stop_at_nimg // 1000)
+                if stop_at_nimg <= cur_nimg < total_nimg:
+                    dist.request_suspend()   # the end of a slice
+                if dist.should_stop() or dist.should_suspend():
+                    done = True
+                    # The exact point of a suspend is checkpointed, unless
+                    # checkpoints are off.
+                    suspend_save = checkpoint_nimg is not None
+                    print0(f"Suspending at {cur_nimg} nimg"
+                           + (" with a checkpoint" if suspend_save else ""), flush=True)
+
+            if cur_nimg != start_nimg:
+                if test_loader is not None and interval_hit(samples_nimg, cur_nimg, prev_nimg):
+                    generate_sample_grid(cur_nimg)
+                if interval_hit(snapshot_nimg, cur_nimg, prev_nimg):
+                    save_snapshots(cur_nimg)
+                if interval_hit(checkpoint_nimg, cur_nimg, prev_nimg) or suspend_save:
+                    fname = os.path.join(run_dir, f"training-state-{cur_nimg // 1000:07d}.pt")
+                    ckpt.save(fname, async_=True)
+                    print0(f"Saving {fname} (written while training goes on)")
             if done:
                 break
 
-            raw = next(loader)
-            batch = {"src": encoder.encode_latents(raw["src_image"], device=device),
-                     "tgt": encoder.encode_latents(raw["tgt_image"], device=device),
-                     "geometry": torch.as_tensor(raw["geometry"], device=device)}
+            batch_start = time.time()
+            batch = fetch_batch()
             # One stream per step, a function of (seed, nimg) alone.
             generator.manual_seed(fold_in(seed, cur_nimg))
             pending.append(step_fn(state, batch, generator))
             steps_done += 1
+            cumulative_training_time += time.time() - batch_start
+            if pbar is not None:
+                pbar.update(nimg_per_step)
     finally:
-        loader.close()
-        log.close()
+        ckpt.wait()
+        for closing in (pbar, loader, single_loader, test_loader, stats_jsonl):
+            if closing is not None:
+                closing.close()
+        if wandb_run is not None:
+            wandb_run.finish()
+    print0("Training done.")
     return EasyDict(state=state, ticks=ticks)

@@ -65,6 +65,30 @@ class TrainState:
         state.update(zip(self.names, self.emas[index]))
         return state
 
+    def state_dict(self) -> dict:
+        """What a training-state checkpoint holds, by reference name: the
+        live tensors (not copies) and the two counters."""
+        named = lambda ts: dict(zip(self.names, ts))
+        return dict(params=named(self.params), adam_m=named(self.adam_m),
+                    adam_v=named(self.adam_v), emas=[named(e) for e in self.emas],
+                    adam_step=int(self.adam_step), cur_nimg=int(self.cur_nimg))
+
+    def load_state_dict(self, data: dict):
+        """Copy a `state_dict()` into this state's tensors, in place."""
+        if len(data["emas"]) != len(self.emas):
+            raise ValueError(f"checkpoint has {len(data['emas'])} EMA copies, "
+                             f"the trainer tracks {len(self.emas)}")
+        groups = [(k, getattr(self, k), data[k]) for k in ("params", "adam_m", "adam_v")]
+        groups += [(f"emas[{i}]", e, s) for i, (e, s) in enumerate(zip(self.emas, data["emas"]))]
+        with torch.no_grad():
+            for key, tensors, saved in groups:
+                if sorted(saved) != sorted(self.names):
+                    raise ValueError(f"checkpoint {key}: names differ from the model's")
+                for name, t in zip(self.names, tensors):
+                    t.copy_(saved[name])
+        self.adam_step = int(data["adam_step"])
+        self.cur_nimg = int(data["cur_nimg"])
+
 
 def init_train_state(net, cfg: TrainConfig) -> TrainState:
     names, params = map(list, zip(*net.named_parameters()))
