@@ -36,6 +36,15 @@ its own:
            counts; then the same through the base -> SR cascade (256px PNGs,
            launch counts per SR evaluation), and the SR model alone; the
            64px run and a short cascade again with VIVID_NOMAX_PACKED=1
+  metrics  a synthetic RealEstate10K tree (640x360 PNG frames): the reader's
+           rows/s; the full-width InceptionV3 (bf16) and ViT-L/14 (bf16
+           autocast) against themselves in fp32, with three planted faults
+           (half-pixel resize, average pools counting padding, the position
+           grid not interpolated) that must fail the gate; `calculate_metrics
+           gen` (five metrics, 16 guided images of vivid-base + vivid-uncond,
+           K1/K2 launches against the plan) and `calc` of its PNGs against
+           its own statistics; a `--metrics` tick of a 3-step vivid-base run
+           (metrics.jsonl, stats.jsonl, log.txt); random detector weights
   train    full-width vivid-base, batch 8 (the preset's global batch is
            1024; only the batch is cut): the whole gradient of one loss
            through the kernels vs the plain versions, held against a one-ulp
@@ -124,6 +133,8 @@ CORE_ONLY = "the_attention_core_only"
 # The [B, H, S, D] forward on raw rows, (H, Sq, Sk) at d = 64: the 64px
 # model's cross-attention (self + 2 sources) at its three resolutions.
 FUSED_SHAPES = [(4, 1024, 3072), (6, 256, 768), (8, 64, 192)]
+TOL_INCEPTION = 8e-3   # relative L2 of the 2048-d features, bf16 channels-last vs fp32
+TOL_VIT = 3e-2         # ... of the ViT-L/14's class tokens, bf16 autocast vs fp32
 
 
 def check(cond, msg):
@@ -1257,6 +1268,7 @@ def main():
     phase_model(nomax=True)
     phase_model_sr(nomax=True)
     nets, launches, sr_launches, nomax_launches = phase_slice(card)
+    phase_metrics(card, nets[:2])
     for name, n in launches.items():
         if n:   # K1, K2: the guided 64px sampling path's count
             table[name]["launches"] = n
@@ -1623,6 +1635,358 @@ def phase_slice(card):
                 peak_memory_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                 latents_absmax=f"{b.latents.abs().max().item():.3f}", card=f"'{card}'")
     return (base.net, gnet.net, sr.net), counted, sr_counted, nomax_counted
+
+
+def _write_re10k_tree(root, splits, num_frames=64, w=640, h=360, seed=0):
+    """A seeded RealEstate10K-layout tree of `w` x `h` PNG frames: per
+    split, sequences whose camera pans across a smooth texture, and their
+    camera files (a URL line, then timestamp, normalised intrinsics, two
+    zeros, a 3 x 4 world-to-camera pose a frame). Returns the frame count."""
+    import concurrent.futures
+    import numpy as np
+    import PIL.Image
+    rng = np.random.RandomState(seed)
+
+    def smooth(cells_h, cells_w, hh, ww):
+        grid = (rng.rand(cells_h, cells_w, 3) * 255).astype(np.uint8)
+        return np.asarray(PIL.Image.fromarray(grid).resize((ww, hh), PIL.Image.BICUBIC),
+                          np.float32)
+
+    jobs = []
+    for split, num_seqs in splits.items():
+        os.makedirs(os.path.join(root, "RealEstate10K", split), exist_ok=True)
+        for s in range(num_seqs):
+            seq = f"{split}{s:03d}"
+            os.makedirs(os.path.join(root, split, seq), exist_ok=True)
+            big = np.clip(0.8 * smooth(6, 10, h + 2 * num_frames, w + 3 * num_frames)
+                          + 0.2 * smooth(48, 80, h + 2 * num_frames, w + 3 * num_frames),
+                          0, 255).astype(np.uint8)
+            lines = ["https://example.com/video"]
+            for f in range(num_frames):
+                ts = str(100000 + 33367 * f)
+                a = 0.004 * f + 0.3 * s
+                c, si = math.cos(a), math.sin(a)
+                pose = [c, 0, si, 0.02 * f, 0, 1, 0, 0.005 * f, -si, 0, c, 0.01 * f]
+                lines.append(" ".join([ts, "0.92", "1.64", "0.5", "0.5", "0", "0"]
+                                      + [f"{v:.6f}" for v in pose]))
+                jobs.append((big[2 * f:2 * f + h, 3 * f:3 * f + w],
+                             os.path.join(root, split, seq, ts + ".png")))
+            with open(os.path.join(root, "RealEstate10K", split, seq + ".txt"), "w") as fh:
+                fh.write("\n".join(lines))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: PIL.Image.fromarray(job[0]).save(job[1], compress_level=1),
+                      jobs))
+    return len(jobs)
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """Environment variables set for the block, then put back."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _random_dinov2_checkpoint(path, seed=0):
+    """An original-naming ViT-L/14 state dict with a 37 x 37 + 1 position
+    grid (518 px, as the released checkpoint), seeded; saved at `path`."""
+    import torch
+    from vivid_tpu_torch.nn.dinov2 import VIT_SIZES, expected_vit_shapes
+    cfg = VIT_SIZES["vitl"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for name, shape in expected_vit_shapes(cfg, num_tokens=37 * 37 + 1).items():
+        fan_in = shape[1] * (shape[2] * shape[3] if len(shape) == 4 else 1) \
+            if len(shape) >= 2 and not name.endswith(("_token", "pos_embed")) else 1
+        v = torch.randn(shape, generator=gen, device="cuda") / math.sqrt(fan_in)
+        if name.endswith(("norm1.weight", "norm2.weight", "norm.weight")):
+            v = 1.0 + 0.1 * v
+        elif name.endswith("gamma"):
+            v = 0.5 + 0.1 * v
+        elif name.endswith("bias"):
+            v = 0.02 * v
+        sd[name] = v.cpu()
+    sd["mask_token"] = torch.zeros(1, cfg.embed_dim)   # in the released file; unused
+    torch.save(sd, path)
+    return sd
+
+
+def phase_metrics(card, nets=None):
+    """The RealEstate10K reader and the metrics at full width: a seeded
+    synthetic RealEstate10K tree of 640 x 360 PNG frames; the reader's rows/s
+    through DualSourceCollate on the host; the full-width InceptionV3
+    (bf16, channels-last) and ViT-L/14 (bf16 autocast) held to the same
+    modules in fp32 on the card, with three planted faults (a half-pixel
+    resize for TF1's, average pools counting their padding, the position
+    grid cropped instead of interpolated) that must fail the gate; then
+    `calculate_metrics gen` with the five metrics on `vivid-base` guided by
+    `vivid-uncond` (the `slice` phase's full-width nets, or the same from
+    their seeds), 16 images at batch 8, K1/K2 at the planned launches, and
+    `calc` of its PNGs against its `--dest` statistics; then a `--metrics`
+    tick of a 3-step full-width `vivid-base` run (the tick at 96 nimg, its
+    `Metrics/` rows in the next status row of stats.jsonl). Detectors on
+    seeded random weights: Inception under VIVID_ALLOW_RANDOM_DETECTOR=1,
+    its convs He-scaled as the gate's so that its features see the input,
+    the ViT from a random original-naming checkpoint in a temporary
+    VIVID_DETECTOR_DIR."""
+    import json as _json
+    import numpy as np
+    import torch
+    from vivid_tpu_torch.cli import calculate_metrics, train_nvs
+    from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate
+    from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.metrics import api, detectors, frechet, inception
+    from vivid_tpu_torch.metrics.dinov2 import dinov2_features
+    from vivid_tpu_torch.nn.dinov2 import DinoViT
+    from vivid_tpu_torch.nn.unet import attention_feature_spec
+    from vivid_tpu_torch.train.snapshots import save_snapshot
+
+    if nets is None:
+        nets = (_full_width(uncond=False), _full_width(uncond=True))
+    base, gnet = nets
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_metrics_") as tmp:
+        tree = os.path.join(tmp, "re10k")
+        t0 = time.perf_counter()
+        n_frames = _write_re10k_tree(tree, {"train": 8, "test": 2})
+        say("metrics", tree_frames=n_frames, frame="640x360", sequences="8_train_2_test",
+            frames_per_sequence=64, write_s=f"{time.perf_counter() - t0:.2f}")
+
+        # The reader: RealEstate10K scenes (whole or 'mid' frame range) ->
+        # dual-source 64px rows (3 PNG decodes, crops and resizes a row), one
+        # host thread, batch 8: three windows of 96 rows each, over the 8
+        # train sequences; the median window's rate and the spread.
+        for rs in (None, "mid"):
+            loader = BatchLoader(iter(open_scene_dataset(tree, seed=0, range_selection=rs)),
+                                 DualSourceCollate(64, seed=0), batch_size=BATCH)
+            next(loader)
+            rates = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(96 // BATCH):
+                    batch = next(loader)
+                rates.append(96 / (time.perf_counter() - t0))
+                check(batch["src_image"].shape == (BATCH, 2, 64, 64, 3)
+                      and np.isfinite(batch["geometry"]).all(), "reader: batch")
+            loader.close()
+            say("metrics", reader=f"range_{rs}", rows=3 * 96, windows=3, batch=BATCH,
+                rows_per_s=f"{statistics.median(rates):.1f}",
+                rows_per_s_min_max=f"{min(rates):.1f}-{max(rates):.1f}", threads=1,
+                card=f"'{card}'")
+
+        detector_dir = os.path.join(tmp, "detectors")
+        ckpt = os.path.join(detector_dir, "torch_hub", "checkpoints", "dinov2_vitl14_pretrain.pth")
+        os.makedirs(os.path.dirname(ckpt))
+        sd = _random_dinov2_checkpoint(ckpt)
+        with _environ(VIVID_DETECTOR_DIR=detector_dir, VIVID_ALLOW_RANDOM_DETECTOR="1"):
+            detectors._detector_cache.clear()
+            inc = detectors.get_detector("fid")
+            vitd = detectors.get_detector("fd_dinov2")
+            check(inc.model.use_bf16 and inc.device.type == "cuda", "InceptionV3 not bf16 on the card")
+            gen = torch.Generator().manual_seed(11)
+            imgs = torch.randint(0, 256, (BATCH, 64, 64, 3), generator=gen, dtype=torch.uint8)
+            imgs_dev = imgs.cuda()
+
+            # InceptionV3: bf16 channels-last vs the same weights in fp32. The
+            # random mode's draw (init_params' scales) leaves pool3 almost
+            # blind to its input (each ReLU layer halves the signal, the batch
+            # norms' beta stays): the cached detector's draw gets every conv
+            # scaled by sqrt(2) (He's gain) and the norms' mean and beta at 0,
+            # so that the input reaches pool3, in the gate and in `gen` and
+            # `calc` below, which use that detector.
+            inc16 = inc.model
+            with torch.no_grad():
+                for conv in inc16.convs.values():
+                    conv.weight.mul_(math.sqrt(2.0))
+                    conv.mean.zero_()
+                    conv.beta.zero_()
+            inc32 = inception.InceptionV3(use_bf16=False, device="cuda").eval()
+            inc32.load_state_dict(inc16.state_dict())
+            want = inc32(imgs_dev)
+            real_resize, real_pool = inception.tf1_resize_bilinear, inception.pool
+
+            def half_pixel(x, h, w):
+                return torch.nn.functional.interpolate(
+                    x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                    align_corners=False).permute(0, 2, 3, 1)
+
+            def pool_counting_padding(kind, x, k, stride, pad):
+                if kind == "avg" and pad == "SAME":
+                    return torch.nn.functional.avg_pool2d(
+                        x.float(), k, stride, padding=(k[0] // 2, k[1] // 2),
+                        count_include_pad=True).to(x.dtype)
+                return real_pool(kind, x, k, stride, pad)
+
+            errs = {"inception": _rel_l2(inc16(imgs_dev), want),
+                    "inception_between_images": _rel_l2(want[1:], want[:-1])}
+            try:
+                inception.tf1_resize_bilinear = half_pixel
+                errs["inception_fault_half_pixel_resize"] = _rel_l2(inc16(imgs_dev), want)
+            finally:
+                inception.tf1_resize_bilinear = real_resize
+            try:
+                inception.pool = pool_counting_padding
+                errs["inception_fault_pools_count_padding"] = _rel_l2(inc16(imgs_dev), want)
+            finally:
+                inception.pool = real_pool
+            check(inception.tf1_resize_bilinear is real_resize and inception.pool is real_pool,
+                  "inception: a planted fault left in place")
+
+            # ViT-L/14: bf16 autocast vs fp32, the checkpoint's 37 x 37 grid
+            # interpolated to 16 x 16; the fault crops it instead.
+            vit = vitd.model
+            check(vit.pos_embed.shape == (1, 257, 1024) and len(vit.blocks) == 24,
+                  f"ViT: pos_embed {tuple(vit.pos_embed.shape)}, {len(vit.blocks)} blocks")
+            want_v = dinov2_features(vit, imgs_dev, use_bf16=False)
+            errs["vit"] = _rel_l2(dinov2_features(vit, imgs_dev, use_bf16=True), want_v)
+            cropped = DinoViT(vit.cfg, grid=16, device="cuda").eval().requires_grad_(False)
+            cropped.load_state_dict(vit.state_dict())
+            grid = sd["pos_embed"][0, 1:].reshape(37, 37, -1)[:16, :16].reshape(256, -1)
+            with torch.no_grad():
+                cropped.pos_embed[0, 1:].copy_(grid.cuda())
+            errs["vit_fault_position_grid_not_interpolated"] = _rel_l2(
+                dinov2_features(cropped, imgs_dev, use_bf16=True), want_v)
+            del cropped, inc32
+            say("metrics", gate_rel_l2=f"{{inception {TOL_INCEPTION}, vit {TOL_VIT}}}",
+                **{k: f"{v:.3e}" for k, v in errs.items()})
+            check(errs["inception"] <= TOL_INCEPTION, f"InceptionV3 bf16 vs fp32: {errs}")
+            check(errs["vit"] <= TOL_VIT, f"ViT bf16 vs fp32: {errs}")
+            for name, err in errs.items():
+                if "fault" in name:
+                    check(err > (TOL_INCEPTION if name.startswith("inception") else TOL_VIT),
+                          f"planted fault {name} passed the gate: {err:.3e}")
+
+            # Each detector on a batch of 8: the card's busy time (the sum of
+            # its kernels, torch.profiler) and CUDA events around the module
+            # on card tensors (launch gaps included), and wall time (numpy in,
+            # numpy out).
+            imgs_np = imgs.numpy()
+            for name, det, device_fn in (
+                    ("inception_bf16", inc, lambda: inc.model(imgs_dev)),
+                    ("vit_l14_bf16", vitd, lambda: dinov2_features(vit, imgs_dev, True))):
+                events_ms = cuda_ms(device_fn)
+                busy = _device_ms_by_kernel(torch, device_fn, "")
+                wall = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    f = det(imgs_np)
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                check(f.shape == (BATCH, det.feature_dim) and np.isfinite(f).all(),
+                      f"{name}: features {f.shape}")
+                say("metrics", detector=name, batch=BATCH,
+                    device_busy_ms=f"{sum(float(v) for v in busy.values()):.3f}",
+                    kernels=len(busy), events_ms=f"{events_ms:.3f}",
+                    wall_ms=f"{statistics.median(wall):.3f}", card=f"'{card}'")
+
+            # calculate_metrics gen: guided full-width sampling on the tree,
+            # the five metrics, PNGs and the generated images' statistics.
+            snaps = []
+            for name, net in (("base", base), ("uncond", gnet)):
+                snaps.append(os.path.join(tmp, f"{name}.pkl"))
+                save_snapshot(snaps[-1], net)
+            outdir, dest = os.path.join(tmp, "gen"), os.path.join(tmp, "gen_stats.pkl")
+            five = "fid,joint_fid,fd_dinov2,joint_fd_dinov2,psnr"
+            n_images, n_batches, evals = 16, 2, 63
+            n_self = (len(attention_feature_spec(base.cfg.encoder_cfg))
+                      + len(attention_feature_spec(gnet.cfg.unet_cfg)))
+            n_cross = len(attention_feature_spec(base.cfg.unet_cfg))
+            want_l = {"flash_fused_packed": n_self * evals * n_batches,
+                      "flash_fused_packed_xattn": n_cross * evals * n_batches}
+            frechet_s = []   # (dimension, seconds) of each Fréchet distance, host
+
+            def timed_frechet(mu1, *args):
+                t_f = time.perf_counter()
+                value = real_frechet(mu1, *args)
+                frechet_s.append((len(mu1), time.perf_counter() - t_f))
+                return value
+
+            real_frechet, frechet.frechet_distance = frechet.frechet_distance, timed_frechet
+            for name in flash.launches:
+                flash.launches[name] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = calculate_metrics.cmdline(
+                ["gen", "--net", snaps[0], "--gnet", snaps[1], "--guidance", "1.5",
+                 "--data", tree, "--metrics", five, "--num", str(n_images), "--batch",
+                 str(BATCH), "--range-selection", "mid", "--outdir", outdir, "--dest", dest],
+                standalone_mode=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            frechet.frechet_distance = real_frechet
+            launches = {k: n for k, n in flash.launches.items() if n}
+            check(launches == want_l, f"gen: launches {launches}, want {want_l}")
+            check(sorted(results) == sorted(five.split(","))
+                  and all(math.isfinite(v) for v in results.values()), f"gen: {results}")
+            pngs = sorted(os.listdir(outdir))
+            check(len(pngs) == 3 * n_images, f"gen: {len(pngs)} PNGs")
+            fd_seconds = sum(t for _, t in frechet_s)
+            say("metrics", run="gen", images=n_images, batch=BATCH, seconds=f"{seconds:.3f}",
+                images_per_s=f"{n_images / seconds:.3f}",
+                frechet_host_s=[f"{d}d:{t:.2f}" for d, t in frechet_s],
+                images_per_s_without_frechet=f"{n_images / (seconds - fd_seconds):.3f}",
+                launches=launches,
+                results={k: f"{v:.6g}" for k, v in results.items()}, card=f"'{card}'")
+            again = calculate_metrics.cmdline(
+                ["calc", "--images", outdir, "--metrics", "fid,fd_dinov2", "--ref", dest,
+                 "--batch", str(BATCH)], standalone_mode=False)
+            for m in ("fid", "fd_dinov2"):
+                check(abs(again[m]) * 100 <= results[m],
+                      f"calc against gen's own statistics: {m} {again[m]} vs gen's {results[m]}")
+            say("metrics", run="calc_vs_dest", **{m: f"{v:.6g}" for m, v in again.items()})
+
+            # A metrics tick of the trainer: 3 steps of full-width vivid-base
+            # (batch 8 of the preset's 1024) on the tree's train split, the
+            # tick at 96 nimg over its test split (100 unguided samples at
+            # batch 25, EMA 0), FID and PSNR.
+            run_dir = os.path.join(tmp, "train")
+            tick_launches = []
+
+            def counted(*args, **kw):
+                for name in flash.launches:
+                    flash.launches[name] = 0
+                out = real_get_metrics(*args, **kw)
+                tick_launches.append({k: n for k, n in flash.launches.items() if n})
+                return out
+
+            real_get_metrics, api.get_metrics = api.get_metrics, counted
+            try:
+                t0 = time.perf_counter()
+                train_nvs.cmdline(
+                    ["--preset", "vivid-base", "--data", tree, "--test-data-path", tree,
+                     "--outdir", run_dir, "--batch", str(BATCH), "--max-steps", "3",
+                     "--status", "48", "--metrics", "96", "--metrics-list", "fid,psnr",
+                     "--snapshot", "0", "--checkpoint", "0", "--samples", "0"],
+                    standalone_mode=False)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            finally:
+                api.get_metrics = real_get_metrics
+        exp = os.path.join(run_dir, "experiments")
+        log = open(os.path.join(exp, "log.txt")).read()
+        rows = [_json.loads(l) for l in open(os.path.join(exp, "metrics.jsonl"))]
+        status = [_json.loads(l) for l in open(os.path.join(exp, "stats.jsonl"))]
+        per_eval = {"flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg)),
+                    "flash_fused_packed_xattn": n_cross}
+        want_t = {k: n * evals * 4 for k, n in per_eval.items()}   # 100 images at batch 25
+        check(tick_launches == [want_t], f"tick: launches {tick_launches}, want [{want_t}]")
+        check(log.count("Metrics: {") == 1 and len(rows) == 1 and rows[0]["nimg"] == 96
+              and all(math.isfinite(rows[0][k]) for k in ("fid", "psnr")),
+              f"tick: metrics.jsonl {rows}, log:\n{log[-3000:]}")
+        check(len(status) == 4 and status[3].get("Metrics/fid") == rows[0]["fid"]
+              and status[3].get("Metrics/psnr") == rows[0]["psnr"]
+              and "Metrics/fid" not in status[2], f"tick: stats.jsonl {status}")
+        say("metrics", run="train_tick", steps=3, tick_nimg=96, seconds=f"{seconds:.2f}",
+            fid=f"{rows[0]['fid']:.6g}", psnr=f"{rows[0]['psnr']:.4f}",
+            launches=tick_launches[0], card=f"'{card}'")
+    detectors._detector_cache.clear()
+    torch.cuda.empty_cache()
 
 
 def phase_train(card):

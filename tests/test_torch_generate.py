@@ -160,9 +160,10 @@ def test_generate_writes_triplets(env):
 def test_port_runs_without_jax(tmp_path):
     """Every port module imports (the kernel labs of `tools` among them), the
     [B, H, S, D] attention entries, the no-max packed forward and the labs'
-    kernels' wrappers run, the trainer CLI takes one step and the generation
-    CLI samples a guided base -> SR cascade on the CPU, with jax and
-    vivid_tpu made unimportable."""
+    kernels' wrappers run, the trainer CLI takes one step, the generation
+    CLI samples a guided base -> SR cascade, a RealEstate10K tree is read
+    and `calculate_metrics gen` measures guided samples of it on the CPU,
+    with jax and vivid_tpu made unimportable."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
@@ -213,6 +214,31 @@ def test_port_runs_without_jax(tmp_path):
                  "--seeds", "0-1", "--steps", "2"], standalone_mode=False)
         import PIL.Image
         assert PIL.Image.open(os.path.join(root, "out", "sample_000000.png")).size == (32, 32)
+        import numpy as np
+        from vivid_tpu_torch.cli import calculate_metrics
+        from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
+        from vivid_tpu_torch.metrics.inception import InceptionV3
+        re10k = os.path.join(root, "re10k")
+        os.makedirs(os.path.join(re10k, "RealEstate10K", "train"))
+        os.makedirs(os.path.join(re10k, "train", "seq"))
+        lines = ["url"]
+        for f in range(4):
+            lines.append(f"{{f}} 0.9 1.6 0.5 0.5 0 0 1 0 0 {{f}} 0 1 0 0 0 0 1 0")
+            PIL.Image.fromarray(np.full((16, 24, 3), 40 * f, np.uint8)).save(
+                os.path.join(re10k, "train", "seq", f"{{f}}.png"))
+        open(os.path.join(re10k, "RealEstate10K", "train", "seq.txt"), "w").write("\\n".join(lines))
+        assert next(iter(open_scene_dataset(re10k, views_per_scene=3)))["image"][2].shape == (16, 16, 3)
+        from vivid_tpu_torch import generate
+        full_steps = generate.generate_images_nvs
+        generate.generate_images_nvs = lambda *a, **kw: full_steps(*a, **dict(kw, num_steps=2))
+        res = calculate_metrics.cmdline(
+            ["gen", "--net", os.path.join(root, "b.pkl"), "--gnet", os.path.join(root, "u.pkl"),
+             "--guidance", "1.5", "--data", re10k, "--metrics", "stub_fid,joint_stub_fid,psnr",
+             "--num", "2", "--batch", "2", "--device", "cpu"],
+            standalone_mode=False)
+        assert sorted(res) == ["joint_stub_fid", "psnr", "stub_fid"], res
+        feats = InceptionV3().init_random()(torch.zeros(1, 16, 16, 3, dtype=torch.uint8))
+        assert feats.shape == (1, 2048)
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
         print("ok")
     """)

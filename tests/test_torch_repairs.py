@@ -139,19 +139,20 @@ def _loop_args(run_dir, data):
 
 @pytest.mark.parametrize("entry", ["dataset", "open", "training_loop", "generate"])
 def test_unknown_dataset_key_raises(entry, data, snapshot, tmp_path):
-    """`shuffle` is a key of vivid_tpu's dataset that the port's does not take
-    yet: every entry that is handed it must say so, not drop it."""
-    with pytest.raises(ValueError, match="shuffle"):
+    """`cache_dir` is a key no scene dataset of the port takes: every entry
+    that is handed it must say so, not drop it. (`shuffle` played this part
+    until the port's `SceneDataset` took the JAX package's keys.)"""
+    with pytest.raises(ValueError, match="cache_dir"):
         if entry == "dataset":
-            scenes.SceneDataset(data, seed=1, shuffle=False)
+            scenes.SceneDataset(data, seed=1, cache_dir="x")
         elif entry == "open":
-            open_scene_dataset(data, seed=1, shuffle=False)
+            open_scene_dataset(data, seed=1, cache_dir="x")
         elif entry == "training_loop":
-            training_loop(dataset_kwargs={"path": data, "shuffle": False},
+            training_loop(dataset_kwargs={"path": data, "cache_dir": "x"},
                           **_loop_args(tmp_path, data))
         else:
             generate_images_nvs(snapshot, seeds=[0], device="cpu", verbose=False,
-                                datakwargs={"path": data, "shuffle": False})
+                                datakwargs={"path": data, "cache_dir": "x"})
 
 
 def test_known_dataset_keys_pass(data, snapshot):

@@ -39,7 +39,7 @@ config_presets = {
 }
 
 # Flags of the JAX package's CLI whose features the port does not have yet.
-NOT_PORTED = ("fsdp", "depth_input", "depth_model", "warp_depth_coor", "metrics")
+NOT_PORTED = ("fsdp", "depth_input", "depth_model", "warp_depth_coor")
 
 
 def parse_nimg(s):
@@ -109,6 +109,8 @@ def setup_training_config(preset="vivid-base", **opts):
     c.sr_training = bool(opts.get("sr_training"))
     c.status_nimg = opts.get("status") or None
     c.samples_nimg = opts.get("samples") or None
+    c.metrics_nimg = opts.get("metrics") or None
+    c.metrics_list = [m for m in (opts.get("metrics_list") or "").split(",") if m] or None
     c.snapshot_nimg = opts.get("snapshot") or None
     c.checkpoint_nimg = opts.get("checkpoint") or None
     c.seed = opts.get("seed", 0)
@@ -211,7 +213,8 @@ def launch_training(run_dir, c):
 # I/O-related options.
 @click.option("--status", help="Interval of status prints", metavar="NIMG", type=parse_nimg, default="960", show_default=True)
 @click.option("--samples", help="Interval of sample generation", metavar="NIMG", type=parse_nimg, default="9600", show_default=True)
-@click.option("--metrics", help="Interval of metrics prints (not ported)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--metrics", help="Interval of metrics ticks (needs --test-data-path)", metavar="NIMG", type=parse_nimg, default=None)
+@click.option("--metrics-list", help="Comma-separated metrics for in-training evals (default: fid,fd_dinov2,joint_fid,joint_fd_dinov2,psnr)", metavar="LIST", type=str, default="")
 @click.option("--snapshot", help="Interval of network snapshots", metavar="NIMG", type=parse_nimg, default="10000", show_default=True)
 @click.option("--checkpoint", help="Interval of training checkpoints", metavar="NIMG", type=parse_nimg, default="10000", show_default=True)
 @click.option("--slice", help="Train in slices of this many nimg", metavar="NIMG", type=parse_nimg, default=None)

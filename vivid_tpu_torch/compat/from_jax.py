@@ -14,6 +14,12 @@ Adam moments and EMA copies of their own; in the port they are buffers with
 neither. So one way drops those leaves (the buffers take the values of
 `params`), and the other fills zero moments and copies the buffers into
 every EMA tree.
+
+`inception_from_jax` and `vit_from_jax` carry the JAX package's detector
+trees (metrics/inception_jax.py, nn/dinov2.py; numpy leaves) into the
+port's InceptionV3 and DinoViT state dicts: conv HWIO -> OIHW with the
+batch norm's mean, var and beta; the ViT's separate q, k, v back into the
+original fused `qkv`, linear [in, out] -> [out, in].
 """
 
 from typing import Dict
@@ -115,3 +121,38 @@ def train_state_to_jax(state) -> dict:
         adam_step=np.int32(state.adam_step),
         emas=[tree(ema, buffers) for ema in state.emas],
         cur_nimg=np.int64(state.cur_nimg))
+
+
+def inception_from_jax(params) -> Dict[str, torch.Tensor]:
+    """{TF-slim conv name: {w, mean, var, beta}} -> InceptionV3's state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        out[f"convs.{name}.weight"] = torch.tensor(
+            np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
+        for k in ("mean", "var", "beta"):
+            out[f"convs.{name}.{k}"] = torch.tensor(np.asarray(p[k], np.float32))
+    return out
+
+
+def vit_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The JAX ViT tree (cls_token, pos_embed, patch_embed, blocks, norm) ->
+    an original-naming DINOv2 state dict."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))   # noqa: E731
+    sd = {"cls_token": t(tree["cls_token"]).reshape(1, 1, -1),
+          "pos_embed": t(tree["pos_embed"])[None],
+          "patch_embed.proj.weight": t(np.asarray(tree["patch_embed"]["w"]).transpose(3, 2, 0, 1)),
+          "patch_embed.proj.bias": t(tree["patch_embed"]["b"]),
+          "norm.weight": t(tree["norm"]["g"]), "norm.bias": t(tree["norm"]["b"])}
+    for i, blk in enumerate(tree["blocks"]):
+        pre = f"blocks.{i}"
+        sd[f"{pre}.attn.qkv.weight"] = torch.cat([t(blk[n]["w"]).T for n in "qkv"])
+        sd[f"{pre}.attn.qkv.bias"] = torch.cat([t(blk[n]["b"]) for n in "qkv"])
+        for ours, theirs in (("attn.proj", "proj"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            sd[f"{pre}.{ours}.weight"] = t(blk[theirs]["w"]).T.contiguous()
+            sd[f"{pre}.{ours}.bias"] = t(blk[theirs]["b"])
+        for norm in ("norm1", "norm2"):
+            sd[f"{pre}.{norm}.weight"] = t(blk[norm]["g"])
+            sd[f"{pre}.{norm}.bias"] = t(blk[norm]["b"])
+        sd[f"{pre}.ls1.gamma"] = t(blk["ls1"])
+        sd[f"{pre}.ls2.gamma"] = t(blk["ls2"])
+    return sd

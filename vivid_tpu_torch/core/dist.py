@@ -2,13 +2,15 @@
 
 Counterpart of vivid_tpu/core/dist.py. Rank and world size come from
 `torch.distributed` when a process group is initialised (0 and 1
-otherwise); initialising one over NCCL is not ported yet. `init()` installs
+otherwise); initialising one over NCCL is not ported yet. `all_reduce_sum`
+sums host arrays over the group (the metrics' moments). `init()` installs
 a SIGTERM handler that asks the trainer to suspend: at its next status tick
 the trainer writes a training-state checkpoint and returns.
 """
 
 import signal
 
+import numpy as np
 import torch
 
 _should_suspend = False
@@ -45,6 +47,16 @@ def get_world_size() -> int:
 def print0(*args, **kwargs):
     if get_rank() == 0:
         print(*args, **kwargs)
+
+
+def all_reduce_sum(x):
+    """The sum of numpy `x` over the process group, as float64 (`x` itself
+    with one process)."""
+    if get_world_size() == 1:
+        return x
+    t = torch.as_tensor(np.asarray(x, np.float64))
+    torch.distributed.all_reduce(t)
+    return t.numpy()
 
 
 def barrier():

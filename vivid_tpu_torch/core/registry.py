@@ -19,6 +19,7 @@ _ALIASES = {
         "vivid_tpu_torch.diffusion.lr.learning_rate_schedule",
     "training.phema.PowerFunctionEMA": "vivid_tpu_torch.diffusion.phema.PowerFunctionEMA",
     "training.phema.TraditionalEMA": "vivid_tpu_torch.diffusion.phema.TraditionalEMA",
+    "datautils.RealEstate10K": "vivid_tpu_torch.data.re10k.RealEstate10K",
 }
 
 

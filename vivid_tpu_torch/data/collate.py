@@ -8,7 +8,8 @@ src [B, 1, h, w, 3], geometry [B, 1, 20]. With `sr_size`, each row also
 carries the same views at that size (sr_src_image, sr_tgt_image,
 sr_geometry) for the super-resolution stage. The random draws are the same
 as the JAX package's for the same seed, so both packages see the same
-batches. Images come out as float32 in [0, 255].
+batches. Images come out as float32 in [0, 255], resized as the JAX
+package resizes them (native/fast_image.py).
 """
 
 import queue
@@ -20,21 +21,30 @@ import numpy as np
 import PIL.Image
 
 from vivid_tpu_torch.geometry.codec import compose_geometry_np
+from vivid_tpu_torch.native import fast_image
 
 
 def resize_image(img: np.ndarray, size: int) -> np.ndarray:
     """[H, W, 3] any-range float/uint8 -> [size, size, 3] float32, [0,255].
-    Integer downscales are a box filter (exact mean); other sizes go through
-    PIL bilinear."""
+    Whole-factor downscales of a square image are a box filter (the exact
+    mean), other sizes the native bilinear resize; both the JAX package's,
+    bit for bit. Under VIVID_NO_NATIVE=1 numpy's mean and PIL's uint8
+    bilinear resize take their places, as in the JAX package without its
+    native library."""
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
         scale = 255.0 if arr.max() < 2.0 else 1.0
         arr = np.clip(arr * scale, 0, 255).astype(np.uint8)
     h, w = arr.shape[:2]
+    native = not fast_image.native_disabled()
     if h == w and h != size and h % size == 0:
         f = h // size
+        if native:
+            return fast_image.resize_box_u8(arr, f)
         return arr.reshape(size, f, size, f, 3).mean(axis=(1, 3), dtype=np.float32)
     if h != size or w != size:
+        if native:
+            return fast_image.resize_bilinear_u8(arr, size)
         pil = PIL.Image.fromarray(arr, "RGB")
         arr = np.asarray(pil.resize((size, size), PIL.Image.Resampling.BILINEAR))
     return arr.astype(np.float32)

@@ -82,31 +82,40 @@ def load_scene(path: str) -> dict:
 
 
 class SceneDataset:
-    """Infinite shuffled iteration over scene .npz files (one process).
+    """Infinite iteration over scene .npz files, shuffled per pass unless
+    `shuffle` is off, this process taking every `process_count`-th file from
+    `process_index` on.
 
     path: directory containing *.npz scene files (searched recursively).
     Any other keyword raises ValueError, so a caller's dataset arguments are
     either honoured or refused, never dropped.
     """
 
-    def __init__(self, path: str, seed: int = 0, **unknown):
+    def __init__(self, path: str, seed: int = 0, shuffle: bool = True,
+                 process_index: int = 0, process_count: int = 1, num_channels: int = 3,
+                 **unknown):
         if unknown:
-            raise ValueError(f"SceneDataset takes path and seed, not {sorted(unknown)}")
+            raise ValueError(f"SceneDataset does not take {sorted(unknown)}")
         self.path = path
         self.files = sorted(glob(os.path.join(path, "**", "*.npz"), recursive=True))
         if not self.files:
             raise IOError(f"No scene .npz files found under {path!r}")
         self.seed = seed
+        self.shuffle = shuffle
+        self.process_index = process_index
+        self.process_count = process_count
+        self.num_channels = num_channels
 
     def __len__(self):
         return len(self.files)
 
     def __iter__(self) -> Iterator[dict]:
         order = list(range(len(self.files)))
-        rnd = random.Random(self.seed)
+        rnd = random.Random(self.seed + self.process_index)
         while True:
-            rnd.shuffle(order)
-            for idx in order:
+            if self.shuffle:
+                rnd.shuffle(order)
+            for idx in order[self.process_index::self.process_count]:
                 try:
                     yield load_scene(self.files[idx])
                 except Exception:

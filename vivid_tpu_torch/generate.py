@@ -16,10 +16,13 @@ seed and its conditioning only. Three modes:
     has); its conditioning image is the target view taken down by 4 and up
     again.
 
-The noise on an SR model's conditioning image (`noisy_sr`) is one draw per
-batch from a generator seeded by (`rng_seed`, batch index). Runs on the
-first CUDA card; the CPU only when `device="cpu"` asks for it. Depth
-conditioning and tensor parallelism are not ported yet and raise.
+`datakwargs` open the scene dataset (data/re10k_scenes.py
+`open_scene_dataset`: a RealEstate10K tree or a directory of scene .npz
+files); `range_selection` ('mid', 'long') joins them, and an .npz directory
+drops it. The noise on an SR model's conditioning image (`noisy_sr`) is
+one draw per batch from a generator seeded by (`rng_seed`, batch index).
+Runs on the first CUDA card; the CPU only when `device="cpu"` asks for it.
+Depth conditioning and tensor parallelism are not ported yet and raise.
 """
 
 import os
@@ -34,7 +37,7 @@ from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.rngs import fold_in, seeded_normal
 from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
-from vivid_tpu_torch.data.scenes import SceneDataset
+from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
 from vivid_tpu_torch.diffusion.loss import down_up_resize
 from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
 from vivid_tpu_torch.train.snapshots import load_snapshot
@@ -53,17 +56,6 @@ def resolve_model(model, device):
     return model
 
 
-def open_scene_dataset(path: str, seed: int = 0, **kwargs):
-    """The scene dataset under `path`. Every other key of a caller's dataset
-    arguments arrives in `kwargs` and goes on to `SceneDataset`, which raises
-    ValueError on one it does not take: nothing is dropped in silence."""
-    if os.path.basename(os.path.normpath(path)) == "RealEstate10K" or \
-            os.path.isdir(os.path.join(path, "RealEstate10K")):
-        raise NotImplementedError("the RealEstate10K txt+png reader is not ported; "
-                                  "use a directory of scene .npz files")
-    return SceneDataset(path, seed=seed, **kwargs)
-
-
 def generate_images_nvs(
     net,                                  # snapshot path or loaded EasyDict
     gnet=None,                            # guidance net (autoguidance reference)
@@ -75,7 +67,7 @@ def generate_images_nvs(
     max_batch_size: int = 32,
     verbose: bool = True,
     datakwargs: Optional[dict] = None,
-    range_selection=None,                 # RealEstate10K only; unused here
+    range_selection=None,                 # 'mid' / 'long'; RealEstate10K trees only
     sr_model=None,
     depth_model=None,
     vanilla_mode: bool = False,
@@ -113,6 +105,8 @@ def generate_images_nvs(
     batches = np.array_split(np.arange(len(seeds)), num_batches)
 
     datakwargs = dict(datakwargs or {})
+    if range_selection is not None:
+        datakwargs.setdefault("range_selection", range_selection)
     dataset = open_scene_dataset(
         datakwargs["path"], seed=rng_seed,
         **{k: v for k, v in datakwargs.items() if k not in ("path", "class_name")})

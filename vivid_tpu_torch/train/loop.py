@@ -6,9 +6,16 @@ Counterpart of vivid_tpu/train/loop.py `training_loop` on one process. It
 trains `vivid-base` / `vivid-uncond` style models, the 256px
 super-resolution model (`sr_training`) and single-source models
 (`vanilla_mode`) on a directory of scene files, optionally mixed with rows
-synthesised from single images (`single_image_mix`). Not ported yet: metric
-ticks, depth conditioning and sharding the state over cards; their
-arguments raise NotImplementedError.
+synthesised from single images (`single_image_mix`). Not ported yet: depth
+conditioning and sharding the state over cards; their arguments raise
+NotImplementedError.
+
+A metrics tick (`metrics_nimg`) measures EMA 0 with `metrics_fn(net, cfg)`,
+by default `metrics/api.py get_metrics` on 100 unguided samples at batch 25
+over the test tree (`metrics_list`, default FID, FD-DINOv2, their joint
+variants and PSNR). It prints `Metrics: {...}`, reports `Metrics/<name>` into
+the next row of `stats.jsonl` and appends a row to `metrics.jsonl`; on a
+rank whose results are None it does none of these.
 
 Intervals are in images (nimg), as in the JAX package; one step advances the
 count by `batch_size * collate.nimg_mult` (6 in dual-source mode, 1 in
@@ -123,7 +130,7 @@ def training_loop(
     TrainState and one dict per status tick (nimg, steps, loss, loss_std,
     learning_rate, grad_norm as means over the tick's steps, seconds)."""
     args = dict(locals())
-    for name in ("metrics_nimg", "metrics_fn", "metrics_list", "depth_model", "fsdp"):
+    for name in ("depth_model", "fsdp"):
         if args.pop(name):
             raise NotImplementedError(f"{name} is not ported to vivid_tpu_torch yet")
     args["device"] = device = torch.device(device or "cuda")
@@ -138,10 +145,10 @@ def training_loop(
 
 def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_kwargs,
            loss_kwargs, lr_kwargs, ema_stds, seed, batch_size, batch_gpu, total_nimg,
-           slice_nimg, status_nimg, samples_nimg, snapshot_nimg, checkpoint_nimg,
-           loss_scaling, force_finite, eval_samples, sr_training, vanilla_mode, plain_mse,
-           single_image_mix, single_image_mix_path, sr_model, max_steps, debug,
-           deterministic, progress_bar, device):
+           slice_nimg, status_nimg, samples_nimg, metrics_nimg, snapshot_nimg,
+           checkpoint_nimg, loss_scaling, force_finite, eval_samples, sr_training,
+           vanilla_mode, plain_mse, single_image_mix, single_image_mix_path, sr_model,
+           metrics_fn, metrics_list, max_steps, debug, deterministic, progress_bar, device):
     start_time = time.time()
     print0 = dist.print0
     num_sources = 1 if vanilla_mode else 2
@@ -177,12 +184,23 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         main_batch = batch_size - n_single
 
     sr_model = resolve_model(sr_model, device)
+    test_split = dataset_kwargs.get("split", "test")   # a RealEstate10K tree's split
     test_loader = None
     if test_dataset_path and eval_samples:
         test_collate = collate_cls(imsize=resolution, seed=seed + 1,
                                    sr_size=sr_model.cfg.img_resolution if sr_model else None)
-        test_loader = BatchLoader(iter(open_scene_dataset(test_dataset_path, seed=seed + 1)),
-                                  test_collate, batch_size=eval_samples, prefetch=1)
+        test_dataset = open_scene_dataset(test_dataset_path, seed=seed + 1, split=test_split)
+        test_loader = BatchLoader(iter(test_dataset), test_collate,
+                                  batch_size=eval_samples, prefetch=1)
+    if metrics_fn is None and metrics_nimg is not None:
+        if not test_dataset_path:
+            raise ValueError("metrics_nimg needs test_dataset_path (or a metrics_fn)")
+
+        def metrics_fn(net, cfg):
+            from vivid_tpu_torch.metrics.api import get_metrics
+            return get_metrics(EasyDict(net=net, cfg=cfg), encoder=encoder, num_images=100,
+                               metrics=metrics_list, max_batch_size=25, device=device,
+                               datakwargs={"path": test_dataset_path, "split": test_split})
 
     if encoder_kwargs:
         from vivid_tpu_torch.core.registry import construct_class_by_name
@@ -285,18 +303,22 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                           dataset_kwargs=dataset_kwargs, loss_kwargs=loss_kwargs)
             print0(f"Saved {fname}")
 
-    eval_net = None   # a model holding EMA 0's weights, made at the first grid
+    eval_net = None   # a model holding EMA 0's weights, made at the first grid or tick
+
+    def ema0_net():
+        nonlocal eval_net
+        if eval_net is None:
+            eval_net = NVPrecond(model_cfg, device="meta").to_empty(device=device)
+            eval_net.eval().requires_grad_(False)
+        eval_net.load_state_dict(state.ema_state_dict(0))
+        return eval_net
 
     def generate_sample_grid(cur_nimg):
         """Sources, samples and targets of `eval_samples` test rows in three
         rows of one PNG; the samples from EMA 0, unguided, 32 Heun steps, and
         through `sr_model` at its resolution when given."""
-        nonlocal eval_net
         raw = next(test_loader)
-        if eval_net is None:
-            eval_net = NVPrecond(model_cfg, device="meta").to_empty(device=device)
-            eval_net.eval().requires_grad_(False)
-        eval_net.load_state_dict(state.ema_state_dict(0))
+        eval_net = ema0_net()
         gen = torch.Generator(device=device).manual_seed(fold_in(seed, cur_nimg + 1))
         src = encoder.encode_latents(raw["src_image"], device=device)
         geometry = torch.as_tensor(raw["geometry"], device=device)
@@ -324,6 +346,23 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         if wandb_run is not None:
             import wandb
             wandb_run.log({"samples": wandb.Image(grid)}, step=cur_nimg)
+
+    def metrics_tick(cur_nimg):
+        """EMA 0 through `metrics_fn`; on a rank without results (None),
+        nothing is printed or recorded."""
+        results = metrics_fn(ema0_net(), model_cfg)
+        if results is None:
+            return
+        print0(f"Metrics: {results}", flush=True)
+        for k, v in results.items():
+            stats_mod.report0(f"Metrics/{k}", float(v))
+        if dist.get_rank() == 0:
+            with open(os.path.join(run_dir, "metrics.jsonl"), "at") as f:
+                f.write(json.dumps({"nimg": int(cur_nimg), "timestamp": time.time(),
+                                    **{k: float(v) for k, v in results.items()}}) + "\n")
+        if wandb_run is not None:
+            wandb_run.log({f"metrics_{k}": float(v) for k, v in results.items()},
+                          step=cur_nimg)
 
     start_nimg = state.cur_nimg
 
@@ -417,6 +456,8 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
             if cur_nimg != start_nimg:
                 if test_loader is not None and interval_hit(samples_nimg, cur_nimg, prev_nimg):
                     generate_sample_grid(cur_nimg)
+                if metrics_fn is not None and interval_hit(metrics_nimg, cur_nimg, prev_nimg):
+                    metrics_tick(cur_nimg)
                 if interval_hit(snapshot_nimg, cur_nimg, prev_nimg):
                     save_snapshots(cur_nimg)
                 if interval_hit(checkpoint_nimg, cur_nimg, prev_nimg) or suspend_save:
