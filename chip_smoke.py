@@ -45,6 +45,20 @@ its own:
            K1/K2 launches against the plan) and `calc` of its PNGs against
            its own statistics; a `--metrics` tick of a 3-step vivid-base run
            (metrics.jsonl, stats.jsonl, log.txt); random detector weights
+  compat   the slice phase's vivid-base and vivid-uncond exported to
+           reference-format fp16 pickles through a stand-in reference
+           checkout and to v1 snapshots, loaded back on the card (load
+           times; the same config fields and weights), and 8 guided images
+           from each pair, which must be bitwise equal (K1/K2 launches)
+  depth    DepthAnythingV2 small and large from random original-naming
+           checkpoints: the card's fp32 forward against the CPU's, with two
+           planted faults (the head's resizes off align_corners, the input
+           resize without antialiasing) that must fail the gate, and ms per
+           16 views at 518 px; full-width vivid-base with depth_input and
+           with warp_depth_coor through the model phase's gate; 8 guided
+           images with depth from 'small' (K1/K2 launches); 2 training steps
+           of each depth flag through the trainer's entry point (K3/K4
+           launches)
   train    full-width vivid-base, batch 8 (the preset's global batch is
            1024; only the batch is cut): the whole gradient of one loss
            through the kernels vs the plain versions, held against a one-ulp
@@ -135,6 +149,7 @@ CORE_ONLY = "the_attention_core_only"
 FUSED_SHAPES = [(4, 1024, 3072), (6, 256, 768), (8, 64, 192)]
 TOL_INCEPTION = 8e-3   # relative L2 of the 2048-d features, bf16 channels-last vs fp32
 TOL_VIT = 3e-2         # ... of the ViT-L/14's class tokens, bf16 autocast vs fp32
+TOL_DEPTH = 1e-4       # relative L2 of a DepthAnythingV2 depth map, fp32 on the card vs the CPU
 
 
 def check(cond, msg):
@@ -1269,6 +1284,8 @@ def main():
     phase_model_sr(nomax=True)
     nets, launches, sr_launches, nomax_launches = phase_slice(card)
     phase_metrics(card, nets[:2])
+    phase_compat(card, nets[:2])
+    phase_depth(card, nets[1])
     for name, n in launches.items():
         if n:   # K1, K2: the guided 64px sampling path's count
             table[name]["launches"] = n
@@ -1302,18 +1319,19 @@ def main():
     return 0
 
 
-def _full_width(uncond, conditioned=True, train=False):
+def _full_width(uncond, conditioned=True, train=False, **flags):
     """vivid-base / vivid-uncond at the published widths (64px, ch=128,
     extra_attn=1, bf16) with random weights from a seed. A fresh init has
     every gain at 0, which makes F_x vanish (out_gain) and switches off the
     sigma conditioning of every block (emb_gain: c = 1). So out_gain is set
     to 1, and with `conditioned` the emb gains too. `train` leaves the net in
     training mode with every parameter asking for its gradient. No block is
-    recomputed in a backward pass (remat off), as in the smoke's trainer runs."""
+    recomputed in a backward pass (remat off), as in the smoke's trainer runs.
+    `flags` are more PrecondConfig fields (depth_input, warp_depth_coor)."""
     import torch
     from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
     cfg = PrecondConfig(img_resolution=64, model_channels=128, extra_attn=1,
-                        uncond=uncond, use_bf16=True, remat=False)
+                        uncond=uncond, use_bf16=True, remat=False, **flags)
     net = NVPrecond(cfg, device="cuda", seed=1 if uncond else 0)
     with torch.no_grad():
         for name, p in net.named_parameters():
@@ -1337,7 +1355,7 @@ def _ulp_noise(y, gen):
     return (y32 + sign * ulp).to(y.dtype)
 
 
-def phase_model(nomax=False):
+def phase_model(nomax=False, flags=None):
     """D_x of one NVPrecond call through the kernels against the same call
     through the plain versions. The network amplifies any rounding-level
     change of the attention outputs, so the reading is held against a
@@ -1345,7 +1363,10 @@ def phase_model(nomax=False):
     well as against TOL_MODEL; planted faults must fail the same gate. With
     `nomax` the whole runs under VIVID_NOMAX_PACKED=1 (emb gains at 1 only):
     every attention goes through the no-max packed kernel, the plain version
-    is that kernel's, and the faults are planted in it."""
+    is that kernel's, and the faults are planted in it. With `flags`
+    (depth_input or warp_depth_coor) only vivid-base runs, with emb gains at
+    1, its sources carrying a depth channel and its geometry near the
+    codec's mean (a plausible pose, so that the warp stays finite)."""
     import contextlib
     from unittest import mock
     import torch
@@ -1358,6 +1379,9 @@ def phase_model(nomax=False):
     dst = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
     geo = torch.randn(BATCH, 2, 20, generator=gen, device="cuda")
     sigma = torch.ones(BATCH, device="cuda")
+    if flags:
+        depth = 1 + 4 * torch.rand(BATCH, 2, 64, 64, 1, generator=gen, device="cuda")
+        src, geo = torch.cat([src, depth], dim=-1), 0.1 * geo
     noise_gen = torch.Generator(device="cuda")
     variants = {
         "plain": (k1_ref, k2_ref, k7_ref),
@@ -1379,14 +1403,15 @@ def phase_model(nomax=False):
                 return net(src, dst, sigma, geo)
 
     want_params = {False: 250.65, True: 131.27}
-    for uncond in (False, True):
+    for uncond in (False,) if flags else (False, True):
         label = "vivid-uncond" if uncond else "vivid-base"
+        label += "".join(f"+{k}" for k in flags or ())
         # The base model has no sink to drop; the uncond model has no cross source.
         fault = "fault_no_sink" if uncond else "fault_one_source"
-        for conditioned in (True,) if nomax else (False, True):
-            net = _full_width(uncond, conditioned)
+        for conditioned in (True,) if nomax or flags else (False, True):
+            net = _full_width(uncond, conditioned, **(flags or {}))
             n_params = sum(t.numel() for t in net.state_dict().values())
-            check(round(n_params / 1e6, 2) == want_params[uncond],
+            check(flags or round(n_params / 1e6, 2) == want_params[uncond],
                   f"{label}: {n_params} parameters, want {want_params[uncond]}M")
             before = dict(flash.launches)
             got = run(net)
@@ -1989,6 +2014,259 @@ def phase_metrics(card, nets=None):
     torch.cuda.empty_cache()
 
 
+def phase_compat(card, nets=None):
+    """Reference pickles at full width: `vivid-base` and `vivid-uncond` (the
+    `slice` phase's nets, or the same from their seeds) exported to
+    reference-format fp16 pickles through a stand-in reference checkout
+    (vivid_tpu_torch/tools/ref_standin.py, written to a temporary
+    directory), and as v1 snapshots; both loaded back on the card through
+    `load_snapshot`, with their load times. The reference pickle's config
+    (extract_config) must be the net's in every field the reference records,
+    and its weights the v1 snapshot's bit for bit (both store fp16 and load
+    fp32). Then 8 guided images, 32 steps, guidance 1.5, from the reference
+    pickles and from the v1 snapshots: K1/K2 at the planned launches, and
+    the images and latents bitwise equal. Returns the reference run's
+    launch counts."""
+    import numpy as np
+    import torch
+    from vivid_tpu_torch.compat.torch_export import config_to_init_kwargs, export_reference_pickle
+    from vivid_tpu_torch.data.scenes import make_synthetic_dataset
+    from vivid_tpu_torch.generate import generate_images_nvs
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.nn.unet import attention_feature_spec
+    from vivid_tpu_torch.tools.ref_standin import write_reference_standin
+    from vivid_tpu_torch.train.snapshots import load_snapshot, save_snapshot
+
+    if nets is None:
+        nets = (_full_width(uncond=False), _full_width(uncond=True))
+    steps, seeds = 32, list(range(8))
+    recorded = [k for k in config_to_init_kwargs(nets[0].cfg) if k != "use_fp16"]
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_compat_") as tmp:
+        root = write_reference_standin(os.path.join(tmp, "reference"))
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=8,
+                                      num_views=8, imsize=64, seed=0)
+        loaded = {"reference": [], "v1": []}
+        for label, net in zip(("vivid-base", "vivid-uncond"), nets):
+            v1, ref = (os.path.join(tmp, f"{label}.{kind}.pkl") for kind in ("v1", "ref"))
+            t0 = time.perf_counter()
+            save_snapshot(v1, net)
+            v1_save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            export_reference_pickle(ref, net.state_dict(), net.cfg, reference_root=root,
+                                    dataset_kwargs={"path": data})
+            export_s = time.perf_counter() - t0
+            times = {}
+            # The reference pickle twice: the first read also runs its
+            # embedded source; the second is timed as a warm load.
+            for kind, path in (("reference", ref), ("v1", v1), ("reference_again", ref)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                snap = load_snapshot(path, device="cuda")
+                torch.cuda.synchronize()
+                times[kind] = time.perf_counter() - t0
+                if kind in loaded:
+                    loaded[kind].append(snap)
+            del snap
+            back, same = loaded["reference"][-1], loaded["v1"][-1]
+            got = {k: getattr(back.cfg, k) for k in recorded}
+            want = {k: getattr(net.cfg, k) for k in recorded}
+            check(got == want, f"{label}: extract_config gives {got}, want {want}")
+            a, b = back.net.state_dict(), same.net.state_dict()
+            check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+                  f"{label}: the reference pickle's weights are not the v1 snapshot's")
+            check(back.dataset_kwargs == {"path": data}, f"{label}: {back.dataset_kwargs}")
+            n_values = sum(t.numel() for t in a.values())
+            say("compat", net=label, values=n_values, values_M=f"{n_values / 1e6:.2f}",
+                export_s=f"{export_s:.2f}", v1_save_s=f"{v1_save_s:.2f}",
+                pickle_GB=f"{os.path.getsize(ref) / 1e9:.3f}",
+                v1_GB=f"{os.path.getsize(v1) / 1e9:.3f}",
+                load_reference_s=f"{times['reference']:.2f}",
+                load_reference_again_s=f"{times['reference_again']:.2f}",
+                load_v1_s=f"{times['v1']:.2f}",
+                same_config_fields=len(recorded), same_weights=True, card=f"'{card}'")
+
+        base_cfg, gnet_cfg = nets[0].cfg, nets[1].cfg
+        per_eval = {"flash_fused_packed": len(attention_feature_spec(base_cfg.encoder_cfg))
+                    + len(attention_feature_spec(gnet_cfg.unet_cfg)),
+                    "flash_fused_packed_xattn": len(attention_feature_spec(base_cfg.unet_cfg))}
+        evals = 2 * steps - 1
+        out = {}
+        for kind in ("reference", "v1"):
+            base, gnet = loaded[kind]
+            for name in flash.launches:
+                flash.launches[name] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (batch,) = generate_images_nvs(net=base, gnet=gnet, guidance=1.5, seeds=seeds,
+                                           max_batch_size=8, num_steps=steps,
+                                           datakwargs={"path": data}, device="cuda",
+                                           verbose=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: n for k, n in flash.launches.items() if n}
+            check(launches == {k: n * evals for k, n in per_eval.items()},
+                  f"compat {kind}: launches {launches}, want {per_eval} x {evals}")
+            check(bool(torch.isfinite(batch.latents).all())
+                  and float(batch.images.astype(float).std()) > 0,
+                  f"compat {kind}: non-finite latents or constant images")
+            out[kind] = (batch, launches)
+            say("compat", run=f"sample_from_{kind}", steps=steps, seconds=f"{seconds:.3f}",
+                images_per_s=f"{len(seeds) / seconds:.3f}", launches=launches,
+                per_eval=per_eval, evals=evals, card=f"'{card}'")
+        (a, launches), (b, _) = out["reference"], out["v1"]
+        check(np.array_equal(a.images, b.images) and torch.equal(a.latents, b.latents),
+              "compat: the reference pickles' samples are not the v1 snapshots' bit for bit")
+        say("compat", images_bitwise_equal=True, images=a.images.shape[0])
+    return launches
+
+
+def _random_depth_checkpoint(path, size, seed=0):
+    """An original-naming DepthAnythingV2 `size` checkpoint with a 37 x 37 +
+    1 position grid (518 px, as the released files), seeded; weights scaled
+    by 1 / sqrt(fan-in) (so that the depth map depends on its input), norms
+    near 1, layer scales near 0.5, biases small. Saved at `path`."""
+    import torch
+    from vivid_tpu_torch.geometry.depth_anything import SIZES, expected_state_dict_shapes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sd = {}
+    for name, shape in expected_state_dict_shapes(SIZES[size]).items():
+        v = torch.randn(shape, generator=gen, device="cuda")
+        if len(shape) >= 2 and not name.endswith(("_token", "pos_embed")):
+            transposed = "resize_layers.0" in name or "resize_layers.1" in name
+            v = v / math.sqrt(shape[0] if transposed else math.prod(shape[1:]))
+        elif name.endswith(("norm1.weight", "norm2.weight", "norm.weight")):
+            v = 1.0 + 0.1 * v
+        elif name.endswith("gamma"):
+            v = 0.5 + 0.1 * v
+        else:
+            v = 0.02 * v
+        sd[name] = v.cpu()
+    torch.save(sd, path)
+
+
+def phase_depth(card, gnet=None):
+    """Depth conditioning at full width. DepthAnythingV2 `small` and `large`
+    from random original-naming checkpoints in a temporary VIVID_DEPTH_DIR,
+    built by `resolve_depth_model`; each one's fp32 forward on the card at
+    batch 2 (518 px, the prepared 64px views) held to the same module on the
+    CPU by relative L2 (TOL_DEPTH; TF32 is off), with two planted faults
+    that must fail it (the head's resizes off align_corners, the input's
+    bicubic resize without antialiasing); its ms per batch of 16 views.
+    Then full-width `vivid-base` with `depth_input` and with
+    `warp_depth_coor` through `phase_model`'s D_x gate; 8 guided images, 32
+    steps, of the depth_input net with depth_model='small' through
+    generate_images_nvs (`gnet`: the `slice` phase's vivid-uncond, or the
+    same from its seed), K1/K2 at the planned launches; 2 training steps at
+    batch 8 of `--preset vivid-base --depth-model small --depth-input`, and
+    2 with `--warp-depth-coor`, through the trainer's entry point, K3/K4 at
+    the planned launches. Returns the launch counts of the sampling run and
+    of the two training runs."""
+    from unittest import mock
+    import torch
+    import torch.nn.functional as F
+    from vivid_tpu_torch.core.easydict import EasyDict
+    from vivid_tpu_torch.data.scenes import make_synthetic_dataset
+    from vivid_tpu_torch.generate import generate_images_nvs
+    from vivid_tpu_torch.geometry import depth, depth_anything
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.nn.unet import attention_feature_spec
+
+    faults = {
+        "head_resize_half_pixel": mock.patch.object(
+            depth_anything, "resize_ac", lambda x, size: F.interpolate(
+                x, size=tuple(size), mode="bilinear", align_corners=False)),
+        "prepare_without_antialias": mock.patch.object(
+            depth, "_resize", lambda x, size, mode: F.interpolate(
+                x.permute(0, 3, 1, 2), size=tuple(size), mode=mode,
+                antialias=False).permute(0, 2, 3, 1)),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    pixels = 255 * torch.rand(16, 64, 64, 3, generator=gen, device="cuda")
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_depth_") as tmp, \
+            _environ(VIVID_DEPTH_DIR=tmp):
+        for size in ("small", "large"):
+            name = depth_anything.ENCODER_NAMES[size]
+            t0 = time.perf_counter()
+            _random_depth_checkpoint(
+                os.path.join(tmp, f"depth_anything_v2_metric_hypersim_{name}.pth"), size)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            model = depth.resolve_depth_model(size, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            cpu_model = depth.resolve_depth_model(size, device="cpu")
+            with torch.no_grad():
+                want = cpu_model(depth.depth_prepare(pixels[:2].cpu()))
+                got = model(depth.depth_prepare(pixels[:2])).cpu()
+                errs = {}
+                for fault, patch in faults.items():
+                    with patch:
+                        errs[fault] = _rel_l2(model(depth.depth_prepare(pixels[:2])).cpu(), want)
+                x16 = depth.depth_prepare(pixels)
+                ms = cuda_ms(lambda: model(x16), reps=5)
+                add_ms = cuda_ms(lambda: depth.add_depth(model, pixels, pixels / 127.5 - 1),
+                                 reps=5)
+            err = _rel_l2(got, want)
+            n_params = sum(p.numel() for p in model.parameters())
+            say("depth", model=size, params=n_params, write_s=f"{write_s:.2f}",
+                load_s=f"{load_s:.2f}", depth_range=f"{float(got.min()):.3f}-{float(got.max()):.3f}",
+                card_vs_cpu_rel_l2=f"{err:.3e}", gate=TOL_DEPTH,
+                **{f"fault_{k}_rel_l2": f"{v:.3e}" for k, v in errs.items()},
+                ms_per_16_views_518px=f"{ms:.3f}", add_depth_ms_16_views=f"{add_ms:.3f}",
+                card=f"'{card}'")
+            check(bool(torch.isfinite(got).all()) and float(got.std()) > 0,
+                  f"depth {size}: non-finite or constant depth")
+            check(err <= TOL_DEPTH, f"depth {size}: card vs CPU rel L2 {err} > {TOL_DEPTH}")
+            for fault, e in errs.items():
+                check(e > TOL_DEPTH, f"depth {size}: planted fault {fault} gives {e}, "
+                      f"which passes the gate {TOL_DEPTH}")
+            del model, cpu_model
+            torch.cuda.empty_cache()
+
+        for flag in ("depth_input", "warp_depth_coor"):
+            phase_model(flags={flag: True})
+
+        # Guided sampling of the depth_input net, depth from 'small' by name.
+        if gnet is None:
+            gnet = _full_width(uncond=True)
+        base = _full_width(uncond=False, depth_input=True)
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=8, num_views=8,
+                                      imsize=64, seed=0)
+        steps, seeds = 32, list(range(8))
+        per_eval = {"flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg))
+                    + len(attention_feature_spec(gnet.cfg.unet_cfg)),
+                    "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg))}
+        evals = 2 * steps - 1
+        for name in flash.launches:
+            flash.launches[name] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (batch,) = generate_images_nvs(
+            net=EasyDict(net=base, cfg=base.cfg), gnet=EasyDict(net=gnet, cfg=gnet.cfg),
+            guidance=1.5, seeds=seeds, max_batch_size=8, num_steps=steps, depth_model="small",
+            datakwargs={"path": data}, device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches["sample"] = {k: n for k, n in flash.launches.items() if n}
+        check(launches["sample"] == {k: n * evals for k, n in per_eval.items()},
+              f"depth sampling: launches {launches['sample']}, want {per_eval} x {evals}")
+        check(bool(torch.isfinite(batch.latents).all())
+              and float(batch.images.astype(float).std()) > 0,
+              "depth sampling: non-finite latents or constant images")
+        say("depth", run="sample_depth_input", depth_model="small", steps=steps,
+            seconds=f"{seconds:.3f}", images_per_s=f"{len(seeds) / seconds:.3f}",
+            launches=launches["sample"], per_eval=per_eval, evals=evals, card=f"'{card}'")
+        del base
+        torch.cuda.empty_cache()
+
+        for flag in ("depth_input", "warp_depth_coor"):
+            _, launches[flag] = _run_trainer(card, os.path.join(tmp, f"train_{flag}"), data,
+                                             "vivid-base", 2, "false", 1024,
+                                             depth_model="small", **{flag: True})
+    return launches
+
+
 def phase_train(card):
     """The training step at full width, batch 8 of the preset's 1024.
 
@@ -2232,18 +2510,19 @@ def _train_launches(cfg):
     return want
 
 
-def _run_trainer(card, run_dir, data, preset, steps, remat, preset_batch):
+def _run_trainer(card, run_dir, data, preset, steps, remat, preset_batch, **opts):
     """`steps` optimizer steps of `preset` at global batch 8 through
     `cli.train_nvs.launch_training`, from a fresh seeded init with no
-    learning-rate ramp-up. Checks the launch counts against the model's plan,
-    the ticks, the log, that every parameter and EMA moved, and the snapshots.
-    Returns (a snapshot's path, the launch counts)."""
+    learning-rate ramp-up; `opts` are more CLI options (depth_model, ...).
+    Checks the launch counts against the model's plan, the ticks, the log,
+    that every parameter and EMA moved, and the snapshots. Returns (a
+    snapshot's path, the launch counts)."""
     import torch
     from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
     from vivid_tpu_torch.kernels import flash
     from vivid_tpu_torch.nn.precond import NVPrecond
     c = setup_training_config(preset=preset, data=data, batch=BATCH, max_steps=steps,
-                              remat=remat, seed=0, device="cuda")
+                              remat=remat, seed=0, device="cuda", **opts)
     nimg_mult = 1 if c.vanilla_mode else 6   # the dual-source collate counts 6 images a pair
     nimg_step = BATCH * nimg_mult
     c.update(status_nimg=nimg_step, snapshot_nimg=nimg_step * steps)
@@ -2295,7 +2574,8 @@ def _run_trainer(card, run_dir, data, preset, steps, remat, preset_batch):
     check(log.count("Status:") == steps + 1, f"{preset}: log.txt:\n{log}")
     step_ms = [t["seconds"] * 1e3 for t in ticks]
     warm_ms = statistics.median(step_ms[1:])
-    say("train", run=preset, steps=steps, global_batch=f"{BATCH}_of_the_preset's_{preset_batch}",
+    say("train", run=preset, options=opts or None, steps=steps,
+        global_batch=f"{BATCH}_of_the_preset's_{preset_batch}",
         remat=cfg.remat, nimg_mult=nimg_mult,
         loss=[round(t["loss"], 4) for t in ticks],
         grad_norm=[round(t["grad_norm"], 4) for t in ticks],

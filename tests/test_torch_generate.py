@@ -140,7 +140,7 @@ def test_slice_matches_jax(env):
     assert np.abs(got.astype(np.int16) - want.astype(np.int16)).max() <= 1
 
 
-def test_generate_writes_triplets(env):
+def test_generate_writes_triplets(env, monkeypatch):
     outdir = str(env["root"] / "out")
     batches = list(generate_images_nvs(net=env["snap"], gnet=env["gsnap"], guidance=1.5,
                                        outdir=outdir, seeds=range(0, 3), max_batch_size=2,
@@ -152,9 +152,12 @@ def test_generate_writes_triplets(env):
         for prefix in ("src", "tgt", "sample"):
             assert f"{prefix}_{seed:06d}.png" in files
     assert batches[0].images.dtype == np.uint8 and batches[0].images.shape == (2, 16, 16, 3)
-    with pytest.raises(NotImplementedError):
+    # A depth model raised until depth conditioning was ported; now a named
+    # one resolves through $VIVID_DEPTH_DIR and names the file it misses.
+    monkeypatch.setenv("VIVID_DEPTH_DIR", str(env["root"]))
+    with pytest.raises(FileNotFoundError, match="metric_hypersim_vits.pth"):
         generate_images_nvs(net=env["snap"], datakwargs={"path": env["data"]},
-                            depth_model="depth.pkl", verbose=False, device="cpu")
+                            depth_model="small", verbose=False, device="cpu")
 
 
 def test_port_runs_without_jax(tmp_path):
@@ -162,8 +165,10 @@ def test_port_runs_without_jax(tmp_path):
     [B, H, S, D] attention entries, the no-max packed forward and the labs'
     kernels' wrappers run, the trainer CLI takes one step, the generation
     CLI samples a guided base -> SR cascade, a RealEstate10K tree is read
-    and `calculate_metrics gen` measures guided samples of it on the CPU,
-    with jax and vivid_tpu made unimportable."""
+    and `calculate_metrics gen` measures guided samples of its test split on
+    the CPU, and a snapshot is exported to a reference pickle through a
+    stand-in checkout and read back, with jax and vivid_tpu made
+    unimportable."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
         sys.modules["jax"] = None
@@ -218,16 +223,17 @@ def test_port_runs_without_jax(tmp_path):
         from vivid_tpu_torch.cli import calculate_metrics
         from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
         from vivid_tpu_torch.metrics.inception import InceptionV3
-        re10k = os.path.join(root, "re10k")
-        os.makedirs(os.path.join(re10k, "RealEstate10K", "train"))
-        os.makedirs(os.path.join(re10k, "train", "seq"))
+        re10k = os.path.join(root, "re10k")   # a test split: what sampling reads
+        os.makedirs(os.path.join(re10k, "RealEstate10K", "test"))
+        os.makedirs(os.path.join(re10k, "test", "seq"))
         lines = ["url"]
         for f in range(4):
             lines.append(f"{{f}} 0.9 1.6 0.5 0.5 0 0 1 0 0 {{f}} 0 1 0 0 0 0 1 0")
             PIL.Image.fromarray(np.full((16, 24, 3), 40 * f, np.uint8)).save(
-                os.path.join(re10k, "train", "seq", f"{{f}}.png"))
-        open(os.path.join(re10k, "RealEstate10K", "train", "seq.txt"), "w").write("\\n".join(lines))
-        assert next(iter(open_scene_dataset(re10k, views_per_scene=3)))["image"][2].shape == (16, 16, 3)
+                os.path.join(re10k, "test", "seq", f"{{f}}.png"))
+        open(os.path.join(re10k, "RealEstate10K", "test", "seq.txt"), "w").write("\\n".join(lines))
+        assert next(iter(open_scene_dataset(re10k, views_per_scene=3, split="test"))
+                    )["image"][2].shape == (16, 16, 3)
         from vivid_tpu_torch import generate
         full_steps = generate.generate_images_nvs
         generate.generate_images_nvs = lambda *a, **kw: full_steps(*a, **dict(kw, num_steps=2))
@@ -239,6 +245,14 @@ def test_port_runs_without_jax(tmp_path):
         assert sorted(res) == ["joint_stub_fid", "psnr", "stub_fid"], res
         feats = InceptionV3().init_random()(torch.zeros(1, 16, 16, 3, dtype=torch.uint8))
         assert feats.shape == (1, 2048)
+        from vivid_tpu_torch.compat import torch_export
+        from vivid_tpu_torch.tools.ref_standin import write_reference_standin
+        from vivid_tpu_torch.train.snapshots import load_snapshot
+        ref_root = write_reference_standin(os.path.join(root, "ref"))
+        torch_export.cmdline([os.path.join(root, "b.pkl"), os.path.join(root, "ref.pkl"),
+                              "--reference-root", ref_root], standalone_mode=False)
+        back = load_snapshot(os.path.join(root, "ref.pkl"))
+        assert back.cfg.model_channels == 16 and not back.net.training
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
         print("ok")
     """)

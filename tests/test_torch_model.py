@@ -226,10 +226,17 @@ def test_seeded_init_is_deterministic_and_reference_layout():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        NVPrecond(PrecondConfig(img_resolution=16, warp_depth_coor=True, **TINY), device="meta")
-    with pytest.raises(NotImplementedError):
-        NVPrecond(PrecondConfig(img_resolution=16, depth_input=True, **TINY), device="meta")
+    """The depth flags raised until depth conditioning was ported: each now
+    builds the JAX package's input widths; the two together are refused
+    (tests/test_torch_depth.py holds their forwards to JAX's)."""
+    for flag, enc_cin, unet_cin in (("warp_depth_coor", 131, 131), ("depth_input", 4, 3)):
+        net = NVPrecond(PrecondConfig(img_resolution=16, **{flag: True}, **TINY), device="meta")
+        jcfg = jprecond.PrecondConfig(img_resolution=16, **{flag: True}, **TINY)
+        assert net.encoder.cfg.img_channels == jcfg.encoder_cfg.img_channels == enc_cin
+        assert net.unet.cfg.img_channels == jcfg.unet_cfg.img_channels == unet_cin
+    with pytest.raises(ValueError, match="depth_input and PrecondConfig.warp_depth_coor"):
+        NVPrecond(PrecondConfig(img_resolution=16, depth_input=True, warp_depth_coor=True,
+                                **TINY), device="meta")
 
 
 def test_epipolar_geometry_matches_jax():

@@ -221,7 +221,8 @@ def snapshot(tmp_path_factory):
 def test_range_selection_reaches_the_stream(tree, snapshot):
     """generate_images_nvs hands `range_selection` to the RealEstate10K
     stream: its sources and targets are the rows of a 'mid' stream for the
-    same seed, not those of an unconstrained one."""
+    same seed (of the test split, which sampling reads), not those of an
+    unconstrained one."""
     from vivid_tpu_torch.generate import generate_images_nvs
     (batch,) = generate_images_nvs(snapshot, seeds=range(4), max_batch_size=4, num_steps=1,
                                    range_selection="mid", rng_seed=7, verbose=False,
@@ -229,7 +230,7 @@ def test_range_selection_reaches_the_stream(tree, snapshot):
 
     def rows(rs):
         loader = collate.BatchLoader(
-            iter(re10k_scenes.open_scene_dataset(tree, seed=7, range_selection=rs)),
+            iter(re10k_scenes.open_scene_dataset(tree, seed=7, split="test", range_selection=rs)),
             collate.DualSourceCollate(16, seed=7), batch_size=4)
         try:
             return next(loader)
@@ -242,6 +243,34 @@ def test_range_selection_reaches_the_stream(tree, snapshot):
     assert not np.array_equal(batch.tgt, free["tgt_image"])
 
 
+def _first_rows(tree, split, seed=7):
+    loader = collate.BatchLoader(
+        iter(re10k_scenes.open_scene_dataset(tree, seed=seed, split=split)),
+        collate.DualSourceCollate(16, seed=seed), batch_size=4)
+    try:
+        return next(loader)
+    finally:
+        loader.close()
+
+
+@pytest.mark.parametrize("split", [None, "train", "test"])
+def test_sampling_reads_the_test_split(tree, snapshot, split):
+    """generate_images_nvs (and so the generation CLI and `calculate_metrics
+    gen`) reads a RealEstate10K tree's test split unless `datakwargs` names
+    another, as the reference's generator does; the JAX package reads the
+    train split (ROADMAP C9, C-ref-6)."""
+    from vivid_tpu_torch.generate import generate_images_nvs
+    datakwargs = {"path": tree} if split is None else {"path": tree, "split": split}
+    (batch,) = generate_images_nvs(snapshot, seeds=range(4), max_batch_size=4, num_steps=1,
+                                   rng_seed=7, verbose=False, device="cpu",
+                                   datakwargs=datakwargs)
+    want, other = _first_rows(tree, split or "test"), _first_rows(
+        tree, "train" if split in (None, "test") else "test")
+    np.testing.assert_array_equal(batch.tgt, want["tgt_image"])
+    np.testing.assert_array_equal(batch.src, want["src_image"][:, 0])
+    assert not np.array_equal(batch.tgt, other["tgt_image"])
+
+
 def test_range_selection_dropped_on_npz(snapshot, tmp_path):
     from vivid_tpu_torch.generate import generate_images_nvs
     npz = scenes.make_synthetic_dataset(str(tmp_path / "npz"), num_scenes=2, num_views=4,
@@ -250,6 +279,25 @@ def test_range_selection_dropped_on_npz(snapshot, tmp_path):
                                      range_selection=rs, verbose=False, device="cpu",
                                      datakwargs={"path": npz})) for rs in ("mid", None)]
     np.testing.assert_array_equal(runs[0][0].images, runs[1][0].images)
+
+
+def test_trainer_metrics_tick_reads_the_test_split(tree, tmp_path, monkeypatch):
+    """The trainer's metrics tick hands the test split to the metrics with
+    its test tree (train/loop.py's `test_split`; the JAX tick names no
+    split)."""
+    from vivid_tpu_torch.metrics import api
+    from vivid_tpu_torch.train.loop import training_loop
+    seen = []
+    monkeypatch.setattr(api, "get_metrics", lambda net, **kw: seen.append(kw) or {"psnr": 0.0})
+    data = scenes.make_synthetic_dataset(str(tmp_path / "npz"), num_scenes=2, num_views=4,
+                                         imsize=16)
+    training_loop(run_dir=str(tmp_path / "run"), dataset_kwargs={"path": data},
+                  test_dataset_path=tree, network_kwargs=dict(TINY, img_resolution=16, remat=False),
+                  loss_kwargs=dict(P_mean=-0.8, P_std=1.6),
+                  lr_kwargs=dict(ref_lr=1e-3, rampup_Mimg=0), batch_size=2, eval_samples=0,
+                  status_nimg=None, samples_nimg=None, metrics_nimg=12, snapshot_nimg=None,
+                  checkpoint_nimg=None, max_steps=1, device="cpu")
+    assert seen and all(kw["datakwargs"] == {"path": tree, "split": "test"} for kw in seen)
 
 
 def test_trainer_reads_the_test_split(tree, tmp_path):

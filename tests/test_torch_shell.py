@@ -84,6 +84,23 @@ def test_dist_on_one_process_and_the_suspend_flag():
     dist.barrier()
 
 
+def test_sigterm_suspends_and_reaches_the_handler_before():
+    """SIGTERM asks the trainer to suspend, and still reaches a Python
+    handler installed before `init()` (another library's, the JAX
+    package's), whichever of the two was installed first."""
+    import signal
+    seen = []
+    old = signal.signal(signal.SIGTERM, lambda signum, frame: seen.append(signum))
+    try:
+        dist.init()
+        dist.init()   # again: the handler before is still the one chained
+        os.kill(os.getpid(), signal.SIGTERM)
+        assert dist.should_suspend() and seen == [signal.SIGTERM]
+    finally:
+        dist.init()   # no suspend left pending
+        signal.signal(signal.SIGTERM, old)
+
+
 def test_collector_matches_jax():
     rng = np.random.RandomState(0)
     reports = [("Loss/loss", rng.randn(5)), ("Loss/loss", np.array([np.nan, 2.0])),
@@ -312,14 +329,44 @@ def test_cli_hands_the_new_flags_to_the_loop(monkeypatch, tmp_path):
         assert seen[key] == want[key], key
 
 
+@pytest.fixture(scope="module")
+def frames(tmp_path_factory):
+    """Single images at RealEstate10K's 640 x 360 frame size and its
+    portrait: their 360 px crops resize to 64 and 256 by no whole factor."""
+    path = tmp_path_factory.mktemp("frames")
+    rs = np.random.RandomState(1)
+    for i, shape in enumerate([(360, 640, 3), (640, 360, 3)]):
+        PIL.Image.fromarray(rs.randint(0, 255, shape, np.uint8)).save(path / f"im{i}.png")
+    return str(path)
+
+
+def test_single_image_rows_match_jax_at_non_whole_sizes(frames):
+    """ROADMAP C10: at a 360 px crop to 64 px, with the SR fields at 256,
+    the rows are still the JAX package's bit for bit (the native resize)."""
+    from vivid_tpu.data.single_images import SingleImages as JSingleImages
+    ours = single_images.SingleImages(frames, imsize=64, sr_size=256, num_sources=2, seed=5)
+    theirs = JSingleImages(frames, imsize=64, sr_size=256, num_sources=2, seed=5)
+    for _ in range(3):
+        plan = ours.sample_plan()
+        assert plan == theirs.sample_plan()
+        got, want = ours.materialize(None, plan)[0], theirs.materialize(None, plan)[0]
+        assert sorted(got) == sorted(want) and got["sr_src_image"].shape == (2, 256, 256, 3)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 @pytest.mark.parametrize("flags", [["--metrics", "1Ki"], ["--fsdp"], ["--depth-input"],
                                    ["--depth-model", "small"], ["--warp-depth-coor"]])
 def test_cli_flags_still_not_ported_raise(flags, capsys):
-    """Each flag of a feature not ported raises. `--metrics` was one until
-    the metrics were ported: its case now checks that the dry run takes it."""
-    if flags[0] == "--metrics":
+    """Each flag of a feature not ported raises. `--metrics` and the depth
+    flags were such until their features were ported: their cases now check
+    that the dry run takes them."""
+    taken = {"--metrics": '"metrics_nimg": 1024', "--depth-input": '"depth_input": true',
+             "--depth-model": '"depth_model": "small"',
+             "--warp-depth-coor": '"warp_depth_coor": true'}
+    if flags[0] in taken:
         train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)
-        assert '"metrics_nimg": 1024' in capsys.readouterr().out
+        assert taken[flags[0]] in capsys.readouterr().out
         return
     with pytest.raises(NotImplementedError):
         train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)

@@ -336,7 +336,9 @@ def test_generate_refuses_what_it_cannot_do(env, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         generate.generate_images_nvs(net=env["base"], **kw)
-    with pytest.raises(NotImplementedError, match="depth_model"):
+    # depth_model raised until depth conditioning was ported; now an unknown
+    # name is refused by name.
+    with pytest.raises(ValueError, match="Unknown depth model 'd.pkl'"):
         generate.generate_images_nvs(net=env["base"], depth_model="d.pkl", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="tp"):
         generate.generate_images_nvs(net=env["base"], tp=2, device="cpu", **kw)

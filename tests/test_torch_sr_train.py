@@ -280,14 +280,15 @@ def test_sr_remat_modes_give_equal_gradients(dropout, monkeypatch):
 
 def test_vivid_sr_preset_config_matches_jax():
     """The `vivid-sr` preset, and what `setup_training_config` makes of it,
-    key for key; the JAX package's extra keys are features the port lacks."""
+    key for key; the JAX package's extra keys are features the port lacks
+    (`fsdp`, `debug`)."""
     assert dict(train_nvs.config_presets["vivid-sr"]) == dict(jcli.config_presets["vivid-sr"])
     opts = dict(preset="vivid-sr", data="scenes/", status=960, snapshot=10000)
     got = train_nvs.setup_training_config(**opts)
     want = jcli.setup_training_config(**opts)
     assert got.batch_size == 128 and got.sr_training and got.vanilla_mode
     net = dict(want.network_kwargs)
-    assert not net.pop("depth_input") and not net.pop("warp_depth_coor")
+    assert not net["depth_input"] and not net["warp_depth_coor"]
     assert dict(got.network_kwargs) == net
     assert net["super_res"] and net["num_sources"] == 1 and net["target_label_dim"] == 20
     assert net["noisy_sr"] == 0.25 and net["remat"] is True and net["model_channels"] == 64

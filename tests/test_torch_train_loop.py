@@ -95,10 +95,16 @@ def test_training_loop_accumulates_and_refuses_what_is_not_ported(data, tmp_path
     assert "in 2 microbatch(es)" in open(tmp_path / "acc" / "log.txt").read()
     with pytest.raises(ValueError, match="not divisible"):
         _train(tmp_path / "bad", data, batch_size=4, batch_gpu=3)
-    with pytest.raises(NotImplementedError, match="depth_input"):
-        _train(tmp_path / "depth", data, network_kwargs=dict(NET, depth_input=True))
-    with pytest.raises(NotImplementedError, match="warp_depth_coor"):
-        _train(tmp_path / "warp", data, network_kwargs=dict(NET, warp_depth_coor=True))
+    # The depth flags were refused until depth conditioning was ported: each
+    # now trains a step with a depth model, and refuses to run without one.
+    depth_model = lambda x: 1.0 + x.mean(-1) ** 2   # noqa: E731
+    for flag in ("depth_input", "warp_depth_coor"):
+        net = dict(NET, **{flag: True})
+        result = _train(tmp_path / flag, data, network_kwargs=net, depth_model=depth_model,
+                        max_steps=1, snapshot_nimg=None)
+        assert result.state.cur_nimg == NIMG_PER_STEP
+        with pytest.raises(ValueError, match="needs a depth_model"):
+            _train(tmp_path / f"{flag}_none", data, network_kwargs=net)
 
 
 def test_cli_dry_run_prints_the_config(capsys):
@@ -111,7 +117,8 @@ def test_cli_dry_run_prints_the_config(capsys):
     assert cfg["batch_size"] == 8 and cfg["total_nimg"] == 1024
     assert cfg["network_kwargs"] == dict(
         model_channels=128, dropout=0.0, extra_attn=1, epipolar_attention_bias=False,
-        super_res=False, no_time_enc=False, uncond=True, noisy_sr=0.25, num_sources=2,
+        super_res=False, no_time_enc=False, depth_input=False, warp_depth_coor=False,
+        uncond=True, noisy_sr=0.25, num_sources=2,
         source_label_dim=20, target_label_dim=40, use_bf16=True, force_wn=False,
         remat="save_dots")
     assert not cfg["sr_training"] and not cfg["vanilla_mode"]
@@ -131,11 +138,15 @@ def test_cli_presets_match_the_jax_package():
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--depth-input"], ["--metrics", "1Ki"],
                                    ["--depth-model", "small"], ["--warp-depth-coor"]])
 def test_cli_unported_options_raise(flags, capsys):
-    """Each flag of a feature not ported raises. `--metrics` was one until
-    the metrics were ported: its case now checks that the dry run takes it."""
-    if flags[0] == "--metrics":
+    """Each flag of a feature not ported raises. `--metrics` and the depth
+    flags were such until their features were ported: their cases now check
+    that the dry run takes them."""
+    taken = {"--metrics": '"metrics_nimg": 1024', "--depth-input": '"depth_input": true',
+             "--depth-model": '"depth_model": "small"',
+             "--warp-depth-coor": '"warp_depth_coor": true'}
+    if flags[0] in taken:
         train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)
-        assert '"metrics_nimg": 1024' in capsys.readouterr().out
+        assert taken[flags[0]] in capsys.readouterr().out
         return
     with pytest.raises(NotImplementedError):
         train_nvs.cmdline(["--data", "scenes/", "--dry-run", *flags], standalone_mode=False)

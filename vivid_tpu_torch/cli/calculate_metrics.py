@@ -131,7 +131,7 @@ def calc(image_path, ref_path, metrics, num_images, seed, max_batch_size, dest_p
 @click.option("--sr-model", help="Path to SR model snapshot", metavar="STR", type=str, default=None, show_default=True)
 @click.option("--range-selection", help="Range selection", metavar="MID,LONG", type=click.Choice(["mid", "long"]), default=None, show_default=True)
 @click.option("--guidance", help="Guidance factor", metavar="FLOAT", type=float, default=1.0, show_default=True)
-@click.option("--depth-model", help="Depth model for evaluation (not ported)", metavar="STR", type=str, default=None, show_default=True)
+@click.option("--depth-model", help="Depth model for evaluation (small|base|large, weights from $VIVID_DEPTH_DIR)", metavar="STR", type=str, default=None, show_default=True)
 @click.option("--outdir", help="Where to save the output images", metavar="DIR", type=str, default=None, show_default=True)
 @click.option("--dest", "dest_path", help="Where to save the generated images' statistics", metavar="PKL", type=str, default=None)
 @click.option("--vanilla-mode", help="Single-source conditioning", is_flag=True)

@@ -54,7 +54,7 @@ def parse_int_list(s):
 @click.option("--sr-model", help="Path to SR model snapshot", metavar="STR", type=str, default=None, show_default=True)
 @click.option("--gnet", help="Reference network for guidance", metavar="PATH", type=str, default=None)
 @click.option("--range-selection", help="Range selection", metavar="MID,LONG", type=str, default=None, show_default=True)
-@click.option("--depth-model", help="Depth model to use for evaluation", metavar="STR", type=str, default=None, show_default=True)
+@click.option("--depth-model", help="Depth model to use for evaluation (small|base|large, weights from $VIVID_DEPTH_DIR)", metavar="STR", type=str, default=None, show_default=True)
 @click.option("--vanilla-mode", help="Single-source conditioning", is_flag=True)
 @click.option("--device", help="Device to sample on  [default: cuda; fails without a card]", metavar="STR", type=str, default=None)
 @click.option("--tp", help="Tensor-parallel ways over the local devices (latency lever)", metavar="INT", type=click.IntRange(min=0), default=0)

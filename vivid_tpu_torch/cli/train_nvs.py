@@ -13,8 +13,12 @@ same command again resumes from the latest training-state checkpoint in
 `<outdir>/experiments`; `--slice` stops each run after that many images, at
 a checkpoint. `--deterministic` makes a killed and resumed run end with the
 bits of one that was never killed; on a CUDA card it needs
-CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment. A flag whose feature is
-not ported yet raises NotImplementedError; none is silently ignored.
+CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment. `--depth-model
+small|base|large` (DepthAnythingV2 weights from $VIVID_DEPTH_DIR) conditions
+the model on predicted depth: `--depth-input` feeds it to the encoder,
+`--warp-depth-coor` feeds Fourier features of the pixel grid and of its
+depth-warped form (not both). A flag whose feature is not ported yet raises
+NotImplementedError; none is silently ignored.
 """
 
 import json
@@ -39,7 +43,7 @@ config_presets = {
 }
 
 # Flags of the JAX package's CLI whose features the port does not have yet.
-NOT_PORTED = ("fsdp", "depth_input", "depth_model", "warp_depth_coor")
+NOT_PORTED = ("fsdp",)
 
 
 def parse_nimg(s):
@@ -93,6 +97,8 @@ def setup_training_config(preset="vivid-base", **opts):
         epipolar_attention_bias=bool(opts.get("epipolar_attn_bias")),
         super_res=bool(opts.get("sr_training")),
         no_time_enc=bool(opts.get("no_time_enc")),
+        depth_input=bool(opts.get("depth_input")),
+        warp_depth_coor=bool(opts.get("warp_depth_coor")),
         uncond=bool(opts.get("uncond")),
         noisy_sr=0.25 if opts.get("noisy_sr") is None else opts["noisy_sr"],
         num_sources=num_sources,
@@ -115,6 +121,7 @@ def setup_training_config(preset="vivid-base", **opts):
     c.checkpoint_nimg = opts.get("checkpoint") or None
     c.seed = opts.get("seed", 0)
     c.sr_model = opts.get("sr_model") or None
+    c.depth_model = opts.get("depth_model") or None
     c.single_image_mix = opts.get("single_image_mix") or None
     c.single_image_mix_path = opts.get("single_image_path") or None
     c.slice_nimg = opts.get("slice") or None
@@ -190,9 +197,9 @@ def launch_training(run_dir, c):
 # NVS params.
 @click.option("--epipolar-attn-bias", help="Use epipolar attn bias", is_flag=True)
 @click.option("--no-time-enc", help="Nullify time input in Encoder model", is_flag=True)
-@click.option("--depth-model", help="Depth model type (not ported)", metavar="small|base|large", type=str, default=None)
-@click.option("--depth-input", help="Adds depth in input (not ported)", is_flag=True)
-@click.option("--warp-depth-coor", help="Add coordinates and warped coordinates as input (not ported)", is_flag=True)
+@click.option("--depth-model", help="Depth model type (weights from $VIVID_DEPTH_DIR)", metavar="small|base|large", type=str, default=None)
+@click.option("--depth-input", help="Adds depth in input", is_flag=True)
+@click.option("--warp-depth-coor", help="Add coordinates and warped coordinates as input", is_flag=True)
 @click.option("--single-image-mix", help="Use single image augmentations, percent of batch", type=float, default=None)
 @click.option("--single-image-path", help="Directory of single images for the mix  [default: --data]", metavar="DIR", type=str, default=None)
 @click.option("--uncond", help="Regular (unconditional) diffusion", is_flag=True)

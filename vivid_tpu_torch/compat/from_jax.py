@@ -19,7 +19,8 @@ every EMA tree.
 trees (metrics/inception_jax.py, nn/dinov2.py; numpy leaves) into the
 port's InceptionV3 and DinoViT state dicts: conv HWIO -> OIHW with the
 batch norm's mean, var and beta; the ViT's separate q, k, v back into the
-original fused `qkv`, linear [in, out] -> [out, in].
+original fused `qkv`, linear [in, out] -> [out, in]. `depth_anything_from_jax`
+does the same for the JAX DepthAnythingV2 tree (the ViT and the DPT head).
 """
 
 from typing import Dict
@@ -155,4 +156,37 @@ def vit_from_jax(tree) -> Dict[str, torch.Tensor]:
             sd[f"{pre}.{norm}.bias"] = t(blk[norm]["b"])
         sd[f"{pre}.ls1.gamma"] = t(blk["ls1"])
         sd[f"{pre}.ls2.gamma"] = t(blk["ls2"])
+    return sd
+
+
+def depth_anything_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX DepthAnythingV2 tree (vivid_tpu/geometry/depth_anything.py
+    `params_from_state_dict`: the ViT's keys, then projects, resize0/1/3,
+    layer_rn, fusion deepest first, head) -> an original-naming checkpoint:
+    the ViT under `pretrained.`, the DPT head under `depth_head.`; convs HWIO
+    -> OIHW, the transposed convs already in torch's [Cin, Cout, k, k]."""
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))   # noqa: E731
+    sd = {f"pretrained.{k}": v for k, v in vit_from_jax(params).items()}
+
+    def conv(name, p):
+        sd[f"depth_head.{name}.weight"] = t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+        if "b" in p:
+            sd[f"depth_head.{name}.bias"] = t(p["b"])
+
+    for i in range(4):
+        conv(f"projects.{i}", params["projects"][i])
+        conv(f"scratch.layer{i + 1}_rn", params["layer_rn"][i])
+    for i in (0, 1):
+        sd[f"depth_head.resize_layers.{i}.weight"] = t(params[f"resize{i}"]["w"])
+        sd[f"depth_head.resize_layers.{i}.bias"] = t(params[f"resize{i}"]["b"])
+    conv("resize_layers.3", params["resize3"])
+    for j, stage in enumerate(params["fusion"]):   # fusion[j] is refinenet{4 - j}
+        rn = f"scratch.refinenet{4 - j}"
+        conv(f"{rn}.out_conv", stage["proj"])
+        for ours, theirs in (("resConfUnit1", "res1"), ("resConfUnit2", "res2")):
+            for c in ("conv1", "conv2"):
+                conv(f"{rn}.{ours}.{c}", stage[theirs][c])
+    for ours, theirs in (("output_conv1", "conv1"), ("output_conv2.0", "conv2"),
+                         ("output_conv2.2", "conv3")):
+        conv(f"scratch.{ours}", params["head"][theirs])
     return sd

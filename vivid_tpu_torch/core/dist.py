@@ -5,7 +5,8 @@ Counterpart of vivid_tpu/core/dist.py. Rank and world size come from
 otherwise); initialising one over NCCL is not ported yet. `all_reduce_sum`
 sums host arrays over the group (the metrics' moments). `init()` installs
 a SIGTERM handler that asks the trainer to suspend: at its next status tick
-the trainer writes a training-state checkpoint and returns.
+the trainer writes a training-state checkpoint and returns. A handler that
+was installed before it is called too.
 """
 
 import signal
@@ -15,14 +16,20 @@ import torch
 
 _should_suspend = False
 _should_stop = False
+_chained_handler = None   # the Python SIGTERM handler that was there before init()
 
 
 def init():
     """Install the SIGTERM handler (from the main thread) and clear any
-    suspend left over from an earlier run in this process."""
-    global _should_suspend, _should_stop
+    suspend left over from an earlier run in this process. A Python handler
+    that was installed before is still called after it, so that the process's
+    other users of SIGTERM keep their signal."""
+    global _should_suspend, _should_stop, _chained_handler
     _should_suspend = _should_stop = False
     try:
+        previous = signal.getsignal(signal.SIGTERM)
+        if previous is not _handle_preemption:
+            _chained_handler = previous if callable(previous) else None
         signal.signal(signal.SIGTERM, _handle_preemption)
     except (ValueError, OSError):
         pass  # not in the main thread
@@ -30,6 +37,8 @@ def init():
 
 def _handle_preemption(signum, frame):
     request_suspend()
+    if _chained_handler is not None:
+        _chained_handler(signum, frame)
 
 
 def _group():

@@ -19,10 +19,15 @@ seed and its conditioning only. Three modes:
 `datakwargs` open the scene dataset (data/re10k_scenes.py
 `open_scene_dataset`: a RealEstate10K tree or a directory of scene .npz
 files); `range_selection` ('mid', 'long') joins them, and an .npz directory
-drops it. The noise on an SR model's conditioning image (`noisy_sr`) is
-one draw per batch from a generator seeded by (`rng_seed`, batch index).
-Runs on the first CUDA card; the CPU only when `device="cpu"` asks for it.
-Depth conditioning and tensor parallelism are not ported yet and raise.
+drops it. A RealEstate10K tree is read at its test split unless `datakwargs`
+names another (the reference's generator reads its test loader; the JAX
+package reads the train split). The noise on an SR model's conditioning
+image (`noisy_sr`) is one draw per batch from a generator seeded by
+(`rng_seed`, batch index). With `depth_model` (a callable, or 'small' |
+'base' | 'large' from $VIVID_DEPTH_DIR: geometry/depth.py) each source view
+gets its predicted depth as a fourth channel, inverse-normalised for a
+`depth_input` model. Runs on the first CUDA card; the CPU only when
+`device="cpu"` asks for it. Tensor parallelism is not ported yet and raises.
 """
 
 import os
@@ -40,6 +45,7 @@ from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
 from vivid_tpu_torch.diffusion.loss import down_up_resize
 from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+from vivid_tpu_torch.geometry.depth import add_depth, resolve_depth_model
 from vivid_tpu_torch.train.snapshots import load_snapshot
 
 config_presets = {
@@ -77,9 +83,8 @@ def generate_images_nvs(
     device=None,
     **sampler_kwargs,
 ):
-    for name, value in (("depth_model", depth_model), ("tp", tp)):
-        if value:
-            raise NotImplementedError(f"{name} is not ported to vivid_tpu_torch yet")
+    if tp:
+        raise NotImplementedError("tp is not ported to vivid_tpu_torch yet")
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError('no CUDA card found; pass device="cpu" to sample on the CPU')
@@ -88,6 +93,9 @@ def generate_images_nvs(
     net = resolve_model(net, device)
     gnet = resolve_model(gnet, device)
     sr_model = resolve_model(sr_model, device)
+    depth_model = resolve_depth_model(depth_model, device=device)
+    if (net.cfg.depth_input or net.cfg.warp_depth_coor) and depth_model is None:
+        raise ValueError("a depth_input or warp_depth_coor model needs a depth_model")
     if encoder is None:
         encoder = StandardRGBEncoder()
     cfg = net.cfg
@@ -105,6 +113,7 @@ def generate_images_nvs(
     batches = np.array_split(np.arange(len(seeds)), num_batches)
 
     datakwargs = dict(datakwargs or {})
+    datakwargs.setdefault("split", "test")   # a RealEstate10K tree's; an .npz tree drops it
     if range_selection is not None:
         datakwargs.setdefault("range_selection", range_selection)
     dataset = open_scene_dataset(
@@ -143,6 +152,12 @@ def generate_images_nvs(
             tgt_raw = raw[prefix + "tgt_image"][:n]
             geometry = torch.as_tensor(raw[prefix + "geometry"][:n], device=device)
             src = encoder.encode_latents(src_raw, device=device)
+            if depth_model is not None:
+                # Depth of each source view, from its pixels.
+                flat_raw = torch.as_tensor(src_raw, device=device).flatten(0, 1)
+                flat = add_depth(depth_model, flat_raw, src.flatten(0, 1),
+                                 inv_norm=cfg.depth_input)
+                src = flat.reshape(src.shape[:2] + flat.shape[1:])
             noise = seeded_normal(r.seeds, (imsize, imsize, cfg.img_channels), device)
             # One stream per batch for the conditioning noise of an SR model.
             gen = torch.Generator(device=device).manual_seed(fold_in(rng_seed, batch_idx))

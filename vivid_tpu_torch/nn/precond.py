@@ -13,6 +13,11 @@ per-source feature stacks [B, n_src, h, w, c]. A `super_res` model (256px)
 also takes a conditioning image [B, H, W, C], the low-resolution sample
 resized to its resolution: N(0, noisy_sr^2) noise is added to it and it is
 concatenated to the scaled input of the denoiser (U-Net kind 'sr').
+The sources of a `depth_input` model carry a fourth channel, depth, which
+the encoder reads. Those of a `warp_depth_coor` model carry it too; the
+forward turns it into Fourier features of each source's pixel grid (for the
+encoder, in place of depth) and of source 0's depth-warped grid (appended to
+the denoiser's input; geometry/warp.py). The two flags together are refused.
 c_skip = sd^2/(s^2+sd^2), c_out = s*sd/sqrt(s^2+sd^2),
 c_in = 1/sqrt(sd^2+s^2), c_noise = log(s)/4.
 Compute runs in bf16 when `use_bf16` (norm math stays fp32); D_x returns in
@@ -26,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from vivid_tpu_torch.geometry.warp import get_warped_features
 from vivid_tpu_torch.nn.mp import MPConv, MPFourier
 from vivid_tpu_torch.nn.unet import UNet, UNetConfig
 
@@ -84,15 +90,22 @@ class PrecondConfig:
 
     @property
     def encoder_cfg(self) -> Optional[UNetConfig]:
+        """The encoder reads the source views: rgb, then the depth channel
+        (`depth_input`) or the 128 Fourier channels of the pixel grid
+        (`warp_depth_coor`)."""
         if self.uncond:
             return None
-        return UNetConfig(kind="encoder", img_channels=self.img_channels,
+        cin = (self.img_channels + int(self.depth_input)
+               + self.logvar_channels * int(self.warp_depth_coor))
+        return UNetConfig(kind="encoder", img_channels=cin,
                           label_dim=self.source_label_dim, **self._unet_common())
 
     @property
     def unet_cfg(self) -> UNetConfig:
-        return UNetConfig(kind="sr" if self.super_res else "xattn",
-                          img_channels=self.img_channels,
+        """The denoiser reads the noisy view, then with `warp_depth_coor` the
+        128 Fourier channels of source 0's depth-warped grid; it writes 3."""
+        cin = self.img_channels + self.logvar_channels * int(self.warp_depth_coor)
+        return UNetConfig(kind="sr" if self.super_res else "xattn", img_channels=cin,
                           label_dim=self.target_label_dim, **self._unet_common())
 
 
@@ -102,9 +115,11 @@ class NVPrecond(nn.Module):
         without memory). With `seed`, they are initialised from a
         torch.Generator on that device: weights ~ N(0, 1), gains 0."""
         super().__init__()
-        for flag in ("warp_depth_coor", "depth_input"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"PrecondConfig.{flag} is not ported")
+        if cfg.depth_input and cfg.warp_depth_coor:
+            # The encoder would be built for rgb + depth + grid, and the warp
+            # branch feeds it rgb + grid (the JAX package crashes there).
+            raise ValueError("PrecondConfig.depth_input and PrecondConfig.warp_depth_coor "
+                             "cannot both be set")
         self.cfg = cfg
         self.unet = UNet(cfg.unet_cfg, device)
         self.logvar_fourier = MPFourier(cfg.logvar_channels, device)
@@ -157,6 +172,20 @@ class NVPrecond(nn.Module):
         c_in = 1.0 / torch.sqrt(sd ** 2 + sigma ** 2)
         c_noise = torch.log(sigma.reshape(b)) / 4.0
         x_in = (c_in * x).to(dtype)
+
+        if cfg.warp_depth_coor:
+            if src is None or src.shape[-1] != 4:
+                raise ValueError("warp_depth_coor requires a depth channel in src (rgb + depth)")
+            n = cfg.num_sources
+            depth = src[..., 3:].float()
+            grid, warped = get_warped_features(
+                depth.reshape((b * n,) + depth.shape[2:]), geometry.reshape(b * n, -1),
+                self.logvar_fourier)
+            grid = grid.reshape((b, n) + grid.shape[1:])
+            src = torch.cat([src[..., :3], grid.to(src.dtype)], dim=-1)
+            # The denoised view gets source 0's warped grid.
+            warped = warped.reshape((b, n) + warped.shape[1:])[:, 0]
+            x_in = torch.cat([x_in, warped.to(dtype)], dim=-1)
 
         if inject_features is not None:
             features = inject_features

@@ -6,9 +6,12 @@ Counterpart of vivid_tpu/train/loop.py `training_loop` on one process. It
 trains `vivid-base` / `vivid-uncond` style models, the 256px
 super-resolution model (`sr_training`) and single-source models
 (`vanilla_mode`) on a directory of scene files, optionally mixed with rows
-synthesised from single images (`single_image_mix`). Not ported yet: depth
-conditioning and sharding the state over cards; their arguments raise
-NotImplementedError.
+synthesised from single images (`single_image_mix`), optionally conditioned
+on depth (`depth_model`: a callable, or 'small' | 'base' | 'large' from
+$VIVID_DEPTH_DIR; each source view of the training batch, of the sample
+grid's and of the metrics tick's gets its predicted depth as a fourth
+channel, inverse-normalised for a `depth_input` model). Not ported yet:
+sharding the state over cards (`fsdp` raises NotImplementedError).
 
 A metrics tick (`metrics_nimg`) measures EMA 0 with `metrics_fn(net, cfg)`,
 by default `metrics/api.py get_metrics` on 100 unguided samples at batch 25
@@ -51,6 +54,7 @@ from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss, down_up_resize
 from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
 from vivid_tpu_torch.generate import open_scene_dataset, resolve_model, sr_cascade
+from vivid_tpu_torch.geometry.depth import add_depth, resolve_depth_model
 from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
 from vivid_tpu_torch.train.snapshots import save_snapshot
 from vivid_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
@@ -130,9 +134,8 @@ def training_loop(
     TrainState and one dict per status tick (nimg, steps, loss, loss_std,
     learning_rate, grad_norm as means over the tick's steps, seconds)."""
     args = dict(locals())
-    for name in ("depth_model", "fsdp"):
-        if args.pop(name):
-            raise NotImplementedError(f"{name} is not ported to vivid_tpu_torch yet")
+    if args.pop("fsdp"):
+        raise NotImplementedError("fsdp is not ported to vivid_tpu_torch yet")
     args["device"] = device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card found; pass device='cpu' to train on the CPU")
@@ -148,7 +151,8 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
            slice_nimg, status_nimg, samples_nimg, metrics_nimg, snapshot_nimg,
            checkpoint_nimg, loss_scaling, force_finite, eval_samples, sr_training,
            vanilla_mode, plain_mse, single_image_mix, single_image_mix_path, sr_model,
-           metrics_fn, metrics_list, max_steps, debug, deterministic, progress_bar, device):
+           depth_model, metrics_fn, metrics_list, max_steps, debug, deterministic, progress_bar,
+           device):
     start_time = time.time()
     print0 = dist.print0
     num_sources = 1 if vanilla_mode else 2
@@ -184,6 +188,9 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         main_batch = batch_size - n_single
 
     sr_model = resolve_model(sr_model, device)
+    depth_model = resolve_depth_model(depth_model, device=device)
+    if (model_cfg.depth_input or model_cfg.warp_depth_coor) and depth_model is None:
+        raise ValueError("a depth_input or warp_depth_coor model needs a depth_model")
     test_split = dataset_kwargs.get("split", "test")   # a RealEstate10K tree's split
     test_loader = None
     if test_dataset_path and eval_samples:
@@ -200,6 +207,7 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
             from vivid_tpu_torch.metrics.api import get_metrics
             return get_metrics(EasyDict(net=net, cfg=cfg), encoder=encoder, num_images=100,
                                metrics=metrics_list, max_batch_size=25, device=device,
+                               depth_model=depth_model,
                                datakwargs={"path": test_dataset_path, "split": test_split})
 
     if encoder_kwargs:
@@ -283,6 +291,16 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
 
     loader_wait = [0.0, 0]   # seconds blocked on the scene loader, rows fetched
 
+    def with_depth(src, raw_src):
+        """Source latents [B, S, H, W, C] with each view's predicted depth
+        appended, from its pixels `raw_src`."""
+        if depth_model is None:
+            return src
+        with torch.no_grad():
+            flat = add_depth(depth_model, torch.as_tensor(raw_src, device=device).flatten(0, 1),
+                             src.flatten(0, 1), inv_norm=model_cfg.depth_input)
+        return flat.reshape(src.shape[:2] + flat.shape[1:])
+
     def fetch_batch():
         t0 = time.time()
         raw = next(loader)
@@ -291,7 +309,8 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         if single_loader is not None:
             extra = next(single_loader)
             raw = {k: np.concatenate([raw[k], extra[k]], axis=0) for k in raw}
-        return {"src": encoder.encode_latents(raw["src_image"], device=device),
+        return {"src": with_depth(encoder.encode_latents(raw["src_image"], device=device),
+                                  raw["src_image"]),
                 "tgt": encoder.encode_latents(raw["tgt_image"], device=device),
                 "geometry": torch.as_tensor(raw["geometry"], device=device)}
 
@@ -320,7 +339,8 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         raw = next(test_loader)
         eval_net = ema0_net()
         gen = torch.Generator(device=device).manual_seed(fold_in(seed, cur_nimg + 1))
-        src = encoder.encode_latents(raw["src_image"], device=device)
+        src = with_depth(encoder.encode_latents(raw["src_image"], device=device),
+                         raw["src_image"])
         geometry = torch.as_tensor(raw["geometry"], device=device)
         noise = torch.randn(raw["tgt_image"].shape, generator=gen, device=device)
         cond = None

@@ -3,9 +3,10 @@
 A snapshot is a pickle of plain data: dict(format, ema=<nested dict of
 numpy arrays in the JAX tree layout>, model_cfg=<PrecondConfig fields>,
 encoder, dataset_kwargs, loss_kwargs). Weights are stored fp16 and load as
-fp32, so a snapshot either package writes loads in the other. Unpickling
-runs code, so load only snapshots you trust. The reference's torch
-pickles are not read yet.
+fp32, so a snapshot either package writes loads in the other.
+`load_snapshot` also reads the reference's torch persistence pickles (the
+shipped vivid-*.pkl), through `compat.torch_pickle`. Unpickling runs code,
+so load only snapshots you trust.
 """
 
 import dataclasses
@@ -15,11 +16,12 @@ import pickle
 import numpy as np
 
 from vivid_tpu_torch.compat.from_jax import from_jax, to_jax
+from vivid_tpu_torch.compat.torch_pickle import (ENCODER, load_reference_module,
+                                                 snapshot_from_reference)
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
 
 SNAPSHOT_FORMAT = "vivid_tpu.snapshot.v1"
-ENCODER = "vivid_tpu.data.encoders.StandardRGBEncoder"  # the codec's registry name
 
 
 def _map_tree(tree, fn):
@@ -47,11 +49,18 @@ def save_snapshot(path: str, net: NVPrecond, state=None, dataset_kwargs=None,
 
 def load_snapshot(path: str, device="cpu") -> EasyDict:
     """-> EasyDict(net=NVPrecond on `device` in eval mode, cfg, encoder,
-    dataset_kwargs, loss_kwargs)."""
+    dataset_kwargs, loss_kwargs). A pickle that is not a v1 snapshot is read
+    as a reference pickle (`compat.torch_pickle`); a file that is not a
+    pickle raises ValueError."""
     with open(path, "rb") as f:
-        data = pickle.load(f)
+        head = f.read(1)
+    if head != b"\x80":
+        raise ValueError(f"{path!r} is not a pickle")
+    # The reference reader's unpickler also reads a v1 snapshot, which holds
+    # plain data only: one read serves both formats.
+    data = load_reference_module(path)
     if not (isinstance(data, dict) and data.get("format") == SNAPSHOT_FORMAT):
-        raise ValueError(f"{path!r} is not a {SNAPSHOT_FORMAT} snapshot")
+        return snapshot_from_reference(data, path, device=device)
     cfg_dict = dict(data["model_cfg"])
     for k in ("channel_mult", "attn_resolutions"):
         if isinstance(cfg_dict.get(k), list):
