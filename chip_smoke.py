@@ -93,6 +93,27 @@ its own:
   profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations,
            over 2 training steps at 64px and over 2 at 256px: device busy
            time, device operations, idle share, time by kind, the top kernels
+  dist     torch.distributed on the one card, each job in spawned processes
+           of its own: NCCL at world size 1 (all_reduce_sum and the stats
+           collector on the card, a host tensor refused; full-width
+           vivid-base, batch 8, 2 deterministic steps through the trainer's
+           entry point with --fsdp against the same without, bit for bit or
+           within the CPU tests' hold, and a --fsdp checkpoint resumed
+           without it); NCCL's answer to two ranks on one card; two ranks
+           on the card over gloo with CUDA tensors (NCCL, had it taken
+           them): the data-parallel gradient of 2 x 4 rows against one rank
+           at 8 under the train phase's gate, with a planted per-rank clamp
+           (an outlier row on rank 1) that must fail it, 2 steps against one
+           rank, the consistency check and a one-ulp nudge it must catch;
+           tp 2 against tp 1 for one NVPrecond call of vivid-base,
+           vivid-uncond and vivid-sr (batch 4) under the model phase's gate
+           with a control of one ulp on every product and attention output,
+           and a planted self-normalised slice that must fail it; guided
+           sampling at tp 2 (8 seeds, 4 Heun steps) bitwise equal on both
+           ranks, K1/K2 at 34 / 17 an evaluation, within the gate of tp 1;
+           seed sharding (8 seeds over 2 ranks, each PNG written once). Its
+           times are no speed: two ranks share one card and gloo stages
+           every collective through the host
 
 Any failed check raises, so the script exits non-zero. Without a CUDA card
 it exits non-zero before printing any result. The line before the last is
@@ -138,6 +159,11 @@ SR_XATTN_SHAPE = (1024, 8, 32)   # K2 in the 256px denoiser at 32x32, one source
 # encoder keeps the config's 64 channels a head, so half the heads).
 NOMAX_SHAPES = [(16384, 32768, 4, 32), (16384, 16384, 2, 64),
                 (4096, 8192, 6, 32), (4096, 4096, 3, 64)]
+# The attention shapes tensor parallelism gives the kernels (`_tp_cases`):
+# (S, local heads, d, cross sources) of K1/K2, (Sq, Sk, local heads, d) of K6.
+TP_PACKED_SHAPES = [(1024, 1, 64, 2), (1024, 2, 64, 2), (1024, 3, 64, 2), (256, 3, 64, 2),
+                    (64, 2, 64, 2), (1024, 4, 32, 1)]
+TP_NOMAX_SHAPES = [(16384, 32768, 2, 32), (16384, 16384, 1, 64), (4096, 8192, 3, 32)]
 SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xattn": 3}
 SR_PER_EVAL_NOMAX = {"flash_nomax": 8, "flash_nomax_packed": 6}   # VIVID_NOMAX_PACKED=1
 SHELL_CUBLAS_WORKSPACE = ":4096:8"   # cuBLAS's deterministic workspace, for the shell phase
@@ -538,6 +564,62 @@ def _big_s_cases(torch, gen):
             bytes=2 * (5 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
             + (8 * bias.numel() if biased else 0),
             flops=10 * b * h * sq * sk * d, exps=b * h * sq * sk))
+    return cases
+
+
+def _tp_cases(torch, gen):
+    """K1/K2 and K6 at the head counts `--tp` gives them (phase `dist`): a
+    block split over 2 ranks runs its attention at H / 2 heads, over 4 at
+    H / 4. vivid-base at tp 2: H 2 at S 1024, 3 at 256, 4 at 64; at tp 4:
+    H 1 at 1024 and 2 at 64 (its 6-head blocks stay whole); K1 with the
+    unconditional model's zero sink too; the SR denoiser's K2 at S 1024,
+    H 4, d 32 (one source); K6 at the SR model's halved heads (H 2 / 1 / 3;
+    its 3-head encoder blocks at 4096 stay whole). Same keys as
+    `_kernel_cases`; no headline, no library call."""
+    from vivid_tpu_torch.kernels import flash
+    dev = "cuda"
+
+    def rows(shape):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        return x * torch.exp(torch.randn(*shape[:-1], 1, generator=gen, device=dev))
+
+    def packed(s, parts, h, d):
+        return rows((BATCH, s, parts * h, d)).reshape(BATCH, s, parts * h * d).bfloat16()
+
+    cases = []
+    for s, h, d, n_src in TP_PACKED_SHAPES:
+        qkv = packed(s, 3, h, d)
+        feats = [packed(s, 2, h, d) for _ in range(n_src)]
+        f32 = [f.float() for f in feats]
+        io = 2 * (qkv.numel() + BATCH * s * h * d)
+        common = dict(d=d, headline=False, library=None,
+                      plan=flash.packed_fwd_plan(BATCH, s, h))
+        sinks = (0, 2 * s) if n_src == 2 else ()
+        for sink in sinks:
+            cases.append(dict(
+                common, name="flash_fused_packed", label=f"tp S={s} H={h} d={d} sink={sink}",
+                kernel=lambda qkv=qkv, h=h, sink=sink: (flash.flash_fused_packed(qkv, h, sink),),
+                plain32=lambda qkv=qkv, h=h, sink=sink: (flash.flash_fused_packed_ref(qkv.float(), h, sink),),
+                plain=lambda qkv=qkv, h=h, sink=sink: flash.flash_fused_packed_ref(qkv, h, sink),
+                bytes=io, flops=4 * BATCH * h * s * s * d, exps=BATCH * h * s * s))
+        sk = s * (1 + n_src)
+        cases.append(dict(
+            common, name="flash_fused_packed_xattn", label=f"tp S={s} H={h} d={d} n_src={n_src}",
+            kernel=lambda qkv=qkv, feats=feats, h=h: (flash.flash_fused_packed_xattn(qkv, feats, h),),
+            plain32=lambda qkv=qkv, f32=f32, h=h: (flash.flash_fused_packed_xattn_ref(qkv.float(), f32, h),),
+            plain=lambda qkv=qkv, feats=feats, h=h: flash.flash_fused_packed_xattn_ref(qkv, feats, h),
+            bytes=io + 2 * sum(f.numel() for f in feats), flops=4 * BATCH * h * s * sk * d,
+            exps=BATCH * h * s * sk))
+    for sq, sk, h, d in TP_NOMAX_SHAPES:
+        q, k, v = (flash._rms_norm(rows((BATCH, h, n, d)).bfloat16()) for n in (sq, sk, sk))
+        cases.append(dict(
+            name="flash_nomax", d=d, label=f"tp B={BATCH} H={h} Sq={sq} Sk={sk} d={d}",
+            headline=False, library=None, plain_reps=3,
+            kernel=lambda q=q, k=k, v=v: (flash.flash_nomax(q, k, v),),
+            plain32=lambda q=q, k=k, v=v: (flash.flash_nomax_ref(q.float(), k.float(), v.float()),),
+            plain=lambda q=q, k=k, v=v: flash.flash_nomax_ref(q, k, v),
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()), flops=4 * BATCH * h * sq * sk * d,
+            exps=BATCH * h * sq * sk))
     return cases
 
 
@@ -1104,7 +1186,7 @@ def phase_kernels(table):
     _check_fused_norm(torch, torch.Generator(device="cuda").manual_seed(10))
     _check_conv_faults(torch, torch.Generator(device="cuda").manual_seed(11))
     for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
-                 + _fused_lab_conv_cases(torch, gen)):
+                 + _fused_lab_conv_cases(torch, gen) + _tp_cases(torch, gen)):
         name, label = case["name"], case["label"]
         got = [t.float() for t in case["kernel"]()]
         again = case["kernel"]()
@@ -1312,6 +1394,7 @@ def main():
     del nets
     phase_profile_train()
     phase_profile_train_sr()
+    phase_dist(card)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3047,6 +3130,682 @@ def phase_shell(card, sr_model=None):
         say("shell", ms_per_step_deterministic=[f"{x:.1f}" for x in step_ms[True]],
             ms_per_step_default=[f"{x:.1f}" for x in step_ms[False]],
             note="median_of_steps_2_to_4", card=f"'{card}'")
+
+
+# ---------------------------------------------------------------------------
+# Phase `dist`: torch.distributed on the one card. Each job runs in spawned
+# processes of its own (one a rank), joined or killed within DIST_TIMEOUT.
+
+DIST_TIMEOUT = 300      # seconds a job may take before its processes are killed
+OUTLIER = 30.0          # one target row scaled by this (on rank 1): the clamp's statistics feel it
+TOL_DIST_CUT = 1e-5     # rel L2, two ranks' gradient vs the batch cut the same way in one process
+TOL_DIST_STEP = 1e-5    # relative, two ranks' step-1 loss and global norm vs that process's step
+
+
+def _spawn_ranks(fn, world, workdir, timeout=DIST_TIMEOUT, env=None, **kwargs):
+    """(results, problems): what `fn(rank, world, **kwargs)` returned on each
+    of `world` spawned processes, and what went wrong (a rank that raised,
+    exited without a result or outlived `timeout`, with the end of its
+    output). Each rank finds the launcher's environment that `dist.init`
+    reads: VIVID_COORDINATOR on a FileStore of this job's own under
+    `workdir`, VIVID_NUM_PROCESSES and VIVID_PROCESS_ID. Each rank's output
+    goes to a file; its `[dist]` lines are printed here. Every process is
+    joined or killed before this returns."""
+    import multiprocessing
+    import pickle
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(workdir, f"store_{fn.__name__}")
+    outs = [os.path.join(workdir, f"{fn.__name__}_rank{r}.pkl") for r in range(world)]
+    with _environ(**(env or {})):
+        procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, store, outs[r], kwargs))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    results, problems = [], [f"rank {r} still running after {timeout} s" for r in hung]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = open(out + ".log", errors="replace").read().splitlines() \
+            if os.path.exists(out + ".log") else []
+        for line in lines:
+            if line.startswith("[dist]"):
+                print(line, flush=True)
+        tail = "\n".join(lines[-80:])
+        if not os.path.exists(out):
+            problems.append(f"rank {r} exited with {p.exitcode} and no result; its output "
+                            f"ended:\n{tail}")
+            results.append(None)
+            continue
+        with open(out, "rb") as f:
+            status, value = pickle.load(f)
+        if status == "error":
+            problems.append(f"rank {r} raised:\n{value}\nits output ended:\n{tail}")
+            value = None
+        results.append(value)
+    return results, problems
+
+
+def _rank_entry(fn, rank, world, store, out, kwargs):
+    """A spawned rank: the launcher's environment, its output to a file
+    beside `out`, the card's settings as `phase_device` makes them, the job,
+    its result written for the parent; then the process ends at once (a
+    group whose start-up failed is not torn down)."""
+    import pickle
+    import traceback
+    os.environ.update(VIVID_COORDINATOR=f"file://{store}", VIVID_NUM_PROCESSES=str(world),
+                      VIVID_PROCESS_ID=str(rank))
+    log = open(out + ".log", "w")
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
+    sys.stdout = sys.stderr = log
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        result = ("ok", fn(rank, world, **kwargs))
+    except BaseException:
+        result = ("error", traceback.format_exc())
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _agree(a_state, b_state, lr, steps):
+    """How two training states that took `steps` Adam steps at rate `lr`
+    agree: (a line for each group, bitwise everywhere, within the hold
+    everywhere). A line says bitwise or not, and for the parameters and
+    EMAs the largest difference in units of lr and the share of values
+    further apart than 0.01 lr a step, for the moments the relative L2. The
+    hold is the CPU tests' on stepped tensors: 2.1 lr a step, a share of
+    1e-3, moments 2e-3."""
+    import torch
+    from vivid_tpu_torch.core.sharding import full_tensor
+    out, all_bitwise, all_held = {}, True, True
+    pairs = [(g, getattr(a_state, g), getattr(b_state, g)) for g in ("params", "adam_m", "adam_v")]
+    pairs += [(f"emas[{i}]", a, b) for i, (a, b) in enumerate(zip(a_state.emas, b_state.emas))]
+    for group, xs, ys in pairs:
+        bitwise, worst, far, n, sq_d, sq = True, 0.0, 0, 0, 0.0, 0.0
+        for a, b in zip(xs, ys):
+            a, b = full_tensor(a).double(), full_tensor(b).double()
+            bitwise = bitwise and torch.equal(a, b)
+            d = (a - b).abs()
+            if d.numel():
+                worst = max(worst, d.max().item())
+            far += int((d > 0.01 * lr * steps).sum())
+            n += d.numel()
+            sq_d += d.square().sum().item()
+            sq += b.square().sum().item()
+        moments = group.startswith("adam")
+        rel = (sq_d / max(sq, 1e-300)) ** 0.5
+        out[group] = (f"bitwise={bitwise}_rel_l2={rel:.2e}" if moments else
+                      f"bitwise={bitwise}_max_lr={worst / lr:.3g}_far_share={far / n:.2e}")
+        all_bitwise = all_bitwise and bitwise
+        all_held = all_held and (bitwise or (rel <= 2e-3 if moments else
+                                             worst <= 2.1 * lr * steps and far <= 1e-3 * n))
+    return out, all_bitwise, all_held
+
+
+def _dist_one_card(rank, world, data, tmp):
+    """NCCL at world size 1: the host reductions on the card; then
+    `vivid-base` at full width, batch 8, 2 deterministic steps through the
+    trainer's entry point with and without --fsdp, and a --fsdp slice of 1
+    step resumed without --fsdp for the second. `dist.init` makes no group
+    for one process, so this job makes it, on the launcher's store."""
+    import numpy as np
+    import torch
+    from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
+    from vivid_tpu_torch.core import dist, stats as stats_mod
+    dist.init(device="cuda:0")
+    check(not torch.distributed.is_initialized(), "dist: dist.init made a group of one")
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "nccl", init_method=os.environ["VIVID_COORDINATOR"], rank=rank, world_size=world,
+        device_id=torch.device("cuda", 0))
+    # Fault 1 of the port before this phase: its reductions took host
+    # tensors, which NCCL refuses.
+    try:
+        torch.distributed.all_reduce(torch.ones(2))
+        torch.cuda.synchronize()
+        refused = None
+    except Exception as err:   # noqa: BLE001 (the refusal is what is shown)
+        refused = str(err).splitlines()[0][:160]
+    check(refused is not None, "dist: NCCL took a host tensor")
+    summed = dist.all_reduce_sum(np.array([1.5, 2.5]))
+    stats = stats_mod.Stats()
+    collector = stats_mod.Collector(stats)
+    stats.report("x", [1.0, 3.0])
+    collector.update()
+    moments = collector.as_dict()["x"]
+    check(list(summed) == [1.5, 2.5] and moments.num == 2 and moments.mean == 2.0,
+          f"dist: all_reduce_sum {summed}, stats {moments}")
+    say("dist", check="nccl_world_1", dist_init_made_a_group=False,
+        backend=torch.distributed.get_backend(),
+        group_device=dist.group_device(), all_reduce_sum=list(summed),
+        stats_num=moments.num, stats_mean=moments.mean, host_tensor_refused=f"'{refused}'")
+
+    def train(name, fsdp, steps, slice_nimg=None):
+        c = setup_training_config(preset="vivid-base", data=data, batch=BATCH, remat="false",
+                                  seed=0, device="cuda", deterministic=True, fsdp=fsdp)
+        c.update(status_nimg=BATCH * 6, snapshot_nimg=None, samples_nimg=None,
+                 checkpoint_nimg=BATCH * 6 if slice_nimg else None, max_steps=steps,
+                 slice_nimg=slice_nimg)
+        c.lr_kwargs.rampup_Mimg = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = launch_training(os.path.join(tmp, name), c)
+        torch.cuda.synchronize()
+        step_ms = [round(t["seconds"] * 1e3, 1) for t in result.ticks[1:]]
+        say("dist", run=name, fsdp=fsdp, steps=steps, step_ms_not_speed=step_ms,
+            total_s=f"{time.perf_counter() - t0:.2f}",
+            loss=[round(t["loss"], 5) for t in result.ticks[1:]])
+        return result.state
+
+    plain = train("plain", False, 2)
+
+    def compare(tag, other):
+        lines, bitwise, held = _agree(other, plain, 0.0120, 2)   # the preset's learning rate
+        say("dist", check=tag, bitwise=bitwise, within_hold=held, **lines)
+        check(held, f"dist: {tag}: {lines}")
+        return bitwise
+
+    fsdp_state = train("fsdp", True, 2)
+    fsdp_bitwise = compare("fsdp_vs_plain", fsdp_state)
+    del fsdp_state
+    train("fsdp_then_plain", True, 1, slice_nimg=BATCH * 6)
+    resumed = train("fsdp_then_plain", False, 1)
+    check(resumed.cur_nimg == plain.cur_nimg and resumed.adam_step == 2,
+          f"dist: the resume ended at {resumed.cur_nimg} nimg, step {resumed.adam_step}")
+    resume_bitwise = compare("fsdp_checkpoint_resumed_without_fsdp", resumed)
+    return dict(fsdp_bitwise=fsdp_bitwise, resume_bitwise=resume_bitwise, refused=refused)
+
+
+def _dist_nccl_probe(rank, world):
+    """Two ranks on the one card through the port's start-up, `dist.init`
+    on cuda:0, which picks NCCL: the start-up and one all-reduce, or NCCL's
+    refusal, where it came (`stage`) and the group left behind (its backend,
+    or None)."""
+    import torch
+    from vivid_tpu_torch.core import dist
+    stage = "dist.init"
+    try:
+        dist.init(device="cuda:0")
+        stage = "all_reduce"
+        t = torch.ones(1, device="cuda:0")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        return dict(ok=t.item() == world, answer="ok", stage=stage,
+                    backend=torch.distributed.get_backend())
+    except Exception as err:   # noqa: BLE001 (NCCL's refusal is the answer)
+        text = " ".join(str(err).split())
+        left = torch.distributed.get_backend() if torch.distributed.is_initialized() else None
+        return dict(ok=False, answer=f"{stage}: {type(err).__name__}: {text[:300]}",
+                    stage=stage, backend=left)
+
+
+def _noisy_kernels(stack, noise_gen, names):
+    """Patch the named attention kernels of `flash` so that each output
+    moves by one bf16 ulp (the control of the model and train phases)."""
+    from unittest import mock
+    from vivid_tpu_torch.kernels import flash
+
+    def noisy(fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            if isinstance(out, tuple):
+                return (_ulp_noise(out[0], noise_gen),
+                        tuple(_ulp_noise(t, noise_gen) for t in out[1]), out[2])
+            return _ulp_noise(out, noise_gen)
+        return run
+    for name in names:
+        stack.enter_context(mock.patch.object(flash, name, noisy(getattr(flash, name))))
+
+
+def _noisy_products(stack, nets, noise_gen):
+    """One bf16 ulp on every MPConv output of `nets` (forward hooks) and on
+    every attention output: the control for tensor parallelism, which
+    changes where the products' partial sums are rounded."""
+    from vivid_tpu_torch.nn.mp import MPConv
+    hooks = [m.register_forward_hook(lambda mod, args, out: _ulp_noise(out, noise_gen))
+             for net in nets for m in net.modules() if isinstance(m, MPConv)]
+    stack.callback(lambda: [h.remove() for h in hooks])
+    _noisy_kernels(stack, noise_gen, ("flash_fused_packed", "flash_fused_packed_xattn",
+                                      "flash_nomax"))
+
+
+def _self_normalised(stack):
+    """The planted fault of tensor parallelism: a row-parallel weight slice
+    (input channels) normalised by itself instead of the whole weight."""
+    from unittest import mock
+    import torch
+    from vivid_tpu_torch.nn import mp
+    real = mp.MPConv.normalized_weight
+
+    def sliced_first(conv, dtype, gain=1.0, rows=None, cols=None):
+        if cols is None:
+            return real(conv, dtype, gain, rows)
+        part = mp.MPConv(1, 1, ())
+        part.weight = torch.nn.Parameter(conv.weight[:, cols], requires_grad=False)
+        return real(part, dtype, gain, rows)
+    stack.enter_context(mock.patch.object(mp.MPConv, "normalized_weight", sliced_first))
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _dist_two_ranks(rank, world, backend, data, tmp):
+    """Two ranks on the one card over `backend`: the data-parallel gradient
+    and steps of full-width vivid-base against one rank at batch 8, with a
+    planted per-rank clamp; the consistency check and a one-ulp nudge;
+    tensor parallelism (tp 2) of vivid-base, vivid-uncond and vivid-sr
+    against tp 1 with a planted fault, guided sampling under tp 2 and seed
+    sharding through `generate_images_nvs`."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+    import PIL.Image
+    import torch
+    from vivid_tpu_torch import generate
+    from vivid_tpu_torch.core import consistency, dist, sharding
+    from vivid_tpu_torch.core.easydict import EasyDict
+    from vivid_tpu_torch.diffusion.loss import NVLoss, clamp_loss, global_moments
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.nn.blocks import Block
+    from vivid_tpu_torch.train import step as step_mod
+    from vivid_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
+    dist.init(backend=backend, device="cuda:0")   # every rank on the one card
+    check(torch.distributed.get_backend() == backend,
+          f"dist: dist.init chose {torch.distributed.get_backend()}, not {backend}")
+    group = dist.group()
+    lead = rank == 0
+    report = say if lead else (lambda *a, **k: None)
+
+    def settle(tag, problems):
+        """Fail on every rank if any rank found a problem: a check that only
+        rank 0 makes must not leave rank 1 waiting in the next collective."""
+        everyone = [None] * world
+        torch.distributed.all_gather_object(everyone, problems)
+        check(not any(everyone), f"dist: {tag}: {everyone}")
+
+    # Data parallel: the gradient of one global batch of 8, 4 rows a rank.
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = dict(
+        src=torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1),
+        tgt=torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1),
+        geometry=torch.randn(BATCH, 2, 20, generator=gen, device="cuda"))
+    batch["tgt"][BATCH - 1] *= OUTLIER
+    loss_fn = NVLoss(P_mean=-0.8, P_std=1.6)
+    draws = [(loss_fn.sample_sigma(gen, BATCH, "cuda"),
+              torch.randn(batch["tgt"].shape, generator=gen, device="cuda")) for _ in range(2)]
+    half = slice(rank * BATCH // world, (rank + 1) * BATCH // world)
+    every = slice(0, BATCH)
+    net = _full_width(uncond=False, train=True)
+    params = list(net.parameters())
+    noise_gen = torch.Generator(device="cuda")
+
+    def gradient(rows, reduce=True, per_rank=False, control=False):
+        with contextlib.ExitStack() as stack:
+            if control:
+                _noisy_kernels(stack, noise_gen, ("flash_fused_packed", "flash_fused_packed_xattn",
+                                                  "flash_fused_packed_bwd",
+                                                  "flash_fused_packed_xattn_bwd"))
+            noise_gen.manual_seed(5)
+            for p in params:
+                p.grad = None
+            sigma, eps = draws[0]
+            loss = loss_fn(net, batch["src"][rows], batch["tgt"][rows], batch["geometry"][rows],
+                           sigma=sigma[rows], eps=eps[rows])
+            loss = clamp_loss(loss, None if per_rank or not reduce else group)
+            (loss.sum() / loss.shape[0]).backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if reduce:
+            sharding.all_reduce_gradients(grads, group)
+        flat = torch.cat([g.float().reshape(-1) for g in grads])
+        for p in params:
+            p.grad = None
+        return flat
+
+    def gradient_split():
+        """One process, the batch cut into the ranks' shares: each share's
+        forward and clamp (with the whole batch's statistics), the mean of
+        their scaled sums, one backward. The rounding that cutting the batch
+        brings, with no communication."""
+        for p in params:
+            p.grad = None
+        sigma, eps = draws[0]
+        shares = [slice(r * BATCH // world, (r + 1) * BATCH // world) for r in range(world)]
+        losses = [loss_fn(net, batch["src"][c], batch["tgt"][c], batch["geometry"][c],
+                          sigma=sigma[c], eps=eps[c]) for c in shares]
+        _, m, s = global_moments(torch.cat([l.detach().reshape(-1) for l in losses]))
+        sum(torch.clamp(l, m - 3 * s, m + 3 * s).sum() / l.shape[0] for l in losses).div(
+            world).backward()
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                          .float().reshape(-1) for p in params])
+        for p in params:
+            p.grad = None
+        return flat
+
+    got = gradient(half)
+    faulty = gradient(half, per_rank=True)
+    problems = []
+    if lead:
+        want = gradient(every, reduce=False)
+        control = _rel_l2(gradient(every, reduce=False, control=True), want)
+        split = gradient_split()
+        control_split = _rel_l2(split, want)
+        err, fault, cut = _rel_l2(got, want), _rel_l2(faulty, want), _rel_l2(got, split)
+        gate = TOL_GRAD_CONTROL * max(control, control_split)
+        report("dist", check="data_parallel_gradient",
+               backend_chosen_by_dist_init=torch.distributed.get_backend(), net="vivid-base",
+               batch=f"{BATCH}_as_2x{BATCH // world}", outlier_row=BATCH - 1,
+               grad_rel_l2=f"{err:.3e}", control_ulp_rel_l2=f"{control:.3e}",
+               control_batch_cut_rel_l2=f"{control_split:.3e}",
+               ratio=f"{err / max(control, control_split):.3f}", gate=f"{gate:.3e}",
+               vs_batch_cut_in_one_process_rel_l2=f"{cut:.3e}", batch_cut_gate=TOL_DIST_CUT,
+               fault_per_rank_clamp_rel_l2=f"{fault:.3e}")
+        if err > gate:
+            problems.append(f"data-parallel gradient rel L2 {err} > {gate}")
+        if cut > TOL_DIST_CUT:
+            problems.append(f"data-parallel gradient against the batch cut in one process: "
+                            f"rel L2 {cut} > {TOL_DIST_CUT}")
+        if fault <= gate:
+            problems.append(f"the per-rank clamp gives {fault}, within the gate {gate}")
+        del want, split
+    del got, faulty
+    settle("data-parallel gradient", problems)
+
+    # Two steps of make_train_step(group), each rank on its half, against one
+    # process that steps the same cut batch: the halves as its two
+    # microbatches (num_accum 2), clamped with the statistics that
+    # global_moments takes over the ranks (each share's fp64 sums, added).
+    # Step 1 is checked: the global loss, Grad/global_norm and every tensor
+    # of the state after the update. Step 2 is reported, not checked: it
+    # follows updates that differ by rounding, and Adam's first steps turn
+    # the rounding of a gradient near 0 into up to 2 lr.
+    cfg = TrainConfig(batch_size=BATCH, ref_lr=0.0120, ref_batches=35000, rampup_Mimg=0.0,
+                      nimg_mult=6)
+    state = init_train_state(net, cfg)
+    step = make_train_step(loss_fn, cfg, group=group)
+    shares = [slice(r * BATCH // world, (r + 1) * BATCH // world) for r in range(world)]
+    if lead:
+        one = init_train_state(_full_width(uncond=False, train=True), cfg)
+        one_step = make_train_step(loss_fn, dataclasses.replace(cfg, num_accum=world))
+
+    def sums(ls):
+        return sum(torch.stack([torch.tensor(float(l.numel()), dtype=torch.float64,
+                                             device=l.device), l.double().sum(),
+                                l.double().square().sum()]) for l in ls)
+
+    def cut_step(sigma, eps):
+        """One step of the cut batch in one process: (its stats, the global
+        loss of its clamped shares)."""
+        with torch.no_grad():
+            losses = [loss_fn(one.net, batch["src"][c], batch["tgt"][c], batch["geometry"][c],
+                              sigma=sigma[c], eps=eps[c]) for c in shares]
+        n, s, ss = sums(losses).unbind()
+        m = s / n
+        sd = torch.sqrt(torch.clamp(ss / n - m * m, min=0.0))
+        lo, hi = (m - 3 * sd).to(losses[0].dtype), (m + 3 * sd).to(losses[0].dtype)
+        n, s, _ = sums([torch.clamp(l, lo, hi) for l in losses]).unbind()
+        with mock.patch.object(step_mod, "clamp_loss",
+                               lambda loss, group=None: torch.clamp(loss, lo, hi)):
+            st = one_step(one, batch, sigma=sigma, eps=eps)
+        return st, (s / n).item()
+
+    stats, norms, step_ms, one_stats, one_norms = [], [], [], [], []
+    for i, (sigma, eps) in enumerate(draws):
+        problems = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = step(state, {k: v[half] for k, v in batch.items()}, sigma=sigma[half], eps=eps[half])
+        stats.append(float(st["Loss/loss"]))
+        norms.append(float(st["Grad/global_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if lead:
+            one_st, one_loss = cut_step(sigma, eps)
+            one_stats.append(one_loss)
+            one_norms.append(float(one_st["Grad/global_norm"]))
+            lines, bitwise, held = _agree(state, one, cfg.ref_lr, i + 1)
+            report("dist", check=f"data_parallel_step_{i + 1}", checked=i == 0,
+                   against="one_process_cut_batch_global_clamp", loss_two_ranks=stats[-1],
+                   loss_one_process=one_loss, global_norm_two_ranks=norms[-1],
+                   global_norm_one_process=one_norms[-1],
+                   step_ms_not_speed=round(step_ms[-1], 1), bitwise=bitwise, within_hold=held,
+                   **lines)
+            if i == 0:
+                for what, a, b in (("global loss", stats[-1], one_loss),
+                                   ("Grad/global_norm", norms[-1], one_norms[-1])):
+                    if abs(a - b) > TOL_DIST_STEP * abs(b):
+                        problems.append(f"step 1: {what} {a} on two ranks, {b} in one process")
+                if not held:
+                    problems.append(f"step 1: the state after the update: {lines}")
+        settle(f"data-parallel step {i + 1}", problems)
+    if lead:
+        del one
+    # The replicas agree; one ulp on rank 1 is caught on both ranks.
+    named = dict(zip(state.names, state.params))
+    check(consistency.check_param_consistency(named, "net params"), "dist: consistency")
+    if rank == 1:
+        with torch.no_grad():
+            w = state.params[0].view(-1)
+            w[0] = torch.nextafter(w[0], torch.tensor(float("inf"), device=w.device))
+    try:
+        consistency.check_param_consistency(named, "net params")
+        nudged = None
+    except RuntimeError as err:
+        nudged = str(err)
+    check(nudged is not None and "'net params'" in nudged,
+          f"dist: a one-ulp divergence passed the consistency check: {nudged}")
+    report("dist", check="consistency", equal_replicas="pass", one_ulp_on_rank_1=f"'{nudged}'")
+    del net, params, state, step, named
+    torch.cuda.empty_cache()
+
+    # Tensor parallelism: one NVPrecond call at tp 2 against tp 1.
+    tp_group, _, _, _ = sharding.tp_groups(world)
+    g2 = torch.Generator(device="cuda").manual_seed(1)
+    base_in = (torch.randn(BATCH, 2, 64, 64, 3, generator=g2, device="cuda").clamp(-1, 1),
+               torch.randn(BATCH, 64, 64, 3, generator=g2, device="cuda"),
+               torch.ones(BATCH, device="cuda"),
+               torch.randn(BATCH, 2, 20, generator=g2, device="cuda"))
+    sr_b = BATCH // 2
+    sr_in = (torch.randn(sr_b, 1, 256, 256, 3, generator=g2, device="cuda").clamp(-1, 1),
+             torch.randn(sr_b, 256, 256, 3, generator=g2, device="cuda"),
+             torch.ones(sr_b, device="cuda"), torch.randn(sr_b, 1, 20, generator=g2, device="cuda"))
+    sr_kw = dict(conditioning_image=torch.randn(sr_b, 256, 256, 3, generator=g2,
+                                                device="cuda").clamp(-1, 1),
+                 cond_noise=torch.randn(sr_b, 256, 256, 3, generator=g2, device="cuda"))
+    for label, make, args, kw in (("vivid-base", lambda: _full_width(False), base_in, {}),
+                                  ("vivid-uncond", lambda: _full_width(True), base_in, {}),
+                                  ("vivid-sr", _full_width_sr, sr_in, sr_kw)):
+        whole, split = make(), sharding.tensor_parallel(make(), tp_group)
+
+        def run(net, stack_fn=None):
+            with contextlib.ExitStack() as stack, torch.no_grad():
+                if stack_fn:
+                    stack_fn(stack)
+                noise_gen.manual_seed(2)
+                return net(*args, **kw)
+        want = run(whole)
+        control = _rel_l2(run(whole, lambda s: _noisy_products(s, [whole], noise_gen)), want)
+        before = dict(flash.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(split)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        used = {k: n - before[k] for k, n in flash.launches.items() if n - before[k]}
+        faulty = _rel_l2(run(split, _self_normalised), want)
+        digests = [None] * world
+        torch.distributed.all_gather_object(digests, _digest(got))
+        err = _rel_l2(got, want)
+        gate = TOL_CONTROL * control
+        blocks = [m for m in split.modules() if isinstance(m, Block)]
+        n_split, n_blocks = sum(m.tp is not None for m in blocks), len(blocks)
+        report("dist", check="tp2_forward", net=label, batch=args[1].shape[0],
+               blocks_split=f"{n_split}_of_{n_blocks}", kernel_launches_per_rank=used,
+               d_x_rel_l2_vs_tp1=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
+               ratio=f"{err / control:.3f}", gate=f"{gate:.3e}",
+               fault_self_normalised_slice_rel_l2=f"{faulty:.3e}",
+               ranks_bitwise_equal=len(set(digests)) == 1, eval_ms_not_speed=f"{eval_ms:.1f}")
+        check(len(set(digests)) == 1, f"dist: {label}: the two ranks' D_x differ: {digests}")
+        check(bool(torch.isfinite(got).all()) and err <= gate,
+              f"dist: {label}: tp 2 against tp 1 rel L2 {err} > {gate} (control {control})")
+        check(faulty > gate, f"dist: {label}: the self-normalised slice gives {faulty}, "
+                             f"within the gate {gate}")
+        del whole, split, want, got
+        torch.cuda.empty_cache()
+
+    # Guided sampling through generate_images_nvs at tp 2 (8 seeds, 4 Heun
+    # steps: 7 guided evaluations), against tp 1 and its control on rank 0.
+    # Those two call the sampler directly on the inputs the tp 2 run gave
+    # it: generate_images_nvs itself is collective over the two ranks.
+    from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+    seeds, steps = list(range(BATCH)), 4
+    base, gnet = _full_width(False), _full_width(True)
+    pair = lambda b, g: dict(net=EasyDict(net=b, cfg=b.cfg), gnet=EasyDict(net=g, cfg=g.cfg))
+    common = dict(guidance=1.5, seeds=seeds, max_batch_size=BATCH, num_steps=steps,
+                  datakwargs={"path": data}, device="cuda", verbose=False)
+
+    def sample(nets, **kw):
+        """The rows of generate_images_nvs, the sampler's output and what it
+        was given: the base denoiser's sources and geometry, and the noise."""
+        seen = {}
+        real_sampler, real_denoiser = generate.edm_sampler, generate.make_denoiser
+
+        def sampler(denoise, noise, **k):
+            seen["noise"], seen["latents"] = noise, real_sampler(denoise, noise, **k)
+            return seen["latents"]
+
+        def denoiser(net, src=None, geometry=None, **k):
+            if src is not None:
+                seen["src"], seen["geometry"] = src, geometry
+            return real_denoiser(net, src, geometry, **k)
+
+        with mock.patch.object(generate, "edm_sampler", sampler), \
+                mock.patch.object(generate, "make_denoiser", denoiser):
+            rows = list(generate.generate_images_nvs(**nets, **common, **kw))
+        torch.cuda.synchronize()
+        return seen, rows
+
+    def sample_whole(seen, stack_fn=None):
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            if stack_fn:
+                stack_fn(stack)
+            noise_gen.manual_seed(3)
+            out = edm_sampler(make_denoiser(base, seen["src"], seen["geometry"]), seen["noise"],
+                              gnet_denoise=make_denoiser(gnet), guidance=1.5, seeds=seeds,
+                              num_steps=steps)
+        torch.cuda.synchronize()
+        return out
+
+    before = dict(flash.launches)
+    t0 = time.perf_counter()
+    seen, tp_rows = sample(pair(_full_width(False), _full_width(True)), tp=2,
+                           outdir=os.path.join(tmp, "tp_out"))
+    seconds = time.perf_counter() - t0
+    tp_lat = seen["latents"]
+    used = {k: n - before[k] for k, n in flash.launches.items() if n - before[k]}
+    evals = 2 * steps - 1
+    digests = [None] * world
+    torch.distributed.all_gather_object(digests, _digest(tp_lat))
+    want_used = {"flash_fused_packed": 34 * evals, "flash_fused_packed_xattn": 17 * evals}
+    problems = [f"launched {used}, want 34 / 17 per evaluation"] if used != want_used else []
+    if len(set(digests)) > 1:
+        problems.append(f"the ranks sampled different latents: {digests}")
+    if (tp_rows[0].images is None) != (rank != 0):
+        problems.append(f"rank {rank} handed on images")
+    if lead:
+        one_lat = sample_whole(seen)
+        control = _rel_l2(sample_whole(seen, lambda s: _noisy_products(s, [base, gnet],
+                                                                       noise_gen)), one_lat)
+        err = _rel_l2(tp_lat, one_lat)
+        gate = TOL_CONTROL * control
+        pngs = sorted(os.listdir(os.path.join(tmp, "tp_out")))
+        report("dist", check="tp2_guided_sampling", seeds=len(seeds), heun_steps=steps,
+               evaluations=evals, kernel_launches_per_rank=used,
+               per_evaluation={k: n // evals for k, n in used.items()},
+               latents_rel_l2_vs_tp1=f"{err:.3e}", control_rel_l2=f"{control:.3e}",
+               ratio=f"{err / control:.3f}", gate=f"{gate:.3e}",
+               ranks_bitwise_equal=len(set(digests)) == 1, pngs=len(pngs),
+               seconds_not_speed=f"{seconds:.2f}",
+               ms_per_evaluation_not_speed=f"{seconds * 1e3 / evals:.1f}")
+        if not (bool(torch.isfinite(tp_lat).all()) and err <= gate):
+            problems.append(f"rel L2 {err} > {gate} (control {control})")
+        if len(pngs) != 3 * len(seeds):
+            problems.append(f"wrote {pngs}")
+    settle("tp 2 sampling", problems)
+    del tp_lat, seen
+
+    # Seed sharding: 8 seeds over the 2 ranks, each seed's PNGs written once.
+    written = []
+    real_save = PIL.Image.Image.save
+    with mock.patch.object(PIL.Image.Image, "save",
+                           lambda img, fp, *a, **k: (written.append(os.path.basename(fp)),
+                                                     real_save(img, fp, *a, **k))[1]):
+        _, rows = sample(pair(base, gnet), outdir=os.path.join(tmp, "seed_out"))
+    everyone = [None] * world
+    torch.distributed.all_gather_object(everyone, written)
+    names = [n for w in everyone for n in w]
+    mine = [s for r in rows for s in r.seeds]
+    want_names = sorted(f"{p}_{s:06d}.png" for p in ("src", "tgt", "sample") for s in seeds)
+    check(sorted(names) == want_names, f"dist: PNGs written {sorted(names)}")
+    check(all(bool(torch.isfinite(torch.as_tensor(r.latents)).all()) for r in rows if r.seeds),
+          "dist: non-finite latents in seed sharding")
+    report("dist", check="seed_sharding", seeds=len(seeds), heun_steps=steps,
+           rank0_seeds=mine, pngs_written=len(names), each_once=True)
+    return {}
+
+
+def phase_dist(card):
+    """torch.distributed on the one card, each job in processes of its own:
+    NCCL at world size 1 (the host reductions on the card; `vivid-base` with
+    and without --fsdp through the trainer, and a --fsdp checkpoint resumed
+    without it); NCCL's answer to two ranks on one card; then two ranks on
+    the card over gloo with CUDA tensors (or NCCL, had it taken them): data
+    parallel against one rank, consistency, tensor parallelism (tp 2), seed
+    sharding. Its times are no speed: two ranks share one card, and gloo
+    stages every collective through the host."""
+    import torch
+    from vivid_tpu_torch.data.scenes import make_synthetic_dataset
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_dist_") as tmp:
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=16, num_views=8,
+                                      imsize=64, seed=0)
+        one, problems = _spawn_ranks(
+            _dist_one_card, 1, tmp, env={"CUBLAS_WORKSPACE_CONFIG": SHELL_CUBLAS_WORKSPACE},
+            data=data, tmp=tmp)
+        check(not problems, "dist: NCCL at world size 1:\n" + "\n".join(problems))
+        # The port's start-up at two ranks on the one card: NCCL, as dist.init
+        # picks for a card. Where NCCL refuses, dist.init must raise and leave
+        # no group of another backend behind.
+        probe, problems = _spawn_ranks(_dist_nccl_probe, 2, tmp, timeout=120)
+        backend = "nccl" if not problems and all(p["ok"] for p in probe) else "gloo"
+        answers = sorted({p["answer"] for p in probe if p} | set(problems))
+        left = sorted({str(p["backend"]) for p in probe if p and not p["ok"]})
+        say("dist", check="nccl_two_ranks_on_one_card", through="dist.init(device='cuda:0')",
+            answers=f"'{' | '.join(answers)}'", groups_left_after_refusal=left,
+            two_rank_backend=backend)
+        check(all(p["backend"] in (None, "nccl") for p in probe if p and not p["ok"]),
+              f"dist: a refused NCCL start-up left a group behind: {left}")
+        pair, problems = _spawn_ranks(_dist_two_ranks, 2, tmp, backend=backend, data=data,
+                                      tmp=tmp)
+        check(not problems, f"dist: two ranks over {backend}:\n" + "\n".join(problems))
+    say("dist", seconds=f"{time.perf_counter() - t0:.1f}",
+        fsdp_world_1_bitwise=one[0]["fsdp_bitwise"],
+        fsdp_checkpoint_resumed_without_fsdp_bitwise=one[0]["resume_bitwise"],
+        two_rank_backend=backend, card=f"'{card}'")
 
 
 def phase_labs():

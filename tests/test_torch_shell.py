@@ -358,10 +358,11 @@ def test_single_image_rows_match_jax_at_non_whole_sizes(frames):
 @pytest.mark.parametrize("flags", [["--metrics", "1Ki"], ["--fsdp"], ["--depth-input"],
                                    ["--depth-model", "small"], ["--warp-depth-coor"]])
 def test_cli_flags_still_not_ported_raise(flags, capsys):
-    """Each flag of a feature not ported raises. `--metrics` and the depth
-    flags were such until their features were ported: their cases now check
-    that the dry run takes them."""
+    """Each flag of a feature not ported raises. `--metrics`, the depth
+    flags and `--fsdp` were such until their features were ported: their
+    cases now check that the dry run takes them."""
     taken = {"--metrics": '"metrics_nimg": 1024', "--depth-input": '"depth_input": true',
+             "--fsdp": '"fsdp": true',
              "--depth-model": '"depth_model": "small"',
              "--warp-depth-coor": '"warp_depth_coor": true'}
     if flags[0] in taken:

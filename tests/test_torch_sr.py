@@ -340,5 +340,7 @@ def test_generate_refuses_what_it_cannot_do(env, monkeypatch):
     # name is refused by name.
     with pytest.raises(ValueError, match="Unknown depth model 'd.pkl'"):
         generate.generate_images_nvs(net=env["base"], depth_model="d.pkl", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="tp"):
+    # tp raised until tensor parallelism was ported; now it needs a process
+    # group to split the model over, and one process is refused by name.
+    with pytest.raises(ValueError, match="tp=2"):
         generate.generate_images_nvs(net=env["base"], tp=2, device="cpu", **kw)

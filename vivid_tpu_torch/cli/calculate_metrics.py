@@ -9,7 +9,9 @@
 
 `calc` reads the src_/tgt_/sample_{seed}.png triplets that `gen --outdir`
 and the generation CLI write. Both run on the first CUDA card and fail
-without one; `--device cpu` asks for the CPU. The detectors' weights come
+without one; `--device cpu` asks for the CPU. Under `torchrun` each
+process takes its share of the seeds or images on its card, and the
+feature moments are summed over the processes on the group's device. The detectors' weights come
 from $VIVID_DETECTOR_DIR (metrics/detectors.py). Each command returns
 {metric: value} to a caller that invokes it with standalone_mode=False.
 """
@@ -114,7 +116,7 @@ def cmdline():
 @click.option("--device", help="Device of the detectors  [default: cuda; fails without a card]", metavar="STR", type=str, default=None)
 def calc(image_path, ref_path, metrics, num_images, seed, max_batch_size, dest_path, device):
     """Calculate metrics for a given set of saved images."""
-    dist.init()
+    dist.init(device=device)
     image_iter = ImageFolderIterable(image_path, max_size=num_images, random_seed=seed,
                                      max_batch_size=max_batch_size)
     return _run(image_iter, metrics, ref_path=ref_path, dest_path=dest_path, device=device)
@@ -139,7 +141,7 @@ def calc(image_path, ref_path, metrics, num_images, seed, max_batch_size, dest_p
 def gen(net, data_path, metrics, num_images, seed, dest_path, device, **opts):
     """Calculate metrics for a given NVS model using default sampler settings."""
     from vivid_tpu_torch.generate import generate_images_nvs
-    dist.init()
+    dist.init(device=device)
     image_iter = generate_images_nvs(net=net, seeds=range(seed, seed + num_images),
                                      datakwargs={"path": data_path}, device=device, **opts)
     return _run(image_iter, metrics, dest_path=dest_path, device=device)

@@ -6,7 +6,10 @@
 `--sr-model` takes the 64px samples through the 256px super-resolution
 model; `--net` may also be a 256px model itself (its conditioning is then
 the target view taken down and up again). Runs on the first CUDA card and
-fails without one; `--device cpu` asks for the CPU.
+fails without one; `--device cpu` asks for the CPU. Under `torchrun
+--nproc_per_node=N -m vivid_tpu_torch.cli.generate_images ...` the seeds
+are split over the processes, each on its card; `--tp K` splits each model
+over groups of K processes (tensor parallel) and the seeds over the groups.
 """
 
 import re
@@ -14,6 +17,7 @@ import re
 import click
 import tqdm
 
+from vivid_tpu_torch.core import dist
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.generate import config_presets, generate_images_nvs
 
@@ -57,7 +61,7 @@ def parse_int_list(s):
 @click.option("--depth-model", help="Depth model to use for evaluation (small|base|large, weights from $VIVID_DEPTH_DIR)", metavar="STR", type=str, default=None, show_default=True)
 @click.option("--vanilla-mode", help="Single-source conditioning", is_flag=True)
 @click.option("--device", help="Device to sample on  [default: cuda; fails without a card]", metavar="STR", type=str, default=None)
-@click.option("--tp", help="Tensor-parallel ways over the local devices (latency lever)", metavar="INT", type=click.IntRange(min=0), default=0)
+@click.option("--tp", help="Tensor-parallel ways over the ranks (latency lever)", metavar="INT", type=click.IntRange(min=0), default=0)
 def cmdline(preset, data_path, **opts):
     """Generate novel views using the given model.
 
@@ -81,7 +85,9 @@ def cmdline(preset, data_path, **opts):
     elif opts.gnet is None:
         raise click.ClickException("Please specify --gnet when using guidance")
     opts["datakwargs"] = {"path": data_path}
-    for _r in tqdm.tqdm(generate_images_nvs(**opts), unit="batch"):
+    dist.init(device=opts.device)
+    for _r in tqdm.tqdm(generate_images_nvs(**opts), unit="batch",
+                        disable=dist.get_rank() != 0):
         pass
 
 

@@ -8,7 +8,11 @@ package's.
 
 `vivid-sr` trains the 256px super-resolution model (single source);
 `--vanilla-mode` with a 64px preset trains the single-source base model. It
-trains on the first CUDA card unless `--device cpu` is given. Running the
+trains on the first CUDA card unless `--device cpu` is given. Under
+`torchrun --nproc_per_node=N -m vivid_tpu_torch.cli.train_nvs ...` each
+process trains on its card (cuda:LOCAL_RANK, NCCL; gloo with `--device
+cpu`) with batch / N rows a step, data parallel, or with `--fsdp` the
+parameters, gradients, Adam moments and EMAs sharded over the processes. Running the
 same command again resumes from the latest training-state checkpoint in
 `<outdir>/experiments`; `--slice` stops each run after that many images, at
 a checkpoint. `--deterministic` makes a killed and resumed run end with the
@@ -17,8 +21,7 @@ CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment. `--depth-model
 small|base|large` (DepthAnythingV2 weights from $VIVID_DEPTH_DIR) conditions
 the model on predicted depth: `--depth-input` feeds it to the encoder,
 `--warp-depth-coor` feeds Fourier features of the pixel grid and of its
-depth-warped form (not both). A flag whose feature is not ported yet raises
-NotImplementedError; none is silently ignored.
+depth-warped form (not both).
 """
 
 import json
@@ -26,6 +29,7 @@ import os
 
 import click
 
+from vivid_tpu_torch.core import dist
 from vivid_tpu_torch.core.easydict import EasyDict
 
 config_presets = {
@@ -41,10 +45,6 @@ config_presets = {
                          noisy_sr=0.25, sr_training=True, extra_attn=1,
                          vanilla_mode=True),
 }
-
-# Flags of the JAX package's CLI whose features the port does not have yet.
-NOT_PORTED = ("fsdp",)
-
 
 def parse_nimg(s):
     """Integer with optional power-of-two suffix: Ki=2^10, Mi=2^20, Gi=2^30."""
@@ -74,10 +74,6 @@ def setup_training_config(preset="vivid-base", **opts):
     opts = EasyDict(opts)
     if preset not in config_presets:
         raise click.ClickException(f'Invalid configuration preset "{preset}"')
-    for name in NOT_PORTED:
-        if opts.get(name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported to vivid_tpu_torch yet")
     for key, value in config_presets[preset].items():
         given = opts.get(key, None)
         if given is None or given is False:   # an explicit 0 is a value, not an absence
@@ -126,6 +122,7 @@ def setup_training_config(preset="vivid-base", **opts):
     c.single_image_mix_path = opts.get("single_image_path") or None
     c.slice_nimg = opts.get("slice") or None
     c.deterministic = bool(opts.get("deterministic"))
+    c.fsdp = bool(opts.get("fsdp"))
     c.max_steps = opts.get("max_steps") or None
     c.device = opts.get("device") or None
     return c
@@ -170,10 +167,15 @@ def save_code_snapshot(run_dir):
 
 
 def launch_training(run_dir, c):
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
-        json.dump(c, f, indent=2)
-    save_code_snapshot(run_dir)
+    """Rank 0 writes the options and the code snapshot; every rank then
+    trains (`training_loop` starts the process group if there is none)."""
+    dist.init(device=c.get("device"))
+    if dist.get_rank() == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
+            json.dump(c, f, indent=2)
+        save_code_snapshot(run_dir)
+    dist.barrier("launch")
     from vivid_tpu_torch.train.loop import training_loop
     return training_loop(run_dir=run_dir, **c)
 
@@ -210,7 +212,7 @@ def launch_training(run_dir, c):
 @click.option("--plain-mse", help="Plain MSE loss instead of learned variance", is_flag=True)
 # Performance-related options.
 @click.option("--batch-gpu", help="Limit the microbatch size (gradient accumulation)", metavar="NIMG", type=parse_nimg, default=None)
-@click.option("--fsdp", help="Shard the train state over several cards (not ported)", is_flag=True)
+@click.option("--fsdp", help="Shard the train state over the processes (FSDP2)", is_flag=True)
 @click.option("--deterministic", help="Bit-reproducible kill and resume: the resumed loaders replay the consumed rows; deterministic algorithms on the card (needs CUBLAS_WORKSPACE_CONFIG=:4096:8)", is_flag=True)
 @click.option("--bf16", help="Enable bfloat16 compute", metavar="BOOL", type=bool, default=True, show_default=True)
 @click.option("--force-wn", help="Forced weight normalization (EDM2 Eq. 66)", metavar="BOOL", type=bool, default=False, show_default=True)
@@ -237,13 +239,16 @@ def cmdline(outdir, dry_run, **opts):
     python -m vivid_tpu_torch.cli.train_nvs --preset=vivid-base --data=/path/to/scenes --outdir=runs/
     """
     c = setup_training_config(**opts)
+    dist.init(device=c.device)
     run_dir = os.path.join(outdir, "experiments")
-    print("Training config:")
-    print(json.dumps(c, indent=2))
-    print(f"Output directory:        {run_dir}")
-    print(f"Batch size:              {c.batch_size}")
+    dist.print0("Training config:")
+    dist.print0(json.dumps(c, indent=2))
+    dist.print0(f"Output directory:        {run_dir}")
+    dist.print0(f"Number of processes:     {dist.get_world_size()}")
+    dist.print0(f"CUDA cards on this host: {dist.num_devices()}")
+    dist.print0(f"Batch size:              {c.batch_size}")
     if dry_run:
-        print("Dry run; exiting.")
+        dist.print0("Dry run; exiting.")
         return None
     return launch_training(run_dir=run_dir, c=c)
 

@@ -108,13 +108,15 @@ def train_state_from_jax(state, cfg, device="cpu"):
 
 def train_state_to_jax(state) -> dict:
     """The port's TrainState -> dict(params, adam_m, adam_v, adam_step, emas,
-    cur_nimg) of numpy trees in the JAX layout."""
-    full = state.net.state_dict()
+    cur_nimg) of numpy trees in the JAX layout (under FSDP every tensor
+    gathered whole: a collective, on every rank)."""
+    from vivid_tpu_torch.core.sharding import full_state_dict
+    full = full_state_dict(state.net.state_dict())
     buffers = {k: v for k, v in full.items() if k not in set(state.names)}
     zeros = {k: torch.zeros_like(v) for k, v in buffers.items()}
 
     def tree(tensors, rest):
-        return to_jax({**rest, **dict(zip(state.names, tensors))})
+        return to_jax({**rest, **dict(zip(state.names, full_state_dict(list(tensors))))})
 
     return dict(
         params=to_jax(full),

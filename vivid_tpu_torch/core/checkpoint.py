@@ -10,7 +10,9 @@ checkpoint is looked up.
 
 `save(path, async_=True)` copies every tensor to host tensors the holder
 owns (pinned, and kept for the next save), in one pass on the current
-stream, and returns; a background thread waits for the copies and writes
+stream, and returns; over several processes every rank gathers the state
+(the trainer's `state_dict()` gathers FSDP shards whole) and rank 0 alone
+copies and writes; a background thread waits for the copies and writes
 the file while training goes on. The trainer updates its state in place on
 the same stream, after the copies, so the file holds the state as it was
 at the call. One write is in flight at a time: `save` and `wait` join the
@@ -88,13 +90,15 @@ class CheckpointIO:
         return host_tree, event
 
     def save(self, path: str, async_: bool = False):
-        """Write the checkpoint (rank 0); with `async_` the file is written
-        by a background thread."""
+        """Write the checkpoint: every rank gathers the state (whole tensors
+        from sharded ones: a collective), rank 0 writes it; with `async_` the
+        file is written by a background thread."""
         self.wait()
+        t0 = time.perf_counter()
+        trees = self._trees()
         if dist.get_rank() != 0:
             return
-        t0 = time.perf_counter()
-        host_tree, event = self._copy_to_host(self._trees())
+        host_tree, event = self._copy_to_host(trees)
 
         def write():
             if event is not None:

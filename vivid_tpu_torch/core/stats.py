@@ -3,7 +3,7 @@
 Counterpart of vivid_tpu/core/stats.py. `report()` adds values to
 [count, sum, sum of squares] counters in fp64 (non-finite values count as
 missing); `Collector.update()` drains them into the interval (one sum over
-the process group when there is one) and `as_dict()` gives each name's
+the process group, on its device, when there is one) and `as_dict()` gives each name's
 mean, std and count.
 """
 
@@ -69,17 +69,16 @@ class Collector:
         self._interval: Dict[str, np.ndarray] = {}
 
     def update(self):
+        """Over several processes a collective: every rank calls it at the
+        same point, and the names any rank reported are summed on all."""
         pending = self.stats._pending
         names = sorted(n for n in pending if self.regex.fullmatch(n))
+        names = dist.all_names(names)
         if not names:
             return
-        mat = np.stack([pending[n].row() for n in names])
-        for n in names:
-            del pending[n]  # report() recreates on demand
-        if dist.get_world_size() > 1:
-            t = torch.from_numpy(mat)
-            torch.distributed.all_reduce(t)
-            mat = t.numpy()
+        mat = np.stack([pending.pop(n).row() if n in pending else np.zeros(3)
+                        for n in names])   # report() recreates on demand
+        mat = dist.all_reduce_sum(mat)
         for n, row in zip(names, mat):
             self._interval[n] = self._interval.get(n, np.zeros(3)) + row
 

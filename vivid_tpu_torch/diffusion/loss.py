@@ -35,11 +35,32 @@ def down_up_resize(x, factor: int = 4):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def clamp_loss(loss):
+def global_moments(x, group=None):
+    """(count, mean, population std) of the elements of `x`, detached, from
+    (count, sum, sum of squares) in fp64: this process's alone without
+    `group`, every rank's with one (one all-reduce on the group's device).
+    So one process and several take the same statistic of the same values.
+    Mean and std come in x's dtype on x's device."""
+    x64 = x.detach().double()
+    t = torch.stack([torch.tensor(float(x.numel()), dtype=torch.float64, device=x.device),
+                     x64.sum(), x64.square().sum()])
+    if group is not None:
+        from vivid_tpu_torch.core import dist
+        t = t.to(dist.group_device(group))
+        torch.distributed.all_reduce(t, group=group)
+        t = t.to(x.device)
+    n, s, ss = t.unbind()
+    mean = s / n
+    std = torch.sqrt(torch.clamp(ss / n - mean * mean, min=0.0))
+    return n, mean.to(x.dtype), std.to(x.dtype)
+
+
+def clamp_loss(loss, group=None):
     """Clamp an elementwise loss to mean +- 3 std; the statistics (the
-    population std) carry no gradient."""
-    m = loss.detach().mean()
-    s = loss.detach().std(correction=0)
+    population std, `global_moments`) carry no gradient. With a process
+    group they are the global batch's, every rank's rows together, as the
+    JAX step's are under GSPMD."""
+    _, m, s = global_moments(loss, group)
     return torch.clamp(loss, m - 3 * s, m + 3 * s)
 
 

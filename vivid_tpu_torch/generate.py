@@ -1,7 +1,7 @@
 """Image generation: load snapshots, sample novel views, optionally take
 them through the 256px super-resolution stage, write PNGs.
 
-Counterpart of vivid_tpu/generate.py `generate_images_nvs` on one process: a
+Counterpart of vivid_tpu/generate.py `generate_images_nvs`: a
 lazy iterable that yields EasyDict(images, latents, src, tgt, seeds, ...) per
 batch and writes src_/tgt_/sample_{seed:06d}.png when `outdir` is set.
 Per-seed noise comes from per-seed generators, so a sample depends on its
@@ -26,8 +26,19 @@ image (`noisy_sr`) is one draw per batch from a generator seeded by
 (`rng_seed`, batch index). With `depth_model` (a callable, or 'small' |
 'base' | 'large' from $VIVID_DEPTH_DIR: geometry/depth.py) each source view
 gets its predicted depth as a fourth channel, inverse-normalised for a
-`depth_input` model. Runs on the first CUDA card; the CPU only when
-`device="cpu"` asks for it. Tensor parallelism is not ported yet and raises.
+`depth_input` model. Runs on this process's card (cuda:LOCAL_RANK); the
+CPU only when `device="cpu"` asks for it.
+
+Over several processes the seeds are split into batches dealt out to the
+ranks, and each rank reads its own share of the scenes (`process_index`,
+`process_count`), as the JAX package does; each writes its own seeds' PNGs.
+With `tp` > 1 the ranks form tensor-parallel groups of `tp` consecutive
+ranks (`core/sharding.py`): the seeds and scenes are split over the groups,
+every rank of a group samples the same rows with the same generators, and
+each block's channels and heads are split over the group's ranks (the nets
+passed in stay split). Only the first rank of a group writes PNGs and hands
+images on; the others yield rows without images, as a rank without seeds
+does.
 """
 
 import os
@@ -38,6 +49,7 @@ import PIL.Image
 import torch
 import torch.nn.functional as F
 
+from vivid_tpu_torch.core import dist
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.rngs import fold_in, seeded_normal
 from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
@@ -83,16 +95,28 @@ def generate_images_nvs(
     device=None,
     **sampler_kwargs,
 ):
-    if tp:
-        raise NotImplementedError("tp is not ported to vivid_tpu_torch yet")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError('no CUDA card found; pass device="cpu" to sample on the CPU')
-        device = "cuda"
-    device = torch.device(device)
+    device = torch.device(device) if device is not None else dist.default_device()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    tp_group, tp_index, data_index, data_count = None, 0, rank, world
+    if tp and tp > 1:
+        if world == 1:
+            raise ValueError(f"tp={tp} splits the model over the ranks of a process group: "
+                             "start the processes with torchrun (or VIVID_COORDINATOR)")
+        from vivid_tpu_torch.core.sharding import tp_groups
+        tp_group, tp_index, data_index, data_count = tp_groups(tp)
+    # Rank 0 loads first, the others after it (the reference's order).
+    if rank != 0:
+        dist.barrier("load-net")
     net = resolve_model(net, device)
     gnet = resolve_model(gnet, device)
     sr_model = resolve_model(sr_model, device)
+    if rank == 0:
+        dist.barrier("load-net")
+    if tp_group is not None:
+        from vivid_tpu_torch.core.sharding import tensor_parallel
+        for model in (net, gnet, sr_model):
+            if model is not None:
+                tensor_parallel(model.net, tp_group)
     depth_model = resolve_depth_model(depth_model, device=device)
     if (net.cfg.depth_input or net.cfg.warp_depth_coor) and depth_model is None:
         raise ValueError("a depth_input or warp_depth_coor model needs a depth_model")
@@ -109,19 +133,22 @@ def generate_images_nvs(
     collate_cls = VanillaCollate if vanilla_mode else DualSourceCollate
     base_size = 64 if sr_cfg is not None else imsize
     seeds = list(seeds)
-    num_batches = max((len(seeds) - 1) // max_batch_size + 1, 1)
-    batches = np.array_split(np.arange(len(seeds)), num_batches)
+    # Seed sharding over the data groups (one a rank without tp).
+    num_batches = max((len(seeds) - 1) // (max_batch_size * data_count) + 1, 1) * data_count
+    batches = np.array_split(np.arange(len(seeds)), num_batches)[data_index::data_count]
 
     datakwargs = dict(datakwargs or {})
     datakwargs.setdefault("split", "test")   # a RealEstate10K tree's; an .npz tree drops it
     if range_selection is not None:
         datakwargs.setdefault("range_selection", range_selection)
     dataset = open_scene_dataset(
-        datakwargs["path"], seed=rng_seed,
+        datakwargs["path"], seed=rng_seed, process_index=data_index, process_count=data_count,
         **{k: v for k, v in datakwargs.items() if k not in ("path", "class_name")})
     use_gnet = gnet is not None and guidance != 1
     if verbose:
-        print(f"Generating {len(seeds)} images on {device}...")
+        dist.print0(f"Generating {len(seeds)} images on {world} process(es)"
+                    + (f" in tensor-parallel groups of {tp}" if tp_group is not None else "")
+                    + f"; rank 0 on {device}...")
 
     class ImageIterable:
         def __len__(self):
@@ -133,7 +160,9 @@ def generate_images_nvs(
                 batch_size=max_batch_size)
             try:
                 for batch_idx, indices in enumerate(batches):
-                    yield self._batch(loader, batch_idx, indices)
+                    r = self._batch(loader, batch_idx, indices)
+                    dist.barrier("gen-batch")
+                    yield r
             finally:
                 loader.close()
 
@@ -178,6 +207,9 @@ def generate_images_nvs(
                 r.src, r.tgt = src_raw[:, 0], tgt_raw
                 if sr_model is not None:
                     latents = self._sr_stage(raw, n, r, latents, gen)
+            if tp_index != 0:   # the first rank of the group hands the images on
+                r.src = r.tgt = None
+                return r
             r.latents = latents
             r.images = encoder.decode(latents)
             if outdir is not None:

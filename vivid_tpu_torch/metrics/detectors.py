@@ -28,13 +28,9 @@ from vivid_tpu_torch.core.easydict import EasyDict
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device`, or the first CUDA card; RuntimeError when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError('no CUDA card found; pass device="cpu" (--device cpu) '
-                               "to run the detectors on the CPU")
-        device = "cuda"
-    return torch.device(device)
+    """`device`, or this process's card (cuda:LOCAL_RANK); RuntimeError when
+    there is none."""
+    return torch.device(device) if device is not None else dist.default_device()
 
 
 class Detector:

@@ -49,12 +49,16 @@ class BlockConfig:
         return self.out_channels // self.channels_per_head if self.attention else 0
 
 
-def _packed_linear(conv: MPConv, x, num_heads: int, parts: int):
+def _packed_linear(conv: MPConv, x, num_heads: int, parts: int, heads=None):
     """The 1x1 projection as a linear on [B, S, C], its output channels
     permuted from the reference packing c = head*(D*parts) + d*parts + part
-    to the part-major c = part*(heads*D) + head*D + d (`_qkv_perm`)."""
+    to the part-major c = part*(heads*D) + head*D + d (`_qkv_perm`). `heads`
+    (a slice) keeps those heads' rows (tensor parallelism)."""
     w = conv.normalized_weight(x.dtype).flatten(1)          # [out, in]
-    w = w.view(num_heads, -1, parts, w.shape[1]).permute(2, 0, 1, 3)
+    w = w.view(num_heads, -1, parts, w.shape[1])
+    if heads is not None:
+        w = w[heads]
+    w = w.permute(2, 0, 1, 3)
     return F.linear(x, w.reshape(-1, w.shape[-1]))
 
 
@@ -75,6 +79,7 @@ class Block(nn.Module):
     def __init__(self, cfg: BlockConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = None   # this rank's part under tensor parallelism (core/sharding.py)
         cin, cout = cfg.in_channels, cfg.out_channels
         self.emb_gain = nn.Parameter(torch.empty((), device=device))
         self.conv_res0 = MPConv(cout if cfg.flavor == "enc" else cin, cout, (3, 3), device)
@@ -116,20 +121,28 @@ class Block(nn.Module):
         """x [B, H, W, Cin]; emb [B, Cemb]; features (xattn blocks): the
         string "zeros" (unconditional model) or a list of cross sources
         [B, h, w, Cout]; dropout_mask from `dropout_mask`; src_geometries
-        (epipolar bias): one [B, 20] per cross source."""
-        cfg = self.cfg
+        (epipolar bias): one [B, 20] per cross source. Under tensor
+        parallelism (`self.tp`) each branch computes this rank's channels
+        and heads, and one all-reduce sums the branch's partial products."""
+        cfg, tp = self.cfg, self.tp
+        if tp is not None and self.training:
+            raise RuntimeError("tensor parallelism is for evaluation only; training "
+                               "runs data parallel or with fsdp")
         x = resample(x, cfg.resample_mode)
         if cfg.flavor == "enc":
             if self.conv_skip is not None:
                 x = self.conv_skip(x)
             x = normalize(x, dim=-1)
 
-        y = self.conv_res0(mp_silu(x))
-        c = self.emb_linear(emb, gain=self.emb_gain) + 1.0
+        part = tp.local_channels if tp is not None else None
+        y = self.conv_res0(mp_silu(x), rows=part)
+        c = self.emb_linear(emb, gain=self.emb_gain, rows=part) + 1.0
         y = mp_silu(y * c[:, None, None, :].to(y.dtype))
         if dropout_mask is not None:
             y = y * dropout_mask
-        y = self.conv_res1(y)
+        y = self.conv_res1(y, cols=part)
+        if tp is not None:
+            y = tp.all_reduce(y)
         if cfg.flavor == "dec" and self.conv_skip is not None:
             x = self.conv_skip(x)
         x = mp_sum(x, y, t=RES_BALANCE)
@@ -137,7 +150,11 @@ class Block(nn.Module):
         heads = cfg.num_heads
         if heads:
             b, h, w, ch = x.shape
-            qkv = _packed_linear(self.attn_qkv, x.reshape(b, h * w, ch), heads, 3)
+            mine = None   # this rank's heads
+            if tp is not None:
+                mine, heads = tp.local_heads, heads // tp.size
+            qkv = _packed_linear(self.attn_qkv, x.reshape(b, h * w, ch), cfg.num_heads, 3,
+                                 mine)
             if not cfg.xattn or features == "zeros":
                 sink = cfg.num_cross_sources * h * w if cfg.xattn else 0
                 y = attention.self_attention_from_packed(qkv, heads, zero_sink=sink)
@@ -147,16 +164,21 @@ class Block(nn.Module):
                                      "cross sources")
                 kvs = [_packed_linear(self.x_attn_kv,
                                       f.to(x.dtype).reshape(b, f.shape[1] * f.shape[2], -1),
-                                      heads, 2)
+                                      cfg.num_heads, 2, mine)
                        for f in features]
                 biases = ()
                 if cfg.epipolar_attention_bias and src_geometries is not None:
                     patch = cfg.imsize // h
+                    mixing = self.epipolar_mixing if mine is None else self.epipolar_mixing[:, mine]
                     biases = [get_epipolar_attn(get_epipolar_dist(geo, cfg.imsize, patch),
-                                                self.epipolar_mixing, patch_size=patch)
+                                                mixing, patch_size=patch)
                               for geo in src_geometries]
                 y = attention.xattn_from_packed(qkv, kvs, heads, biases=biases)
-            w_proj = self.attn_proj.normalized_weight(y.dtype).flatten(1)
-            y = F.linear(y, w_proj).reshape(b, h, w, ch)
-            x = mp_sum(x, y, t=ATTN_BALANCE)
+            d = cfg.channels_per_head
+            cols = None if mine is None else slice(mine.start * d, mine.stop * d)
+            w_proj = self.attn_proj.normalized_weight(y.dtype, cols=cols).flatten(1)
+            y = F.linear(y, w_proj)
+            if tp is not None:
+                y = tp.all_reduce(y)
+            x = mp_sum(x, y.reshape(b, h, w, ch), t=ATTN_BALANCE)
         return x.clamp(-CLIP_ACT, CLIP_ACT)

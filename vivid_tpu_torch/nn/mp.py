@@ -93,18 +93,28 @@ class MPConv(nn.Module):
         self.weight.copy_(torch.randn(self.weight.shape, generator=gen,
                                       device=self.weight.device))
 
-    def normalized_weight(self, dtype, gain=1.0):
-        """Each output filter scaled to L2 norm `gain` (fp32), then cast."""
+    def normalized_weight(self, dtype, gain=1.0, rows=None, cols=None):
+        """Each output filter scaled to L2 norm `gain` (fp32), then cast;
+        `rows` / `cols` (slices) keep some output / input channels of the
+        weight, normalised whole first (tensor parallelism: a slice of the
+        input channels normalised by itself would have another norm)."""
         w = self.weight.float()
         dims = tuple(range(1, w.ndim))
         norm = torch.sqrt(w.square().sum(dim=dims, keepdim=True))
         w = w / (1e-4 + math.sqrt(norm.numel() / w.numel()) * norm)
         fan_in = w[0].numel()
-        return (w * (gain / math.sqrt(fan_in))).to(dtype)
+        w = w * (gain / math.sqrt(fan_in))
+        if rows is not None:
+            w = w[rows]
+        if cols is not None:
+            w = w[:, cols]
+        return w.to(dtype)
 
-    def forward(self, x, gain=1.0):
-        """Linear on [..., in] or conv on [B, H, W, in] (channel-last)."""
-        w = self.normalized_weight(x.dtype, gain)
+    def forward(self, x, gain=1.0, rows=None, cols=None):
+        """Linear on [..., in] or conv on [B, H, W, in] (channel-last), with
+        the output channels `rows` of the whole and its input channels `cols`
+        (slices; None: all)."""
+        w = self.normalized_weight(x.dtype, gain, rows, cols)
         if w.ndim == 2:
             return F.linear(x, w)
         y = F.conv2d(x.permute(0, 3, 1, 2), w,
@@ -115,11 +125,16 @@ class MPConv(nn.Module):
 def force_weight_normalize(module: nn.Module):
     """Forced weight normalisation (EDM2 Eq. 66): every MPConv weight under
     `module` is rescaled in place, under no_grad, to unit RMS per output
-    filter. The trainer applies it after each optimizer step when asked."""
+    filter. The trainer applies it after each optimizer step when asked.
+    Under FSDP each rank rescales its own rows: the weights are sharded on
+    dim 0, so every output filter is whole on one rank."""
+    from vivid_tpu_torch.core.sharding import local
     with torch.no_grad():
         for sub in module.modules():
             if isinstance(sub, MPConv):
-                w = sub.weight
+                w = local(sub.weight)
+                if w.numel() == 0:   # a rank that holds none of this weight's rows
+                    continue
                 dims = tuple(range(1, w.ndim))
                 norm = torch.sqrt(w.float().square().sum(dim=dims, keepdim=True))
                 w.copy_(w / (1e-4 + math.sqrt(norm.numel() / w.numel()) * norm))

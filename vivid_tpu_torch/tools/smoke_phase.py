@@ -34,6 +34,7 @@ def main(argv=None):
     sys.path[:0] = [os.path.abspath(args.port)]
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = smoke   # a phase's spawned processes import it by name
     spec.loader.exec_module(smoke)
     import vivid_tpu_torch
     print(f"port: {os.path.dirname(os.path.dirname(vivid_tpu_torch.__file__))}", flush=True)

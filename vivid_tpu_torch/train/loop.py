@@ -2,7 +2,7 @@
 `stats.jsonl`, per-EMA snapshots, training-state checkpoints, resume,
 slices and suspend, and sample grids.
 
-Counterpart of vivid_tpu/train/loop.py `training_loop` on one process. It
+Counterpart of vivid_tpu/train/loop.py `training_loop`. It
 trains `vivid-base` / `vivid-uncond` style models, the 256px
 super-resolution model (`sr_training`) and single-source models
 (`vanilla_mode`) on a directory of scene files, optionally mixed with rows
@@ -10,8 +10,19 @@ synthesised from single images (`single_image_mix`), optionally conditioned
 on depth (`depth_model`: a callable, or 'small' | 'base' | 'large' from
 $VIVID_DEPTH_DIR; each source view of the training batch, of the sample
 grid's and of the metrics tick's gets its predicted depth as a fourth
-channel, inverse-normalised for a `depth_input` model). Not ported yet:
-sharding the state over cards (`fsdp` raises NotImplementedError).
+channel, inverse-normalised for a `depth_input` model).
+
+Over several processes (`torch.distributed`, `core/dist.py`) each rank
+drives one card and takes batch_size / world_size rows of every step (a
+batch that does not divide is refused): its own scenes (`process_index`,
+`process_count`), its own share of single-image rows and its own step
+generator (the step seed folded with the rank). Gradients are averaged
+over the ranks (data parallel), or with `fsdp` parameters, gradients, Adam
+moments and EMAs are sharded over them (FSDP2, `core/sharding.py`).
+Checkpoints and snapshots hold whole tensors in one layout with and without
+`fsdp`; rank 0 writes them, the sample grids and the stats file. After each
+checkpoint the ranks check that they hold the same parameters
+(`core/consistency.py`).
 
 A metrics tick (`metrics_nimg`) measures EMA 0 with `metrics_fn(net, cfg)`,
 by default `metrics/api.py get_metrics` on 100 unguided samples at batch 25
@@ -45,6 +56,7 @@ import PIL.Image
 import torch
 
 from vivid_tpu_torch.core import checkpoint, dist, stats as stats_mod
+from vivid_tpu_torch.core.consistency import check_param_consistency
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.logger import Logger, format_time
 from vivid_tpu_torch.core.rngs import fold_in
@@ -129,18 +141,17 @@ def training_loop(
     (EMA 0, unguided, 32 Heun steps; through `sr_model` when given) need
     `test_dataset_path`. `debug` turns off the stats file, the progress bar
     and wandb; the progress bar (tqdm) is drawn only with `progress_bar`,
-    wandb only when WANDB_PROJECT is set. Runs on the first CUDA card unless
-    `device` says otherwise. Returns EasyDict(state, ticks): the final
+    wandb only when WANDB_PROJECT is set. Runs on this process's card
+    (cuda:LOCAL_RANK) unless `device` says otherwise; `fsdp` shards the
+    training state over the ranks of the process group. Returns EasyDict(state, ticks): the final
     TrainState and one dict per status tick (nimg, steps, loss, loss_std,
     learning_rate, grad_norm as means over the tick's steps, seconds)."""
     args = dict(locals())
-    if args.pop("fsdp"):
-        raise NotImplementedError("fsdp is not ported to vivid_tpu_torch yet")
-    args["device"] = device = torch.device(device or "cuda")
+    args["device"] = device = torch.device(device) if device else dist.default_device()
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card found; pass device='cpu' to train on the CPU")
     os.makedirs(os.path.join(run_dir, "results"), exist_ok=True)
-    dist.init()
+    dist.init(device=device)
     with Logger(os.path.join(run_dir, "log.txt"), "a"), \
             deterministic_algorithms(deterministic and device.type == "cuda"):
         return _train(**args)
@@ -151,10 +162,17 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
            slice_nimg, status_nimg, samples_nimg, metrics_nimg, snapshot_nimg,
            checkpoint_nimg, loss_scaling, force_finite, eval_samples, sr_training,
            vanilla_mode, plain_mse, single_image_mix, single_image_mix_path, sr_model,
-           depth_model, metrics_fn, metrics_list, max_steps, debug, deterministic, progress_bar,
-           device):
+           depth_model, metrics_fn, metrics_list, max_steps, debug, fsdp, deterministic,
+           progress_bar, device):
     start_time = time.time()
     print0 = dist.print0
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if batch_size % world:
+        raise ValueError(f"batch {batch_size} does not divide over {world} processes")
+    local_batch = batch_size // world
+    if fsdp and dist.group() is None:
+        raise ValueError("fsdp shards over a process group: start the processes with "
+                         "torchrun (or VIVID_COORDINATOR)")
     num_sources = 1 if vanilla_mode else 2
     net_kwargs = dict(network_kwargs or {})
     net_kwargs.setdefault("img_resolution", 256 if sr_training else 64)
@@ -172,28 +190,31 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
 
     dataset_kwargs = dict(dataset_kwargs or {})
     dataset = open_scene_dataset(
-        dataset_kwargs["path"], seed=seed,
+        dataset_kwargs["path"], seed=seed, process_index=rank, process_count=world,
         **{k: v for k, v in dataset_kwargs.items() if k not in ("path", "class_name")})
     collate_cls = VanillaCollate if vanilla_mode else DualSourceCollate
     collate = collate_cls(imsize=resolution, seed=seed)
 
-    # Single-image co-training: a fixed share of every batch is synthesised
-    # from single images by random camera rotations.
-    main_batch, n_single, single_ds = batch_size, 0, None
+    # Single-image co-training: a fixed share of every process's batch is
+    # synthesised from single images by random camera rotations; each rank
+    # draws its own (the JAX package gives every process the same stream).
+    main_batch, n_single, single_ds = local_batch, 0, None
     if single_image_mix:
         from vivid_tpu_torch.data.single_images import SingleImages
-        n_single = min(batch_size - 1, max(1, int(batch_size * single_image_mix)))
+        n_single = min(local_batch - 1, max(1, int(local_batch * single_image_mix)))
         single_ds = SingleImages(single_image_mix_path or dataset_kwargs["path"],
-                                 imsize=resolution, num_sources=num_sources, seed=seed + 2)
-        main_batch = batch_size - n_single
+                                 imsize=resolution, num_sources=num_sources,
+                                 seed=seed + 2 if rank == 0 else fold_in(seed + 2, rank))
+        main_batch = local_batch - n_single
 
     sr_model = resolve_model(sr_model, device)
     depth_model = resolve_depth_model(depth_model, device=device)
     if (model_cfg.depth_input or model_cfg.warp_depth_coor) and depth_model is None:
         raise ValueError("a depth_input or warp_depth_coor model needs a depth_model")
     test_split = dataset_kwargs.get("split", "test")   # a RealEstate10K tree's split
+    grids = bool(test_dataset_path and eval_samples)
     test_loader = None
-    if test_dataset_path and eval_samples:
+    if grids and rank == 0:
         test_collate = collate_cls(imsize=resolution, seed=seed + 1,
                                    sr_size=sr_model.cfg.img_resolution if sr_model else None)
         test_dataset = open_scene_dataset(test_dataset_path, seed=seed + 1, split=test_split)
@@ -219,10 +240,11 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
     loss_fn = loss_cls(plain_mse=plain_mse, **dict(loss_kwargs or {}))
 
     num_accum = 1
-    if batch_gpu and batch_gpu < batch_size:
-        if batch_size % batch_gpu:
-            raise ValueError(f"batch {batch_size} not divisible by batch_gpu {batch_gpu}")
-        num_accum = batch_size // batch_gpu
+    if batch_gpu and batch_gpu < local_batch:
+        if local_batch % batch_gpu:
+            raise ValueError(f"batch {local_batch} a process not divisible by batch_gpu "
+                             f"{batch_gpu}")
+        num_accum = local_batch // batch_gpu
     lr_args = dict(lr_kwargs or {})
     train_cfg = TrainConfig(
         batch_size=batch_size, loss_scaling=loss_scaling, force_finite=force_finite,
@@ -232,13 +254,19 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         force_wn=model_cfg.force_wn, num_accum=num_accum)
 
     net = NVPrecond(model_cfg, device=device, seed=seed).train()
+    print0(param_table(net.state_dict()))
+    print0(f"Parameters: {count_params(net.state_dict()) / 1e6:.2f} M")
+    if fsdp:
+        from vivid_tpu_torch.core.sharding import fsdp_shard
+        fsdp_shard(net)
     state = init_train_state(net, train_cfg)
-    step_fn = make_train_step(loss_fn, train_cfg)
+    step_fn = make_train_step(loss_fn, train_cfg, group=dist.group())
     generator = torch.Generator(device=device)
     nimg_per_step = batch_size * train_cfg.nimg_mult
-    print0(param_table(net.state_dict()))
-    print0(f"Parameters: {count_params(net.state_dict()) / 1e6:.2f} M on {device}; batch "
-           f"{batch_size} in {num_accum} microbatch(es); {nimg_per_step} nimg per step "
+    print0(f"{world} process(es), {dist.num_devices()} CUDA card(s) on this host, "
+           f"{'fsdp' if fsdp else 'data parallel' if world > 1 else 'one process'}; "
+           f"rank 0 on {device}; batch {batch_size} ({local_batch} a process in "
+           f"{num_accum} microbatch(es)); {nimg_per_step} nimg per step "
            f"(nimg_mult {train_cfg.nimg_mult})")
 
     ckpt = checkpoint.CheckpointIO(state=state)
@@ -272,7 +300,7 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                                     skip_rows=steps_prev * n_single if deterministic else 0)
 
     wandb_run = None
-    if not debug and os.environ.get("WANDB_PROJECT"):
+    if rank == 0 and not debug and os.environ.get("WANDB_PROJECT"):
         try:
             import wandb
             wandb_run = wandb.init(project=os.environ["WANDB_PROJECT"], dir=run_dir,
@@ -316,10 +344,13 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
 
     def save_snapshots(cur_nimg):
         for i, std in enumerate(train_cfg.ema_stds):
+            ema = state.ema_state_dict(i)   # whole tensors: a collective under fsdp
+            if rank != 0:
+                continue
             fname = os.path.join(run_dir,
                                  f"network-snapshot-{cur_nimg // 1000:07d}-{std:.3f}.pkl")
-            save_snapshot(fname, net, state.ema_state_dict(i),
-                          dataset_kwargs=dataset_kwargs, loss_kwargs=loss_kwargs)
+            save_snapshot(fname, net, ema, dataset_kwargs=dataset_kwargs,
+                          loss_kwargs=loss_kwargs)
             print0(f"Saved {fname}")
 
     eval_net = None   # a model holding EMA 0's weights, made at the first grid or tick
@@ -335,9 +366,12 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
     def generate_sample_grid(cur_nimg):
         """Sources, samples and targets of `eval_samples` test rows in three
         rows of one PNG; the samples from EMA 0, unguided, 32 Heun steps, and
-        through `sr_model` at its resolution when given."""
-        raw = next(test_loader)
+        through `sr_model` at its resolution when given. Rank 0 draws it; every
+        rank takes part in gathering EMA 0."""
         eval_net = ema0_net()
+        if rank != 0:
+            return
+        raw = next(test_loader)
         gen = torch.Generator(device=device).manual_seed(fold_in(seed, cur_nimg + 1))
         src = with_depth(encoder.encode_latents(raw["src_image"], device=device),
                          raw["src_image"])
@@ -465,7 +499,8 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                 dist.update_progress(cur_nimg // 1000, stop_at_nimg // 1000)
                 if stop_at_nimg <= cur_nimg < total_nimg:
                     dist.request_suspend()   # the end of a slice
-                if dist.should_stop() or dist.should_suspend():
+                # A SIGTERM on any rank suspends every rank here, together.
+                if dist.should_stop() or dist.sync_suspend():
                     done = True
                     # The exact point of a suspend is checkpointed, unless
                     # checkpoints are off.
@@ -474,7 +509,7 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                            + (" with a checkpoint" if suspend_save else ""), flush=True)
 
             if cur_nimg != start_nimg:
-                if test_loader is not None and interval_hit(samples_nimg, cur_nimg, prev_nimg):
+                if grids and interval_hit(samples_nimg, cur_nimg, prev_nimg):
                     generate_sample_grid(cur_nimg)
                 if metrics_fn is not None and interval_hit(metrics_nimg, cur_nimg, prev_nimg):
                     metrics_tick(cur_nimg)
@@ -482,15 +517,20 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                     save_snapshots(cur_nimg)
                 if interval_hit(checkpoint_nimg, cur_nimg, prev_nimg) or suspend_save:
                     fname = os.path.join(run_dir, f"training-state-{cur_nimg // 1000:07d}.pt")
-                    ckpt.save(fname, async_=True)
+                    ckpt.save(fname, async_=True)   # every rank gathers; rank 0 writes
                     print0(f"Saving {fname} (written while training goes on)")
+                    if world > 1:
+                        check_param_consistency(dict(zip(state.names, state.params)),
+                                                "net params")
+                    dist.barrier("checkpoint")
             if done:
                 break
 
             batch_start = time.time()
             batch = fetch_batch()
-            # One stream per step, a function of (seed, nimg) alone.
-            generator.manual_seed(fold_in(seed, cur_nimg))
+            # One stream per step and rank, a function of (seed, nimg, rank) alone.
+            generator.manual_seed(fold_in(seed, cur_nimg) if world == 1
+                                  else fold_in(fold_in(seed, cur_nimg), rank))
             pending.append(step_fn(state, batch, generator))
             steps_done += 1
             cumulative_training_time += time.time() - batch_start
@@ -503,5 +543,6 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                 closing.close()
         if wandb_run is not None:
             wandb_run.finish()
+    dist.barrier("done")   # no rank returns before rank 0's last file is written
     print0("Training done.")
     return EasyDict(state=state, ticks=ticks)
