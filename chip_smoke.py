@@ -35,9 +35,12 @@ its own:
            32 Heun steps, 8 seeds): PNGs, finite images, kernel launch
            counts; then the same through the base -> SR cascade (256px PNGs,
            launch counts per SR evaluation), and the SR model alone; the
-           64px run and a short cascade again with VIVID_NOMAX_PACKED=1
+           64px run warm, then it and a short cascade again with
+           VIVID_NOMAX_PACKED=1 (no warm cascade: a cut to the smoke's time)
   metrics  a synthetic RealEstate10K tree (640x360 PNG frames): the reader's
-           rows/s; the full-width InceptionV3 (bf16) and ViT-L/14 (bf16
+           rows/s with one thread and with the default count (windows of
+           48 rows, 96 before: a cut for time), which must
+           give the same batches; the full-width InceptionV3 (bf16) and ViT-L/14 (bf16
            autocast) against themselves in fp32, with three planted faults
            (half-pixel resize, average pools counting padding, the position
            grid not interpolated) that must fail the gate; `calculate_metrics
@@ -90,9 +93,29 @@ its own:
            outputs and gradients against the plain composite) and the three
            kernel labs of vivid_tpu_torch/tools, each at one timing case; a
            failed parity check raises
+  entry    the four root wrappers (--help each, and a dry run of
+           train_nvs_torch.py with --debug-nans, each a process of its own);
+           examples/quickstart_torch.py at its defaults (K1-K4 launches);
+           --debug-nans at full width (vivid-base, batch 8) through the
+           trainer's entry point: a NaN planted in one conv weight must raise
+           FloatingPointError naming that module, a clean run must pass; ms
+           per step with and without the flag
+  overfit  the convergence proof (vivid_tpu_torch/tools/overfit_smoke.py) at
+           its widths for OVERFIT_STEPS of its 2000 steps: both gates must
+           pass, the loss gate the corrected one
+  trace    one guided 64px evaluation in an annotated range under
+           core/trace.py's trace: the trace file must hold the range and
+           K1/K2's kernels; flops_analysis of one full-width vivid-base step
+           (batch 8) through the kernels and through the plain versions must
+           give the same count
   profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations,
            over 2 training steps at 64px and over 2 at 256px: device busy
            time, device operations, idle share, time by kind, the top kernels
+  mem      tools/mem_report of full-width vivid-sr at batch 8 under remat
+           true, save_dots at area 4096, at the default, with every conv
+           kept, and false: the bytes held after the forward pass must rise
+           strictly, the peak must not fall; vivid-base at batch 8 beside the
+           train phase's peak; tools/guided_mem at ch 128, batches 32 and 64
   dist     torch.distributed on the one card, each job in spawned processes
            of its own: NCCL at world size 1 (all_reduce_sum and the stats
            collector on the card, a host tensor refused; full-width
@@ -109,13 +132,14 @@ its own:
            vivid-uncond and vivid-sr (batch 4) under the model phase's gate
            with a control of one ulp on every product and attention output,
            and a planted self-normalised slice that must fail it; guided
-           sampling at tp 2 (8 seeds, 4 Heun steps) bitwise equal on both
+           sampling at tp 2 (8 seeds, 2 Heun steps) bitwise equal on both
            ranks, K1/K2 at 34 / 17 an evaluation, within the gate of tp 1;
            seed sharding (8 seeds over 2 ranks, each PNG written once). Its
            times are no speed: two ranks share one card and gloo stages
            every collective through the host
 
-Any failed check raises, so the script exits non-zero. Without a CUDA card
+A line `[time] phase=... seconds=...` follows each phase. Any failed check
+raises, so the script exits non-zero. Without a CUDA card
 it exits non-zero before printing any result. The line before the last is
 the kernel table as JSON; the last is {"ok": true, "device": {...}}.
 """
@@ -168,6 +192,9 @@ SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xa
 SR_PER_EVAL_NOMAX = {"flash_nomax": 8, "flash_nomax_packed": 6}   # VIVID_NOMAX_PACKED=1
 SHELL_CUBLAS_WORKSPACE = ":4096:8"   # cuBLAS's deterministic workspace, for the shell phase
 BATCH = 8
+TICK_IMAGES = 25   # the metrics tick's images in the smoke (the trainer's 100, cut for time)
+READER_WINDOWS = 2   # the reader's timing windows a thread count (cut for time)
+READER_WINDOW_ROWS = 48   # rows a window (cut for time from 96)
 SAME_FUNCTION = "the_same_function"             # what a case's library call computes
 CORE_ONLY = "the_attention_core_only"
 # The [B, H, S, D] forward on raw rows, (H, Sq, Sk) at d = 64: the 64px
@@ -1358,48 +1385,60 @@ def main():
             replaces="tools/nomax_attn_lab.py:123"),
     }
     card = phase_device()
-    phase_build()
-    phase_kernels(table)
-    phase_model()
-    phase_model_sr()
-    phase_model(nomax=True)
-    phase_model_sr(nomax=True)
-    nets, launches, sr_launches, nomax_launches = phase_slice(card)
-    phase_metrics(card, nets[:2])
-    phase_compat(card, nets[:2])
-    phase_depth(card, nets[1])
+    timed("build", phase_build)
+    timed("kernels", phase_kernels, table)
+    timed("model", phase_model)
+    timed("model_sr", phase_model_sr)
+    timed("model_nomax", phase_model, nomax=True)
+    timed("model_sr_nomax", phase_model_sr, nomax=True)
+    nets, launches, sr_launches, nomax_launches = timed("slice", phase_slice, card)
+    timed("metrics", phase_metrics, card, nets[:2])
+    timed("compat", phase_compat, card, nets[:2])
+    timed("depth", phase_depth, card, nets[1])
     for name, n in launches.items():
         if n:   # K1, K2: the guided 64px sampling path's count
             table[name]["launches"] = n
     table["flash_nomax"]["launches"] = sr_launches["flash_nomax"]   # the cascade's
     # K7: the same 64px path under VIVID_NOMAX_PACKED=1
     table["flash_nomax_packed"]["launches"] = nomax_launches["flash_nomax_packed"]
-    for name, n in phase_train(card).items():
+    for name, n in timed("train", phase_train, card).items():
         if name.endswith("_bwd"):   # the packed backward kernels: the 64px training path's
             table[name]["launches"] = n
     with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_keep_") as keep:
-        for name, n in phase_train_sr(card, keep_dir=keep).items():
+        for name, n in timed("train_sr", phase_train_sr, card, keep_dir=keep).items():
             if name.startswith("flash_attention"):   # K8: the SR training path's
                 table[name]["launches"] = n
-        run_shell_phase(os.path.join(keep, "vivid-sr.pkl"))
-    for name, n in phase_labs().items():
+        timed("shell", run_shell_phase, os.path.join(keep, "vivid-sr.pkl"))
+    for name, n in timed("labs", phase_labs).items():
         if name in ("flash_fused", "conv3x3_silu", "nomax_lab_attention"):
             table[name]["launches"] = n   # K5, K9, K10: the entries' and the labs' count
     for row in table.values():
         check(row.get("launches", 0) > 0 and "ms" in row,
               f"{row['name']}: no launch on its path, or no headline case: {row}")
-    phase_profile(*nets[:2])
-    phase_profile(*nets[:2], nomax=True)
-    phase_profile_sr(nets[2])
+    timed("entry", phase_entry, card)
+    timed("overfit", phase_overfit, card)
+    timed("trace", phase_trace, card, *nets[:2])
+    timed("profile", phase_profile, *nets[:2])
+    timed("profile_nomax", phase_profile, *nets[:2], nomax=True)
+    timed("profile_sr", phase_profile_sr, nets[2])
     del nets
-    phase_profile_train()
-    phase_profile_train_sr()
-    phase_dist(card)
+    timed("profile_train", phase_profile_train)
+    timed("profile_train_sr", phase_profile_train_sr)
+    timed("mem", phase_mem, card)
+    timed("dist", phase_dist, card)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def timed(name, fn, *args, **kwargs):
+    """fn(*args, **kwargs), with a line giving its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    say("time", phase=name, seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
 
 
 def _full_width(uncond, conditioned=True, train=False, **flags):
@@ -1700,7 +1739,7 @@ def phase_slice(card):
         want_files = sorted(f"{p}_{s:06d}.png" for p in ("src", "tgt", "sample") for s in seeds)
         sr_only_steps = 4
         cascade = dict(net=base, gnet=gnet, guidance=1.5, sr_model=sr)
-        runs = [("cascade_cold", steps, cascade), ("cascade_warm", steps, cascade),
+        runs = [("cascade_cold", steps, cascade),   # no warm repeat, as above
                 ("sr_only", sr_only_steps, dict(net=sr, vanilla_mode=True)),
                 ("cascade_nomax_packed", sr_only_steps, cascade)]
         for run, n_steps, models in runs:
@@ -1848,7 +1887,7 @@ def phase_metrics(card, nets=None):
     import numpy as np
     import torch
     from vivid_tpu_torch.cli import calculate_metrics, train_nvs
-    from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate
+    from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, default_loader_threads
     from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
     from vivid_tpu_torch.kernels import flash
     from vivid_tpu_torch.metrics import api, detectors, frechet, inception
@@ -1868,26 +1907,35 @@ def phase_metrics(card, nets=None):
             frames_per_sequence=64, write_s=f"{time.perf_counter() - t0:.2f}")
 
         # The reader: RealEstate10K scenes (whole or 'mid' frame range) ->
-        # dual-source 64px rows (3 PNG decodes, crops and resizes a row), one
-        # host thread, batch 8: three windows of 96 rows each, over the 8
-        # train sequences; the median window's rate and the spread.
+        # dual-source 64px rows (3 PNG decodes, crops and resizes a row), batch
+        # 8, with one host thread and with the default thread count: windows
+        # of READER_WINDOW_ROWS each, over the 8 train sequences; the median window's
+        # rate and the spread. Both give the same batches.
         for rs in (None, "mid"):
-            loader = BatchLoader(iter(open_scene_dataset(tree, seed=0, range_selection=rs)),
-                                 DualSourceCollate(64, seed=0), batch_size=BATCH)
-            next(loader)
-            rates = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                for _ in range(96 // BATCH):
-                    batch = next(loader)
-                rates.append(96 / (time.perf_counter() - t0))
-                check(batch["src_image"].shape == (BATCH, 2, 64, 64, 3)
-                      and np.isfinite(batch["geometry"]).all(), "reader: batch")
-            loader.close()
-            say("metrics", reader=f"range_{rs}", rows=3 * 96, windows=3, batch=BATCH,
-                rows_per_s=f"{statistics.median(rates):.1f}",
-                rows_per_s_min_max=f"{min(rates):.1f}-{max(rates):.1f}", threads=1,
-                card=f"'{card}'")
+            first = None
+            for threads in (1, default_loader_threads()):
+                loader = BatchLoader(iter(open_scene_dataset(tree, seed=0, range_selection=rs)),
+                                     DualSourceCollate(64, seed=0), batch_size=BATCH,
+                                     num_threads=threads)
+                head = next(loader)
+                if first is None:
+                    first = head
+                check(all(np.array_equal(head[k], first[k]) for k in first),
+                      f"reader: {threads} threads give another first batch than 1")
+                rates = []
+                for _ in range(READER_WINDOWS):
+                    t0 = time.perf_counter()
+                    for _ in range(READER_WINDOW_ROWS // BATCH):
+                        batch = next(loader)
+                    rates.append(READER_WINDOW_ROWS / (time.perf_counter() - t0))
+                    check(batch["src_image"].shape == (BATCH, 2, 64, 64, 3)
+                          and np.isfinite(batch["geometry"]).all(), "reader: batch")
+                loader.close()
+                say("metrics", reader=f"range_{rs}", rows=READER_WINDOWS * READER_WINDOW_ROWS,
+                    windows=READER_WINDOWS, batch=BATCH,
+                    rows_per_s=f"{statistics.median(rates):.1f}",
+                    rows_per_s_min_max=f"{min(rates):.1f}-{max(rates):.1f}", threads=threads,
+                    host_cpus=os.cpu_count(), card=f"'{card}'")
 
         detector_dir = os.path.join(tmp, "detectors")
         ckpt = os.path.join(detector_dir, "torch_hub", "checkpoints", "dinov2_vitl14_pretrain.pth")
@@ -2051,15 +2099,16 @@ def phase_metrics(card, nets=None):
 
             # A metrics tick of the trainer: 3 steps of full-width vivid-base
             # (batch 8 of the preset's 1024) on the tree's train split, the
-            # tick at 96 nimg over its test split (100 unguided samples at
-            # batch 25, EMA 0), FID and PSNR.
+            # tick at 96 nimg over its test split (unguided samples of EMA 0
+            # at batch 25: 25 of the trainer's 100, a cut to the smoke's
+            # time), FID and PSNR.
             run_dir = os.path.join(tmp, "train")
             tick_launches = []
 
             def counted(*args, **kw):
                 for name in flash.launches:
                     flash.launches[name] = 0
-                out = real_get_metrics(*args, **kw)
+                out = real_get_metrics(*args, **dict(kw, num_images=TICK_IMAGES))
                 tick_launches.append({k: n for k, n in flash.launches.items() if n})
                 return out
 
@@ -2082,7 +2131,7 @@ def phase_metrics(card, nets=None):
         status = [_json.loads(l) for l in open(os.path.join(exp, "stats.jsonl"))]
         per_eval = {"flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg)),
                     "flash_fused_packed_xattn": n_cross}
-        want_t = {k: n * evals * 4 for k, n in per_eval.items()}   # 100 images at batch 25
+        want_t = {k: n * evals * (-(-TICK_IMAGES // 25)) for k, n in per_eval.items()}
         check(tick_launches == [want_t], f"tick: launches {tick_launches}, want [{want_t}]")
         check(log.count("Metrics: {") == 1 and len(rows) == 1 and rows[0]["nimg"] == 96
               and all(math.isfinite(rows[0][k]) for k in ("fid", "psnr")),
@@ -2090,7 +2139,8 @@ def phase_metrics(card, nets=None):
         check(len(status) == 4 and status[3].get("Metrics/fid") == rows[0]["fid"]
               and status[3].get("Metrics/psnr") == rows[0]["psnr"]
               and "Metrics/fid" not in status[2], f"tick: stats.jsonl {status}")
-        say("metrics", run="train_tick", steps=3, tick_nimg=96, seconds=f"{seconds:.2f}",
+        say("metrics", run="train_tick", steps=3, tick_nimg=96, images=TICK_IMAGES,
+            seconds=f"{seconds:.2f}",
             fid=f"{rows[0]['fid']:.6g}", psnr=f"{rows[0]['psnr']:.4f}",
             launches=tick_launches[0], card=f"'{card}'")
     detectors._detector_cache.clear()
@@ -2106,7 +2156,7 @@ def phase_compat(card, nets=None):
     `load_snapshot`, with their load times. The reference pickle's config
     (extract_config) must be the net's in every field the reference records,
     and its weights the v1 snapshot's bit for bit (both store fp16 and load
-    fp32). Then 8 guided images, 32 steps, guidance 1.5, from the reference
+    fp32). Then 8 guided images, 8 steps, guidance 1.5, from the reference
     pickles and from the v1 snapshots: K1/K2 at the planned launches, and
     the images and latents bitwise equal. Returns the reference run's
     launch counts."""
@@ -2122,7 +2172,7 @@ def phase_compat(card, nets=None):
 
     if nets is None:
         nets = (_full_width(uncond=False), _full_width(uncond=True))
-    steps, seeds = 32, list(range(8))
+    steps, seeds = 8, list(range(8))   # of the sampler's 32 (a cut for time)
     recorded = [k for k in config_to_init_kwargs(nets[0].cfg) if k != "use_fp16"]
     with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_compat_") as tmp:
         root = write_reference_standin(os.path.join(tmp, "reference"))
@@ -2236,7 +2286,7 @@ def phase_depth(card, gnet=None):
     that must fail it (the head's resizes off align_corners, the input's
     bicubic resize without antialiasing); its ms per batch of 16 views.
     Then full-width `vivid-base` with `depth_input` and with
-    `warp_depth_coor` through `phase_model`'s D_x gate; 8 guided images, 32
+    `warp_depth_coor` through `phase_model`'s D_x gate; 8 guided images, 8
     steps, of the depth_input net with depth_model='small' through
     generate_images_nvs (`gnet`: the `slice` phase's vivid-uncond, or the
     same from its seed), K1/K2 at the planned launches; 2 training steps at
@@ -2316,7 +2366,7 @@ def phase_depth(card, gnet=None):
         base = _full_width(uncond=False, depth_input=True)
         data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=8, num_views=8,
                                       imsize=64, seed=0)
-        steps, seeds = 32, list(range(8))
+        steps, seeds = 8, list(range(8))   # of the sampler's 32 (a cut for time)
         per_eval = {"flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg))
                     + len(attention_feature_spec(gnet.cfg.unet_cfg)),
                     "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg))}
@@ -2621,6 +2671,7 @@ def _run_trainer(card, run_dir, data, preset, steps, remat, preset_batch, **opts
     seconds = time.perf_counter() - t0
     launches = dict(flash.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    TRAINER_PEAK_GB[(preset, str(remat).lower())] = peak_gb
     state, ticks = result.state, result.ticks[1:]   # the first tick precedes step 1
     cfg = state.net.cfg
     per_step = _train_launches(cfg)
@@ -3119,9 +3170,10 @@ def phase_shell(card, sr_model=None):
             f"{k:+.5f}" for k in coef], max_rel_err_vs_fp64_mix=f"{worst:.2e}",
             reconstruct_s=f"{phema_s:.2f}", evaluation_launches=used)
 
-        # ms per step with and without the deterministic mode, in turns.
+        # ms per step with and without the deterministic mode (one run each:
+        # a cut to the smoke's time from the turns True, False, False, True).
         step_ms = {True: [], False: []}
-        for det in (True, False, False, True):
+        for det in (True, False):
             _, r = train(f"timing_{len(step_ms[True]) + len(step_ms[False])}", deterministic=det,
                          **dict(quiet, slice_nimg=None))
             step_ms[det].append(statistics.median(t["seconds"] for t in r.ticks[2:]) * 1e3)
@@ -3670,7 +3722,7 @@ def _dist_two_ranks(rank, world, backend, data, tmp):
     # Those two call the sampler directly on the inputs the tp 2 run gave
     # it: generate_images_nvs itself is collective over the two ranks.
     from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
-    seeds, steps = list(range(BATCH)), 4
+    seeds, steps = list(range(BATCH)), 2   # of the sampler's 32: a cut for time
     base, gnet = _full_width(False), _full_width(True)
     pair = lambda b, g: dict(net=EasyDict(net=b, cfg=b.cfg), gnet=EasyDict(net=g, cfg=g.cfg))
     common = dict(guidance=1.5, seeds=seeds, max_batch_size=BATCH, num_steps=steps,
@@ -3899,6 +3951,299 @@ def phase_labs():
     launches = dict(flash.launches)
     say("labs", launches={k: n for k, n in launches.items() if n})
     return launches
+
+
+ENTRY_WRAPPERS = ("train_nvs_torch", "generate_images_torch", "calculate_metrics_torch",
+                  "inspect_dataset_torch")
+NAN_PLANT = "unet.enc.64x64_block0.conv_res0.weight"   # one conv weight of vivid-base
+TRAINER_PEAK_GB = {}   # (preset, remat) -> the trainer's peak in the train phase
+
+
+def _trainer_run(run_dir, data, steps, **opts):
+    """`steps` steps of full-width vivid-base at batch 8 through
+    `cli.train_nvs.launch_training` (no ramp-up, a status tick a step, no
+    snapshots) -> (result, ms of each step after the first)."""
+    import torch
+    from vivid_tpu_torch.cli.train_nvs import launch_training, setup_training_config
+    c = setup_training_config(preset="vivid-base", data=data, batch=BATCH, max_steps=steps,
+                              remat="false", seed=0, device="cuda", **opts)
+    c.update(status_nimg=BATCH * 6, snapshot_nimg=None, checkpoint_nimg=None)
+    c.lr_kwargs.rampup_Mimg = 0.0
+    result = launch_training(run_dir, c)
+    torch.cuda.synchronize()
+    return result, [t["seconds"] * 1e3 for t in result.ticks[2:]]
+
+
+def phase_entry(card):
+    """The port's entry points as a user starts them: the four root
+    wrappers (--help, and a dry run of the trainer's with --debug-nans, each
+    a process of its own), the quickstart at its defaults (K1-K4 launches),
+    and --debug-nans at full width (vivid-base, batch 8) through the
+    trainer's entry point: one NaN planted in one conv weight must raise
+    FloatingPointError naming that module, a run without it must pass; ms
+    per step with and without the flag."""
+    import runpy
+    from unittest import mock
+    import torch
+    from vivid_tpu_torch.data.scenes import make_synthetic_dataset
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.train import loop
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmds = {name: [sys.executable, f"{name}.py", "--help"] for name in ENTRY_WRAPPERS}
+    cmds["train_nvs_torch_dry_run"] = [sys.executable, "train_nvs_torch.py", "--data",
+                                       "scenes/", "--dry-run", "--debug-nans"]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, cmd in cmds.items()}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        want = "Dry run" if name.endswith("dry_run") else "--help"
+        check(proc.returncode == 0 and want in out,
+              f"entry: {' '.join(cmds[name])} exited {proc.returncode}:\n{out[-2000:]}{err[-2000:]}")
+        if name.endswith("dry_run"):
+            check('"debug_nans": true' in out, f"entry: the dry run did not take --debug-nans:\n{out}")
+    say("entry", check="root_wrappers", ran=sorted(cmds), seconds=f"{time.perf_counter() - t0:.2f}")
+
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_entry_") as tmp:
+        for name in flash.launches:
+            flash.launches[name] = 0
+        quickstart = runpy.run_path(os.path.join(root, "examples", "quickstart_torch.py"))
+        t0 = time.perf_counter()
+        out = quickstart["main"](["--workdir", os.path.join(tmp, "quickstart")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: n for k, n in flash.launches.items() if n}
+        samples = [f for f in os.listdir(out["samples"]) if f.startswith("sample_")]
+        check(all(launches.get(n) for n in ("flash_fused_packed", "flash_fused_packed_xattn",
+                                            "flash_fused_packed_bwd",
+                                            "flash_fused_packed_xattn_bwd")),
+              f"entry: the quickstart launched {launches}")
+        check(len(samples) == 8 and sorted(out["metrics"]) == ["psnr", "stub_fid"]
+              and all(math.isfinite(v) for v in out["metrics"].values()),
+              f"entry: quickstart samples {samples}, metrics {out['metrics']}")
+        say("entry", run="quickstart", defaults=True, seconds=f"{seconds:.2f}",
+            metrics=out["metrics"], launches=launches, card=f"'{card}'")
+
+        data = make_synthetic_dataset(os.path.join(tmp, "scenes"), num_scenes=16,
+                                      num_views=8, imsize=64, seed=0)
+
+        class Planted(loop.NVPrecond):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                with torch.no_grad():
+                    self.get_parameter(NAN_PLANT)[0, 0, 1, 1] = float("nan")
+
+        module = "net." + NAN_PLANT.rsplit(".", 1)[0]
+        try:
+            with mock.patch.object(loop, "NVPrecond", Planted):
+                _trainer_run(os.path.join(tmp, "planted"), data, 1, debug_nans=True)
+            raised = None
+        except FloatingPointError as err:
+            raised = str(err)
+        check(raised is not None and f"'{module}'" in raised,
+              f"entry: --debug-nans with a NaN in {NAN_PLANT} raised {raised!r}")
+        check(not torch.is_anomaly_enabled(), "entry: anomaly mode left on")
+        ms = {}
+        for flag, steps in ((True, 2), (False, 3)):   # a step with the flag: ~10 s
+            result, ms[flag] = _trainer_run(os.path.join(tmp, f"clean_{flag}"), data, steps,
+                                            debug_nans=flag)
+            check(result.state.adam_step == steps and all(
+                math.isfinite(t["loss"]) for t in result.ticks[1:]),
+                f"entry: a clean run with debug_nans={flag}: {result.ticks}")
+            del result
+            torch.cuda.empty_cache()
+        say("entry", run="debug_nans", net="vivid-base", batch=BATCH, planted=NAN_PLANT,
+            raised=f"'{raised}'", step_ms_with_flag=[round(x, 1) for x in ms[True]],
+            step_ms_without=[round(x, 1) for x in ms[False]],
+            ratio=f"{statistics.median(ms[True]) / statistics.median(ms[False]):.2f}",
+            card=f"'{card}'")
+
+
+OVERFIT_STEPS = 200   # the overfit phase's cut of the tool's 2000 (PERF.md §4)
+
+
+def phase_overfit(card, steps=OVERFIT_STEPS):
+    """The convergence proof at the tool's widths (ch 64, 32 px, batch 16,
+    attention at 16 and 8) for `steps` steps: both of its gates must pass,
+    the loss gate the corrected one; prints the loss thirds, the PSNRs, each
+    gate's margin and the kernels' launches."""
+    import torch
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.tools import overfit_smoke
+    for name in flash.launches:
+        flash.launches[name] = 0
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_overfit_") as tmp:
+        out = os.path.join(tmp, "overfit.json")
+        t0 = time.perf_counter()
+        rc = overfit_smoke.main(["--steps", str(steps), "--out", out])
+        seconds = time.perf_counter() - t0
+        r = json.load(open(out))
+    torch.cuda.synchronize()
+    head, tail = r["loss_head_third"], r["loss_tail_third"]
+    loss_margin = head - 0.3 * abs(head) - tail
+    psnr_margin = r["psnr_after_db"] - r["psnr_before_db"] - 3.0
+    say("overfit", steps=steps, batch=r["batch"], ch=r["ch"], imsize=r["imsize"],
+        loss_head_third=f"{head:.4f}", loss_tail_third=f"{tail:.4f}",
+        loss_gate_margin=f"{loss_margin:.4f}", psnr_before_db=f"{r['psnr_before_db']:.3f}",
+        psnr_after_db=f"{r['psnr_after_db']:.3f}", psnr_ema_db=f"{r['psnr_after_ema_db']:.3f}",
+        psnr_raw_db=f"{r['psnr_after_raw_db']:.3f}",
+        psnr_src_floor_db=f"{r['psnr_src_floor_db']:.3f}", psnr_gate_margin_db=f"{psnr_margin:.3f}",
+        train_wall_s=r["wall_s"], seconds=f"{seconds:.2f}",
+        launches={k: n for k, n in flash.launches.items() if n}, card=f"'{card}'")
+    check(rc == 0 and loss_margin > 0 and psnr_margin > 0,
+          f"overfit: the gates failed after {steps} steps: {r}")
+
+
+def phase_mem(card):
+    """The memory reports on the card. `mem_report` of full-width vivid-sr
+    at batch 8 under remat true, save_dots at area 4096, save_dots at the
+    default, save_dots with every conv kept, and false: the bytes held
+    after the forward pass must rise strictly along that sequence, and the
+    peak must not fall. Then vivid-base (ch 128) at batch 8 without remat,
+    beside the train phase's own peak, and `guided_mem` at ch 128 for
+    batches 32 and 64 with 2 steps."""
+    import torch
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.tools import guided_mem, mem_report
+    gb = lambda n: f"{n / 1e9:.3f}"
+    sequence = [(True, None), ("save_dots", 4096), ("save_dots", None),
+                ("save_dots", 1 << 40), (False, None)]
+    rows = []
+    for name in flash.launches:
+        flash.launches[name] = 0
+    old = os.environ.pop("VIVID_REMAT_HIRES_AREA", None)
+    try:
+        for remat, area in sequence:
+            if area is None:
+                os.environ.pop("VIVID_REMAT_HIRES_AREA", None)
+            else:
+                os.environ["VIVID_REMAT_HIRES_AREA"] = str(area)
+            r = mem_report.report(mem_report.build_config(remat=remat, sr=True), BATCH)
+            rows.append(r)
+            say("mem", net="vivid-sr", batch=BATCH, remat=remat, hires_area=r["hires_area"],
+                activations_GB=gb(r["activation_bytes"]), peak_GB=gb(r["peak_allocated_bytes"]),
+                reserved_GB=gb(r["peak_reserved_bytes"]), params_GB=gb(r["param_bytes"]),
+                adam_GB=gb(r["optimizer_bytes"]), emas_GB=gb(r["ema_bytes"]),
+                card=f"'{card}'")
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("VIVID_REMAT_HIRES_AREA", None)
+        if old is not None:
+            os.environ["VIVID_REMAT_HIRES_AREA"] = old
+    held = [r["activation_bytes"] for r in rows]
+    peaks = [r["peak_allocated_bytes"] for r in rows]
+    check(all(a < b for a, b in zip(held, held[1:])),
+          f"mem: bytes held after the forward pass do not rise along {sequence}: {held}")
+    check(all(a <= b for a, b in zip(peaks, peaks[1:])),
+          f"mem: peak memory falls along {sequence}: {peaks}")
+    sr_launches = {k: n for k, n in flash.launches.items() if n}
+    check(sr_launches.get("flash_nomax") and sr_launches.get("flash_attention_bwd"),
+          f"mem: the vivid-sr steps launched {sr_launches}")
+    r = mem_report.report(mem_report.build_config(remat=False, flagship=True), BATCH)
+    say("mem", net="vivid-base", batch=BATCH, remat=False, activations_GB=gb(r["activation_bytes"]),
+        peak_GB=gb(r["peak_allocated_bytes"]), reserved_GB=gb(r["peak_reserved_bytes"]),
+        params_GB=gb(r["param_bytes"]), adam_GB=gb(r["optimizer_bytes"]),
+        emas_GB=gb(r["ema_bytes"]),
+        train_phase_trainer_peak_GB=f"{TRAINER_PEAK_GB.get(('vivid-base', 'false'), float('nan')):.3f}",
+        card=f"'{card}'")
+    torch.cuda.empty_cache()
+    for b in (32, 64):
+        g = guided_mem.report(128, b, num_steps=2)
+        say("mem", tool="guided_mem", ch=128, batch=b, steps=2, weights_GB=gb(g["weight_bytes"]),
+            working_GB=gb(g["working_bytes"]), peak_GB=gb(g["peak_allocated_bytes"]),
+            reserved_GB=gb(g["peak_reserved_bytes"]), seconds=f"{g['seconds']:.2f}",
+            card=f"'{card}'")
+        torch.cuda.empty_cache()
+    say("mem", launches={k: n for k, n in flash.launches.items() if n}, sr_launches=sr_launches)
+
+
+def phase_trace(card, base=None, gnet=None):
+    """`core/trace.py` on the card: one full-width guided 64px evaluation
+    (batch 8) in an `annotate`d range under `trace`; the trace file must
+    hold the range and K1/K2's kernels. Then `flops_analysis` of one
+    full-width vivid-base training step (batch 8) through the kernels and
+    through their plain versions (the train phase's patching): the counts
+    must be equal. Without nets it builds the full-width pair from their
+    seeds."""
+    from unittest import mock
+    import torch
+    from vivid_tpu_torch.core.summary import flops_analysis
+    from vivid_tpu_torch.core.trace import annotate, trace
+    from vivid_tpu_torch.diffusion.loss import NVLoss
+    from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+    from vivid_tpu_torch.kernels import flash
+    from vivid_tpu_torch.train.step import TrainConfig, init_train_state, make_train_step
+    if base is None:
+        base, gnet = _full_width(uncond=False), _full_width(uncond=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    src = torch.randn(BATCH, 2, 64, 64, 3, generator=gen, device="cuda").clamp(-1, 1)
+    geo = torch.randn(BATCH, 2, 20, generator=gen, device="cuda")
+    noise = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
+
+    @annotate("vivid_guided_evaluation")
+    def evaluation():
+        with torch.no_grad():   # one Heun step: one guided evaluation
+            return edm_sampler(make_denoiser(base, src, geo), noise,
+                               gnet_denoise=make_denoiser(gnet), num_steps=1, guidance=1.5)
+
+    evaluation()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_trace_") as tmp:
+        t0 = time.perf_counter()
+        with trace(tmp) as prof:
+            evaluation()
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        size_mb = os.path.getsize(prof.trace_file) / 1e6
+        events = json.load(open(prof.trace_file))["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = {k: sum(k in n for n in names) for k in ("packed_fwd_norm_kernel",
+                                                       "packed_fwd_kernel")}
+    ranges = sum(n == "vivid_guided_evaluation" for n in names)
+    say("trace", evaluation="guided_64px", batch=BATCH, trace_MB=f"{size_mb:.1f}",
+        events=len(events), ranges=ranges, kernel_events=kernels,
+        seconds=f"{seconds:.2f}", card=f"'{card}'")
+    check(ranges >= 1 and all(kernels.values()),
+          f"trace: the range ({ranges}) or K1/K2's kernels ({kernels}) missing from the trace")
+
+    net = _full_width(uncond=False, train=True)
+    tcfg = TrainConfig(batch_size=BATCH, nimg_mult=6)
+    state = init_train_state(net, tcfg)
+    step = make_train_step(NVLoss(P_mean=-0.8, P_std=1.6), tcfg)
+    batch = dict(src=src, tgt=noise.clamp(-1, 1), geometry=geo)
+    names = ("flash_fused_packed", "flash_fused_packed_xattn", "flash_fused_packed_bwd",
+             "flash_fused_packed_xattn_bwd")
+    counts = {}
+    for variant in ("kernels", "plain"):
+        with contextlib.ExitStack() as stack:
+            if variant == "plain":
+                for name in names:
+                    stack.enter_context(mock.patch.object(flash, name, getattr(flash, name + "_ref")))
+            gen.manual_seed(5)
+            t0 = time.perf_counter()
+            counts[variant] = flops_analysis(step, state, batch, gen)
+            torch.cuda.synchronize()
+            counts[variant]["seconds"] = time.perf_counter() - t0
+    k, p = counts["kernels"], counts["plain"]
+    # The count is of executed operations: K3/K4's tallies (12 B H S Sk D)
+    # hold their plain versions' recomputed forward (4 of the 12). Less that,
+    # the model's own count (backward 8 B H S Sk D).
+    recomputed = sum(k["kernels"].get(n, 0) for n in names[2:]) // 3
+    say("trace", check="flops_of_a_train_step", net="vivid-base", batch=BATCH, remat=False,
+        gflops_kernels=f"{k['flops'] / 1e9:.3f}", gflops_plain=f"{p['flops'] / 1e9:.3f}",
+        model_gflops=f"{(k['flops'] - recomputed) / 1e9:.3f}",
+        recomputed_forward_gflops=f"{recomputed / 1e9:.3f}",
+        operators_gflops=f"{k['operators'] / 1e9:.3f}",
+        kernel_gflops={n: f"{v / 1e9:.3f}" for n, v in k["kernels"].items()},
+        plain_attention_gflops=f"{(p['operators'] - k['operators']) / 1e9:.3f}",
+        seconds_kernels=f"{k['seconds']:.2f}", seconds_plain=f"{p['seconds']:.2f}",
+        card=f"'{card}'")
+    check(k["flops"] == p["flops"] and set(k["kernels"]) == set(names) and not p["kernels"],
+          f"trace: the step's count through the kernels {k['flops']} != through the plain "
+          f"versions {p['flops']} ({k['kernels']}, {p['kernels']})")
+    del net, state
+    torch.cuda.empty_cache()
 
 
 def _profile(tag, fn, units, unit):

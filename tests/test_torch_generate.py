@@ -166,8 +166,11 @@ def test_port_runs_without_jax(tmp_path):
     kernels' wrappers run, the trainer CLI takes one step, the generation
     CLI samples a guided base -> SR cascade, a RealEstate10K tree is read
     and `calculate_metrics gen` measures guided samples of its test split on
-    the CPU, and a snapshot is exported to a reference pickle through a
-    stand-in checkout and read back, with jax and vivid_tpu made
+    the CPU, a snapshot is exported to a reference pickle through a
+    stand-in checkout and read back, the four root wrappers answer --help
+    (and the trainer's a dry run with --debug-nans), the quickstart takes 2
+    steps, and the overfit, memory and protocol tools run (the memory
+    reports refuse to without a card), with jax and vivid_tpu made
     unimportable."""
     script = textwrap.dedent(f"""
         import importlib, os, pkgutil, sys
@@ -253,6 +256,32 @@ def test_port_runs_without_jax(tmp_path):
                               "--reference-root", ref_root], standalone_mode=False)
         back = load_snapshot(os.path.join(root, "ref.pkl"))
         assert back.cfg.model_channels == 16 and not back.net.training
+        import click.testing, runpy
+        for name in ("train_nvs_torch", "generate_images_torch", "calculate_metrics_torch",
+                     "inspect_dataset_torch"):
+            wrapper = importlib.import_module(name)
+            entry = getattr(wrapper, "cmdline", None) or wrapper.main
+            assert click.testing.CliRunner().invoke(entry, ["--help"]).exit_code == 0, name
+        import train_nvs_torch
+        train_nvs_torch.cmdline(["--data", data, "--dry-run", "--debug-nans"],
+                                standalone_mode=False)
+        quickstart = runpy.run_path(os.path.join({REPO!r}, "examples", "quickstart_torch.py"))
+        done = quickstart["main"](["--workdir", os.path.join(root, "qs"), "--steps", "2",
+                                   "--channels", "16", "--resolution", "16", "--device", "cpu"])
+        assert sorted(done["metrics"]) == ["psnr", "stub_fid"]
+        from vivid_tpu_torch.tools import (guided_mem, make_protocol_snapshots, mem_report,
+                                           overfit_smoke)
+        assert overfit_smoke.main(["--steps", "2", "--ch", "16", "--imsize", "16",
+                                   "--batch", "2", "--device", "cpu",
+                                   "--out", os.path.join(root, "of.json")]) == 1
+        for tool, argv in ((mem_report, ["--batch", "1"]), (guided_mem, ["--batches", "1"])):
+            try:
+                tool.main(argv)
+                raise AssertionError("a memory report ran without a card")
+            except RuntimeError as err:
+                assert "no CUDA card" in str(err)
+        make_protocol_snapshots.write_snapshots(
+            os.path.join(root, "proto"), make_protocol_snapshots.protocol_configs(16, 16))
         assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
         print("ok")
     """)

@@ -2,13 +2,16 @@
 the CPU at a tiny size: a `no_time_enc` model sampled with one encoder pass,
 dataset arguments passed on or refused by name, the `Status:` line in the
 reference's format, the result records' keys, and `--noisy-sr 0`; and what the
-big-S attention wrappers refuse before they launch anything."""
+big-S attention wrappers refuse before they launch anything. Then C11, the
+save_dots rule for high-resolution convolutions, and C12, the threaded
+loader (with the JAX loader's lost rows, C-ref-10, pinned)."""
 
 import dataclasses
 import os
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,7 @@ from vivid_tpu.diffusion import sampler as jsampler
 from vivid_tpu.nn import precond as jprecond
 from vivid_tpu_torch.cli import train_nvs
 from vivid_tpu_torch.compat.from_jax import from_jax
-from vivid_tpu_torch.data import scenes
+from vivid_tpu_torch.data import collate, scenes
 from vivid_tpu_torch.diffusion import sampler
 from vivid_tpu_torch.generate import generate_images_nvs, open_scene_dataset
 from vivid_tpu_torch.kernels import flash
@@ -289,3 +292,168 @@ def test_big_s_wrappers_take_what_the_kernels_take():
     assert flash._checked_bhsd(q, k, v, None, on_card=False)[-1] == 64
     with pytest.raises(ValueError, match="must be on"):      # the card is still required
         flash._checked_bhsd(q, k, v, None)
+
+
+# -- C11: save_dots recomputes the convolutions above VIVID_REMAT_HIRES_AREA ----
+
+def _save_dots_run(monkeypatch, remat, area=None):
+    """One forward and backward of a tiny 32px NVPrecond under `remat`, with
+    VIVID_REMAT_HIRES_AREA at `area` (unset for None) -> (the gradients,
+    [(conv output shape NHWC, bytes, input area, kept)] from the policy's own
+    decisions in the forward pass)."""
+    from torch.utils import checkpoint as ckpt
+    from vivid_tpu_torch.nn import unet
+    if area is None:
+        monkeypatch.delenv("VIVID_REMAT_HIRES_AREA", raising=False)
+    else:
+        monkeypatch.setenv("VIVID_REMAT_HIRES_AREA", str(area))
+    decisions = []
+    policy_of = unet._save_dots_policy
+
+    def recording(hires_area):
+        policy = policy_of(hires_area)
+
+        def record(ctx, op, *args, **kwargs):
+            decision = policy(ctx, op, *args, **kwargs)
+            if op is torch.ops.aten.convolution.default and not ctx.is_recompute:
+                x, w = args[0], args[1]
+                n, _, h, wd = x.shape
+                shape = (n, h, wd, w.shape[0])
+                decisions.append((shape, int(np.prod(shape)) * x.element_size(), h * wd,
+                                  decision == ckpt.CheckpointPolicy.MUST_SAVE))
+            return decision
+        return record
+
+    monkeypatch.setattr(unet, "_save_dots_policy", recording)
+    cfg = PrecondConfig(img_resolution=32, **dict(TINY, channel_mult=(1, 2, 2), remat=remat))
+    net = NVPrecond(cfg, seed=3).train()
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            if n.endswith("gain"):
+                p.fill_(1.0)
+    gen = torch.Generator().manual_seed(4)
+    src, tgt = torch.randn(2, 2, 32, 32, 3, generator=gen), torch.randn(2, 32, 32, 3, generator=gen)
+    out = net(src, tgt, torch.ones(2), torch.randn(2, 2, 20, generator=gen))
+    out.square().sum().backward()
+    return torch.cat([p.grad.reshape(-1) for p in net.parameters()
+                      if p.grad is not None]), decisions
+
+
+def test_save_dots_recomputes_convs_above_the_hires_area(monkeypatch):
+    """ROADMAP C11. At area A the conv outputs that save_dots keeps are those
+    it keeps with every conv kept, less the outputs of the convs whose input
+    area exceeds A; the default (128 x 128) keeps all of them at 32 px. The
+    gradient is the same under every mode."""
+    want, _ = _save_dots_run(monkeypatch, False)
+    grads, kept = {}, {}
+    for area in (None, 10 ** 9, 256, 64):
+        grads[area], decisions = _save_dots_run(monkeypatch, "save_dots", area)
+        limit = 128 * 128 if area is None else area
+        assert decisions and all(keep == (a <= limit) for _, _, a, keep in decisions)
+        kept[area] = sum(nbytes for _, nbytes, _, keep in decisions if keep)
+        every = sum(nbytes for _, nbytes, _, _ in decisions)
+        assert kept[area] == every - sum(nbytes for _, nbytes, a, _ in decisions if a > limit)
+    assert kept[None] == kept[10 ** 9] > kept[256] > kept[64] > 0
+    grads[True], _ = _save_dots_run(monkeypatch, True)
+    for area, g in grads.items():
+        assert ((g - want).norm() / want.norm()).item() <= 1e-6, area
+
+
+def test_save_dots_drops_the_conv_outputs_jax_drops(monkeypatch):
+    """The conv outputs the port recomputes at areas 256 and 64 have the
+    shapes of the residuals that `vivid_tpu` stops saving at the same
+    threshold (`jax.ad_checkpoint.saved_residuals`, "mpconv_out_hires")."""
+    import collections
+    from jax._src.ad_checkpoint import saved_residuals
+    from vivid_tpu.nn import mp as jmp
+    cfg = jprecond.PrecondConfig(img_resolution=32, **dict(TINY, channel_mult=(1, 2, 2),
+                                                            remat="save_dots"))
+    params = jprecond.precond_init(jax.random.PRNGKey(0), cfg)
+    args = (jnp.ones((2, 2, 32, 32, 3)), jnp.ones((2, 32, 32, 3)), jnp.ones((2,)),
+            jnp.zeros((2, 2, 20)))
+
+    def residuals(area):
+        monkeypatch.setattr(jmp, "REMAT_HIRES_AREA", area)
+        fn = lambda p: jprecond.precond_apply(p, cfg, *args).sum()
+        return collections.Counter(tuple(a.shape) for a, _ in saved_residuals(fn, params))
+
+    every = residuals(10 ** 9)
+    for area in (256, 64):
+        _, decisions = _save_dots_run(monkeypatch, "save_dots", area)
+        dropped = collections.Counter(shape for shape, _, _, keep in decisions if not keep)
+        assert dropped and dropped == every - residuals(area), area
+
+
+# -- C12: the threaded loader ----------------------------------------------------
+
+class _ThreeRows:
+    """A collate that makes three rows a scene, each naming its scene and
+    place, slowly enough that threads interleave."""
+
+    def sample_plan(self, scene):
+        return [(scene, i) for i in range(3)]
+
+    def materialize(self, scene, plan):
+        import time
+        time.sleep(0.002 * (1 + scene % 3))
+        return [{"row": np.array(3 * s + i)} for s, i in plan]
+
+    def rows_from_scene(self, scene):
+        return self.materialize(scene, self.sample_plan(scene))
+
+
+def _probe(loader_cls, **kw):
+    """7 scenes of 3 rows at batch 4 -> (valid rows, batches)."""
+    batches = list(loader_cls(iter(range(7)), _ThreeRows(), batch_size=4, **kw))
+    return [int(r) for b in batches for r in b["row"][b["valid"]]], len(batches)
+
+
+def test_threaded_loader_delivers_every_row_once():
+    """ROADMAP C12 and C-ref-10: 21 rows at batch 4 come out in stream order,
+    each once, in 5 full batches and one padded tail, for any thread count."""
+    for threads in (1, 2, 5):
+        for _ in range(3):
+            assert _probe(collate.BatchLoader, num_threads=threads) == (list(range(21)), 6)
+
+
+def test_jax_threaded_loader_loses_rows():
+    """C-ref-10, the defect of `vivid_tpu`'s loader that the port does not
+    copy: with two threads each keeps and pads its own rows, and the first to
+    see the end stops the stream, so rows of the other are lost."""
+    from vivid_tpu.data.collate import BatchLoader as JBatchLoader
+    runs = [_probe(JBatchLoader, num_threads=2, prefetch=8) for _ in range(5)]
+    assert all(len(set(rows)) == len(rows) for rows, _ in runs)
+    assert any(len(rows) < 21 for rows, _ in runs), runs
+
+
+@pytest.fixture(scope="module")
+def loader_scenes(tmp_path_factory):
+    return scenes.make_synthetic_dataset(str(tmp_path_factory.mktemp("loader")), num_scenes=6,
+                                         num_views=6, imsize=16, seed=2)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 5])
+@pytest.mark.parametrize("skip_rows", [0, 5])
+def test_threaded_loader_batches_equal_one_thread(loader_scenes, threads, skip_rows):
+    """ROADMAP C12: the batches of a finite stream, tail included, are the
+    one-thread loader's bit for bit, with and without `skip_rows`."""
+    import itertools
+
+    def batches(n):
+        stream = itertools.islice(iter(scenes.SceneDataset(loader_scenes, seed=1)), 15)
+        return list(collate.BatchLoader(stream, collate.DualSourceCollate(16, seed=3),
+                                        batch_size=4, num_threads=n, skip_rows=skip_rows))
+
+    want, got = batches(1), batches(threads)
+    assert len(got) == len(want) == -(-(15 - skip_rows) // 4)
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_loader_threads_default(monkeypatch):
+    monkeypatch.setenv("VIVID_LOADER_THREADS", "3")
+    assert collate.default_loader_threads() == 3
+    monkeypatch.delenv("VIVID_LOADER_THREADS")
+    assert collate.default_loader_threads() == min(4, os.cpu_count() or 1) + 1

@@ -136,13 +136,14 @@ def test_cli_presets_match_the_jax_package():
 
 
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--depth-input"], ["--metrics", "1Ki"],
-                                   ["--depth-model", "small"], ["--warp-depth-coor"]])
+                                   ["--depth-model", "small"], ["--warp-depth-coor"],
+                                   ["--debug-nans"]])
 def test_cli_unported_options_raise(flags, capsys):
     """Each flag of a feature not ported raises. `--metrics`, the depth
-    flags and `--fsdp` were such until their features were ported: their
-    cases now check that the dry run takes them."""
+    flags, `--fsdp` and `--debug-nans` were such until their features were
+    ported: their cases now check that the dry run takes them."""
     taken = {"--metrics": '"metrics_nimg": 1024', "--depth-input": '"depth_input": true',
-             "--fsdp": '"fsdp": true',
+             "--fsdp": '"fsdp": true', "--debug-nans": '"debug_nans": true',
              "--depth-model": '"depth_model": "small"',
              "--warp-depth-coor": '"warp_depth_coor": true'}
     if flags[0] in taken:

@@ -21,7 +21,9 @@ CUBLAS_WORKSPACE_CONFIG=:4096:8 in the environment. `--depth-model
 small|base|large` (DepthAnythingV2 weights from $VIVID_DEPTH_DIR) conditions
 the model on predicted depth: `--depth-input` feeds it to the encoder,
 `--warp-depth-coor` feeds Fourier features of the pixel grid and of its
-depth-warped form (not both).
+depth-warped form (not both). `--debug-nans` raises FloatingPointError at
+the first module of the net whose output holds a NaN, with autograd's
+anomaly mode on (slow; the JAX package's `jax_debug_nans`).
 """
 
 import json
@@ -123,9 +125,23 @@ def setup_training_config(preset="vivid-base", **opts):
     c.slice_nimg = opts.get("slice") or None
     c.deterministic = bool(opts.get("deterministic"))
     c.fsdp = bool(opts.get("fsdp"))
+    if opts.get("debug_nans"):   # only when asked: in the JAX package it is a JAX flag
+        c.debug_nans = True
     c.max_steps = opts.get("max_steps") or None
     c.device = opts.get("device") or None
     return c
+
+
+def print_training_config(run_dir, c):
+    dist.print0()
+    dist.print0("Training config:")
+    dist.print0(json.dumps(c, indent=2))
+    dist.print0()
+    dist.print0(f"Output directory:        {run_dir}")
+    dist.print0(f"Number of processes:     {dist.get_world_size()}")
+    dist.print0(f"CUDA cards on this host: {dist.num_devices()}")
+    dist.print0(f"Batch size:              {c.batch_size}")
+    dist.print0()
 
 
 def save_code_snapshot(run_dir):
@@ -229,6 +245,7 @@ def launch_training(run_dir, c):
 @click.option("--slice", help="Train in slices of this many nimg", metavar="NIMG", type=parse_nimg, default=None)
 @click.option("--max-steps", help="Stop after this many optimizer steps", metavar="INT", type=click.IntRange(min=1), default=None)
 @click.option("--seed", help="Random seed", metavar="INT", type=int, default=0, show_default=True)
+@click.option("--debug-nans", help="Raise at the first module whose output holds a NaN, with autograd's anomaly mode (slow)", is_flag=True)
 @click.option("--dry-run", help="Print training options and exit", is_flag=True)
 def cmdline(outdir, dry_run, **opts):
     """Train a VIVID NVS diffusion model.
@@ -241,12 +258,7 @@ def cmdline(outdir, dry_run, **opts):
     c = setup_training_config(**opts)
     dist.init(device=c.device)
     run_dir = os.path.join(outdir, "experiments")
-    dist.print0("Training config:")
-    dist.print0(json.dumps(c, indent=2))
-    dist.print0(f"Output directory:        {run_dir}")
-    dist.print0(f"Number of processes:     {dist.get_world_size()}")
-    dist.print0(f"CUDA cards on this host: {dist.num_devices()}")
-    dist.print0(f"Batch size:              {c.batch_size}")
+    print_training_config(run_dir, c)
     if dry_run:
         dist.print0("Dry run; exiting.")
         return None

@@ -6,8 +6,13 @@ Counterpart of vivid_tpu/core/consistency.py:
     digests are all-gathered and compared. The trainer runs it after each
     checkpoint over several processes, as the reference checks DDP replicas.
   * `assert_finite`: raise on NaN or inf, by name.
+  * `debug_nans`: the trainer's `--debug-nans` (the JAX package's
+    `jax_debug_nans`): autograd's anomaly mode, and a forward hook on every
+    submodule that raises FloatingPointError naming the first module whose
+    output holds a NaN.
 """
 
+import contextlib
 import hashlib
 
 import numpy as np
@@ -54,3 +59,40 @@ def assert_finite(state_dict, name: str = "tree"):
     if bad:
         raise FloatingPointError(f"Non-finite values in {name}: {bad[:10]}")
     return True
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+
+
+@contextlib.contextmanager
+def debug_nans(**modules):
+    """Within the block, autograd's anomaly mode (a backward function that
+    returns a NaN raises) and a forward hook on every submodule of each
+    named module: the first module whose output holds a NaN raises
+    FloatingPointError naming it (`<name>.<path>`), as `jax_debug_nans`
+    raises at the first operation. Each hook reads its output on the host,
+    so a step runs far slower."""
+    def hook_for(name):
+        def hook(module, inputs, output):
+            for t in _tensors(output):
+                if t.is_floating_point() and bool(torch.isnan(t).any()):
+                    raise FloatingPointError(
+                        f"NaN in the output of module {name!r} ({type(module).__name__})")
+        return hook
+
+    handles = [sub.register_forward_hook(hook_for(f"{root}.{path}" if path else root))
+               for root, module in modules.items() for path, sub in module.named_modules()]
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            yield
+    finally:
+        for h in handles:
+            h.remove()

@@ -1,14 +1,18 @@
 """Objects by configuration name.
 
 Counterpart of vivid_tpu/core/registry.py: `construct_class_by_name`
-resolves a class path from a config (`encoder_kwargs` of the trainer).
+resolves a class path from a config (`encoder_kwargs` of the trainer),
+`call_func_by_name` a function's; `register` names an object explicitly,
+and a registered name resolves before any import.
 The reference's names and the JAX package's (`vivid_tpu.*`) resolve to the
 port's own modules, so a config written for either loads here and the port
 never imports the JAX package.
 """
 
 import importlib
-from typing import Any
+from typing import Any, Dict
+
+_REGISTRY: Dict[str, Any] = {}
 
 _ALIASES = {
     "training.models.NVPrecond": "vivid_tpu_torch.nn.precond.NVPrecond",
@@ -23,10 +27,23 @@ _ALIASES = {
 }
 
 
+def register(name: str = None):
+    """Decorator: register a class or function under a config name (by
+    default its module path and qualified name)."""
+
+    def deco(obj):
+        _REGISTRY[name or f"{obj.__module__}.{obj.__qualname__}"] = obj
+        return obj
+
+    return deco
+
+
 def get_obj_by_name(name: str) -> Any:
     if not isinstance(name, str):
         return name  # already an object
     name = _ALIASES.get(name, name)
+    if name in _REGISTRY:
+        return _REGISTRY[name]
     if name.startswith("vivid_tpu."):
         name = "vivid_tpu_torch." + name[len("vivid_tpu."):]
     parts = name.split(".")
@@ -46,3 +63,10 @@ def get_obj_by_name(name: str) -> Any:
 
 def construct_class_by_name(*args, class_name: str = None, **kwargs) -> Any:
     return get_obj_by_name(class_name)(*args, **kwargs)
+
+
+def call_func_by_name(*args, func_name: str = None, **kwargs) -> Any:
+    fn = get_obj_by_name(func_name)
+    if not callable(fn):
+        raise TypeError(f"{func_name!r} is not callable")
+    return fn(*args, **kwargs)

@@ -12,6 +12,7 @@ batches. Images come out as float32 in [0, 255], resized as the JAX
 package resizes them (native/fast_image.py).
 """
 
+import os
 import queue
 import random as _random
 import threading
@@ -114,67 +115,121 @@ class DualSourceCollate(_Collate):
     nimg_mult = 6  # the reference counts +batch*6 images per step in dual mode
 
 
+def default_loader_threads() -> int:
+    """VIVID_LOADER_THREADS, else min(4, cpus) + 1, as in the JAX package."""
+    return int(os.environ.get("VIVID_LOADER_THREADS", min(4, os.cpu_count() or 1) + 1))
+
+
 class BatchLoader:
-    """Background-thread batch assembler: draws scenes from an (infinite)
-    iterator, collates rows, stacks exactly `batch_size` of them, and
-    prefetches batches so host IO overlaps device compute. One assembly
-    thread, so batch contents follow the collate's seed exactly (the JAX
-    package's loader runs several). A finite iterator's tail batch is padded
-    by repeating its last row; `valid` marks the real rows. `skip_rows`
-    replays the draws of that many rows (no pixel work) before the first
-    batch: a resumed run continues the stream where the earlier one stopped."""
+    """Background batch assembler: draws scenes from an (infinite) iterator,
+    collates rows, stacks exactly `batch_size` of them, and prefetches
+    batches so host IO overlaps device compute.
+
+    `num_threads` workers (default `default_loader_threads()`) share the
+    work. A worker draws the next scene and its plan (every random draw of
+    the collate) under a lock, so plans follow the stream in order; it
+    materialises the rows (decode, resize) outside the lock; then it waits
+    for its turn and appends the rows in stream order. So the batches are
+    the one-thread loader's bit for bit, for any thread count, and at most
+    `num_threads` scenes are in flight. A scene that fails to decode gives
+    no rows, as in the reference. A finite iterator's tail batch is padded by
+    repeating its last row; `valid` marks the real rows, and every row of the
+    stream comes out exactly once. `skip_rows` replays the draws of that many
+    rows (no pixel work) before the first batch: a resumed run continues the
+    stream where the earlier one stopped."""
 
     def __init__(self, scene_iter: Iterator, collate, batch_size: int,
-                 prefetch: int = 2, skip_rows: int = 0):
+                 prefetch: int = 4, num_threads: Optional[int] = None, skip_rows: int = 0):
         self.scene_iter = scene_iter
         self.collate = collate
         self.batch_size = batch_size
         self.queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
-        self._initial_rows = []
+        self._draw_lock = threading.Lock()      # the stream and the collate's draws
+        self._turn = threading.Condition()      # rows appended in stream order
+        self._drawn = 0                         # scenes drawn so far
+        self._appended = 0                      # scenes whose rows are in `_pending`
+        self._end = None                        # the stream's scene count, once known
+        self._finished = False
+        self._pending = []
         skipped = 0
         while skipped < skip_rows:
             scene = next(self.scene_iter)
             plan = self.collate.sample_plan(scene)
             if skipped + len(plan) > skip_rows:   # the boundary falls inside a scene
-                self._initial_rows = self.collate.materialize(scene, plan[skip_rows - skipped:])
+                self._pending = self.collate.materialize(scene, plan[skip_rows - skipped:])
             skipped = min(skipped + len(plan), skip_rows)
-        self.thread = threading.Thread(target=self._worker, daemon=True)
-        self.thread.start()
+        self.threads = [threading.Thread(target=self._worker, daemon=True)
+                        for _ in range(num_threads or default_loader_threads())]
+        for t in self.threads:
+            t.start()
 
-    def _next_rows(self):
-        try:
-            scene = next(self.scene_iter)
-        except StopIteration:
-            return None
-        try:
-            return self.collate.rows_from_scene(scene)
-        except Exception:
-            return []  # skip a scene that fails to decode, as the reference does
+    def _draw(self):
+        """(sequence number, scene, plan) of the next scene, or None at the
+        end of the stream."""
+        with self._draw_lock:
+            if self._end is not None:
+                return None
+            try:
+                scene = next(self.scene_iter)
+            except StopIteration:
+                self._end = self._drawn
+                return None
+            seq, self._drawn = self._drawn, self._drawn + 1
+            try:
+                plan = self.collate.sample_plan(scene)
+            except Exception:
+                plan = None
+            return seq, scene, plan
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self.queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _emit(self, final: bool):
+        """Hand out every full batch of `_pending`; with `final`, the padded
+        tail and the end mark. Called under `_turn`."""
+        while len(self._pending) >= self.batch_size or (final and self._pending):
+            rows = self._pending[:self.batch_size]
+            self._pending = self._pending[self.batch_size:]
+            n_valid = len(rows)
+            rows += [rows[-1]] * (self.batch_size - n_valid)
+            batch = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+            batch["valid"] = np.arange(self.batch_size) < n_valid
+            if not self._put(batch):
+                return
+        if final and not self._finished:
+            self._finished = True
+            self._put(None)
 
     def _worker(self):
-        pending, self._initial_rows = self._initial_rows, []
         while not self._stop.is_set():
-            rows = self._next_rows()
-            n_valid = None
-            if rows is None:
-                if not pending:
-                    self.queue.put(None)
+            drawn = self._draw()
+            if drawn is None:
+                with self._turn:
+                    self._turn.wait_for(lambda: self._appended == self._end
+                                        or self._stop.is_set())
+                    if not self._stop.is_set():
+                        self._emit(final=True)
+                return
+            seq, scene, plan = drawn
+            try:
+                rows = self.collate.materialize(scene, plan) if plan else []
+            except Exception:
+                rows = []   # skip a scene that fails to decode, as the reference does
+            with self._turn:
+                self._turn.wait_for(lambda: self._appended == seq or self._stop.is_set())
+                if self._stop.is_set():
                     return
-                n_valid = len(pending)
-                while len(pending) < self.batch_size:
-                    pending.append(pending[-1])
-            else:
-                pending.extend(rows)
-            while len(pending) >= self.batch_size:
-                batch_rows = pending[:self.batch_size]
-                pending = pending[self.batch_size:]
-                batch = {k: np.stack([r[k] for r in batch_rows]) for k in batch_rows[0]}
-                mask = np.ones(self.batch_size, bool)
-                if n_valid is not None:
-                    mask[n_valid:] = False
-                batch["valid"] = mask
-                self.queue.put(batch)  # daemon threads; close() drains to unblock
+                self._pending.extend(rows)
+                self._appended += 1
+                self._emit(final=False)
+                self._turn.notify_all()
 
     def __iter__(self):
         return self
@@ -187,6 +242,8 @@ class BatchLoader:
 
     def close(self):
         self._stop.set()
+        with self._turn:
+            self._turn.notify_all()
         try:
             while True:
                 self.queue.get_nowait()

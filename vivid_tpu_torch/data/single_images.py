@@ -6,10 +6,11 @@ image: one view per source and one for the target. The random draws are
 the JAX package's for the same seed: the file and the angle regime from
 Python's `random`, the angles from JAX's threefry stream (reimplemented
 here: `prng_key`, `fold_in`, `split`, `uniform`), so both packages rotate
-the same image by the same angles. The warp runs in numpy float32 in the
-JAX package's order of operations, so the rows match its bits; where
-numpy's float32 sine or cosine rounds otherwise than XLA's, or the fused
-sums of the projection round twice here, a view can differ by one level.
+the same image by the same angles. The warp (geometry/warp.py
+`euler_to_rotation_matrix`, `warp_perspective`) runs in float32 in the JAX
+package's order of operations, so the rows match its bits; where numpy's
+float32 sine or cosine rounds otherwise than XLA's, or the fused sums of
+the projection round twice here, a view can differ by one level.
 
 `sample_plan` makes a row's draws without touching pixels and `materialize`
 builds the row, so `BatchLoader(skip_rows=)` fast-forwards this stream as
@@ -23,10 +24,11 @@ from typing import Optional
 
 import numpy as np
 import PIL.Image
-import scipy.linalg
+import torch
 
 from vivid_tpu_torch.data.collate import resize_image
 from vivid_tpu_torch.geometry.codec import compose_geometry_np
+from vivid_tpu_torch.geometry.warp import euler_to_rotation_matrix, inverse_3x3, warp_perspective
 
 # -- JAX's threefry-2x32 stream, in numpy ----------------------------------------
 
@@ -79,48 +81,6 @@ def uniform(key, minval=-1.0, maxval=1.0) -> np.float32:
 
 # -- the rotation and its homography warp ----------------------------------------
 
-def _inv3(a):
-    """A 3x3 inverse through LAPACK's LU and BLAS's triangular solves."""
-    lu, piv, _ = scipy.linalg.lapack.sgetrf(a)
-    perm = np.arange(3)
-    for i, p in enumerate(piv):
-        perm[i], perm[p] = perm[p], perm[i]
-    x = np.eye(3, dtype=np.float32)[perm]
-    x = scipy.linalg.blas.strsm(1.0, lu, x, lower=1, diag=1)
-    return scipy.linalg.blas.strsm(1.0, lu, x, lower=0, diag=0)
-
-
-def euler_to_rotation_matrix(pitch, yaw, roll):
-    """R = Rx(pitch) Ry(yaw) Rz(roll), float32."""
-    cp, sp = np.cos(pitch), np.sin(pitch)
-    cy, sy = np.cos(yaw), np.sin(yaw)
-    cr, sr = np.cos(roll), np.sin(roll)
-    rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]], np.float32)
-    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
-    rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]], np.float32)
-    return rx @ ry @ rz
-
-
-def _bilinear_sample(image, coords):
-    """Sample [H, W, C] at float pixel coords [..., 2] (x, y); zero outside."""
-    h, w = image.shape[:2]
-    x, y = coords[..., 0], coords[..., 1]
-    x0 = np.floor(x).astype(np.int32)
-    y0 = np.floor(y).astype(np.int32)
-    wx = (x - x0.astype(np.float32))[..., None]
-    wy = (y - y0.astype(np.float32))[..., None]
-
-    def gather(yi, xi):
-        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        vals = image[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
-        return np.where(valid[..., None], vals, np.float32(0))
-
-    one = np.float32(1)
-    top = gather(y0, x0) * (one - wx) + gather(y0, x0 + 1) * wx
-    bot = gather(y0 + 1, x0) * (one - wx) + gather(y0 + 1, x0 + 1) * wx
-    return top * (one - wy) + bot * wy
-
-
 def random_camera_rotation(key, image, intrinsics, max_angle_pitch=0.0, max_angle_yaw=10.0,
                            max_angle_roll=0.0):
     """A rotated view of `image` [H, W, C] float32 through the homography
@@ -130,25 +90,9 @@ def random_camera_rotation(key, image, intrinsics, max_angle_pitch=0.0, max_angl
     pitch = uniform(kp) * np.float32(max_angle_pitch) * deg
     yaw = uniform(ky) * np.float32(max_angle_yaw) * deg
     roll = uniform(kr) * np.float32(max_angle_roll) * deg
-    R = euler_to_rotation_matrix(pitch, yaw, roll)
-    H = intrinsics @ R @ _inv3(intrinsics)
-    h, w = image.shape[:2]
-    ii, jj = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32),
-                         indexing="ij")
-    pts = _project(np.stack([jj, ii, np.ones_like(ii)], -1), _inv3(H))   # -> source pixels
-    return _bilinear_sample(image, pts[..., :2] / pts[..., 2:]), R
-
-
-def _project(pts, m):
-    """pts [..., 3] @ m.T in float32, summed in the order of the JAX
-    package's CPU matrix product: its x and y rows in order, its w row with
-    the last two terms fused (one rounding), which float64 gives here."""
-    p = [pts[..., k] for k in range(3)]
-    rows = [(p[0] * m[r, 0] + p[1] * m[r, 1]) + p[2] * m[r, 2] for r in range(2)]
-    w = p[0] * m[2, 0]
-    for k in (1, 2):
-        w = (p[k].astype(np.float64) * m[2, k] + w).astype(np.float32)
-    return np.stack(rows + [w], -1)
+    R = euler_to_rotation_matrix(pitch, yaw, roll).numpy()
+    H = intrinsics @ R @ inverse_3x3(torch.from_numpy(intrinsics)).numpy()
+    return warp_perspective(torch.from_numpy(image), torch.from_numpy(H)).numpy(), R
 
 
 def _expand(pose):

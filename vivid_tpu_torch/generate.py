@@ -157,7 +157,7 @@ def generate_images_nvs(
         def __iter__(self):
             loader = BatchLoader(
                 iter(dataset), collate_cls(base_size, sr_size=sr_size, seed=rng_seed),
-                batch_size=max_batch_size)
+                batch_size=max_batch_size, prefetch=2, num_threads=2)
             try:
                 for batch_idx, indices in enumerate(batches):
                     r = self._batch(loader, batch_idx, indices)

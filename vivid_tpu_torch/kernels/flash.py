@@ -41,8 +41,16 @@ pass the raw projection outputs.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper adds one to its entry of `launches` where it launches
-its kernel, and nowhere else. Between forward and backward only the inputs
-are kept: the backward recomputes the softmax from them.
+its kernel, and nowhere else; there it also adds to its entry of `flops`
+the operations that `torch.utils.flop_counter.FlopCounterMode` counts for
+its plain version on the same inputs, to which the kernels are opaque (2 a
+multiply-add of the products: a forward 4 B H Sq Sk D; K8's backward 10,
+its plain version's five products, the logits recomputed among them;
+K3/K4's 12, since their plain version runs the forward again under
+autograd; the norm pre-pass none). So a count through the kernels
+(`core/summary.py` `flops_analysis`) equals the count through the plain
+versions. Between forward and backward only the inputs are kept: the
+backward recomputes the softmax from them.
 """
 
 import ctypes
@@ -60,8 +68,28 @@ launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             "flash_fused": 0, "flash_fused_norm": 0, "flash_nomax_packed": 0,
             # the kernels of vivid_tpu_torch/tools, counted here with the rest
             "conv3x3_silu": 0, "nomax_lab_attention": 0}
+flops = dict.fromkeys(launches, 0)
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
 BWD_ROWS = 64   # csrc/flash_bwd.cu and the packed kernels' pre-pass pad rows to 64-row tiles
+
+
+def launched(name: str, ops: int = 0):
+    """Count one launch of kernel `name` doing `ops` operations."""
+    launches[name] += 1
+    flops[name] += int(ops)
+
+
+def _packed_ops(qkv, feats, num_heads, products):
+    """`products` x 2 B H S Sk D for packed rows, Sk the self segment plus
+    the sources."""
+    b, s, c3 = qkv.shape
+    sk = s + sum(f.shape[1] for f in feats)
+    return products * 2 * b * num_heads * s * sk * (c3 // (3 * num_heads))
+
+
+def _bhsd_ops(q, k, products):
+    b, h, sq, d = q.shape
+    return products * 2 * b * h * sq * k.shape[2] * d
 
 
 def _rms_norm(x, eps=NORM_EPS):
@@ -302,7 +330,7 @@ def flash_fused_packed(qkv, num_heads: int, zero_sink: int = 0, eps: float = NOR
     if qkv.device.type == "cpu":
         return flash_fused_packed_ref(qkv, num_heads, zero_sink, eps)
     out = _launch(qkv, (), (), num_heads, zero_sink, eps)
-    launches["flash_fused_packed"] += 1
+    launched("flash_fused_packed", _packed_ops(qkv, (), num_heads, 2))
     return out
 
 
@@ -312,7 +340,7 @@ def flash_fused_packed_xattn(qkv, feats, num_heads: int, biases=(), eps: float =
     if qkv.device.type == "cpu":
         return flash_fused_packed_xattn_ref(qkv, feats, num_heads, biases, eps)
     out = _launch(qkv, tuple(feats), tuple(biases), num_heads, 0, eps)
-    launches["flash_fused_packed_xattn"] += 1
+    launched("flash_fused_packed_xattn", _packed_ops(qkv, feats, num_heads, 2))
     return out
 
 
@@ -322,7 +350,7 @@ def flash_fused_packed_bwd(qkv, g, num_heads: int, zero_sink: int = 0, eps: floa
     if qkv.device.type == "cpu":
         return flash_fused_packed_bwd_ref(qkv, g, num_heads, zero_sink, eps)
     dqkv = _launch_bwd(qkv, (), (), g, num_heads, zero_sink, eps)[0]
-    launches["flash_fused_packed_bwd"] += 1
+    launched("flash_fused_packed_bwd", _packed_ops(qkv, (), num_heads, 6))
     return dqkv
 
 
@@ -333,7 +361,7 @@ def flash_fused_packed_xattn_bwd(qkv, feats, g, num_heads: int, biases=(),
     if qkv.device.type == "cpu":
         return flash_fused_packed_xattn_bwd_ref(qkv, feats, g, num_heads, biases, eps)
     grads = _launch_bwd(qkv, tuple(feats), tuple(biases), g, num_heads, 0, eps)
-    launches["flash_fused_packed_xattn_bwd"] += 1
+    launched("flash_fused_packed_xattn_bwd", _packed_ops(qkv, feats, num_heads, 6))
     return grads
 
 def flash_nomax_packed_ref(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0,
@@ -377,7 +405,7 @@ def flash_nomax_packed(qkv, feats=(), num_heads: int = 1, zero_sink: int = 0,
     if qkv.device.type == "cpu":
         return flash_nomax_packed_ref(qkv, feats, num_heads, zero_sink, eps)
     out = _launch(qkv, feats, (), num_heads, zero_sink, eps, nomax=True)
-    launches["flash_nomax_packed"] += 1
+    launched("flash_nomax_packed", _packed_ops(qkv, feats, num_heads, 2))
     return out
 
 
@@ -530,7 +558,7 @@ def flash_nomax(q, k, v, bias=None):
             b, h, sq, sk, d, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_nomax kernel launch failed: CUDA error {rc}")
-    launches["flash_nomax"] += 1
+    launched("flash_nomax", _bhsd_ops(q, k, 2))
     return out
 
 
@@ -622,7 +650,7 @@ def flash_fused(q, k, v, bias=None, norm_eps=None, zero_sink: int = 0):
             ctypes.c_float(zero_sink), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_fused kernel launch failed: CUDA error {rc}")
-    launches["flash_fused"] += 1
+    launched("flash_fused", _bhsd_ops(q, k, 2))
     return out
 
 
@@ -645,7 +673,7 @@ def flash_fused_norm(q, k, v, norm_eps: float = NORM_EPS):
             ctypes.c_float(norm_eps), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_fused_norm kernel launch failed: CUDA error {rc}")
-    launches["flash_fused_norm"] += 1
+    launched("flash_fused_norm")
     return outs
 
 
@@ -732,7 +760,7 @@ def flash_attention(q, k, v, bias=None):
             b, h, sq, sk, d, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error {rc}")
-    launches["flash_attention"] += 1
+    launched("flash_attention", _bhsd_ops(q, k, 2))
     return out, lse
 
 
@@ -765,7 +793,7 @@ def flash_attention_bwd(q, k, v, bias, out, lse, g):
             b, h, sq, sk, d, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_attn_bwd kernel launch failed: CUDA error {rc}")
-    launches["flash_attention_bwd"] += 1
+    launched("flash_attention_bwd", _bhsd_ops(q, k, 5))
     return dq, dk, dv, dbias
 
 

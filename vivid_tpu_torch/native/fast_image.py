@@ -15,6 +15,9 @@ numpy paths on purpose.
   probe_dims(path)               (height, width) from a PNG's header alone
   load_rgb(path)                 uint8 [H, W, 3]; PIL for what the decoder
                                  does not take (JPEG, 16-bit, interlaced PNG)
+  fast_resize_available(), png_decode_available()
+                                 whether the library is in use (built and
+                                 loaded, and not switched off)
 """
 
 import ctypes
@@ -64,6 +67,24 @@ def library() -> ctypes.CDLL:
     lib.decode_png_rgb.argtypes = [_U8P, ctypes.c_long, _U8P]
     lib.decode_png_rgb.restype = ctypes.c_int
     return lib
+
+
+def _available() -> bool:
+    if native_disabled():
+        return False
+    try:
+        library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def fast_resize_available() -> bool:
+    return _available()
+
+
+def png_decode_available() -> bool:
+    return _available()
 
 
 def _ptr(arr, ctype=ctypes.c_uint8):

@@ -21,13 +21,18 @@ blocks and on every block of an encoder, as the JAX package places it:
 False keeps every activation; True wraps each such block in
 `torch.utils.checkpoint`; "save_dots" does the same under a selective
 policy that keeps the outputs of convolutions and matrix products and
-recomputes the elementwise chains between them. On a CUDA tensor the
+recomputes the elementwise chains between them, except the outputs of
+convolutions whose input area H * W exceeds VIVID_REMAT_HIRES_AREA (128 *
+128 unless the environment says otherwise, read at each call): those are
+recomputed too, as the JAX package's "mpconv_out_hires" are (the 256px
+level of the SR model is what dominates its memory). On a CUDA tensor the
 attention kernel is no operator the policy can see, so "save_dots"
 launches the forward attention kernel again in the backward pass. All
 three give the same gradients.
 """
 
 import functools
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -39,6 +44,7 @@ from vivid_tpu_torch.nn.blocks import Block, BlockConfig
 from vivid_tpu_torch.nn.mp import MPConv, MPFourier, mp_cat, mp_silu, mp_sum
 
 LABEL_BALANCE = 0.5    # mp_sum weight of the geometry embedding
+REMAT_HIRES_AREA = 128 * 128   # save_dots recomputes convs whose input area exceeds this
 CONCAT_BALANCE = 0.5   # mp_cat weight of the skip connection
 
 
@@ -170,13 +176,28 @@ def attention_feature_spec(cfg: UNetConfig) -> List[Tuple[str, int, int]]:
             if e.block is not None and e.block.num_heads > 0]
 
 
-def _save_dots_policy(ctx, op, *args, **kwargs):
-    """Keep what a convolution or a matrix product puts out; recompute the rest."""
+def remat_hires_area() -> int:
+    """The input area above which save_dots recomputes a convolution:
+    VIVID_REMAT_HIRES_AREA, else REMAT_HIRES_AREA."""
+    return int(os.environ.get("VIVID_REMAT_HIRES_AREA", REMAT_HIRES_AREA))
+
+
+def _save_dots_policy(hires_area: int):
+    """Keep what a convolution or a matrix product puts out, unless the
+    convolution's input (N, C, H, W) has H * W > hires_area; recompute the
+    rest."""
     aten = torch.ops.aten
-    dots = (aten.convolution.default, aten.mm.default, aten.addmm.default,
-            aten.bmm.default)
-    return (ckpt.CheckpointPolicy.MUST_SAVE if op in dots
-            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    dots = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is aten.convolution.default:
+            h, w = args[0].shape[-2:]
+            keep = h * w <= hires_area
+        else:
+            keep = op in dots
+        return ckpt.CheckpointPolicy.MUST_SAVE if keep else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 def _remat_call(remat, fn, *args):
@@ -185,7 +206,7 @@ def _remat_call(remat, fn, *args):
         return ckpt.checkpoint(
             fn, *args, use_reentrant=False,
             context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
-                                         _save_dots_policy))
+                                         _save_dots_policy(remat_hires_area())))
     if remat is True:
         return ckpt.checkpoint(fn, *args, use_reentrant=False)
     raise ValueError(f'remat must be False, True or "save_dots", got {remat!r}')

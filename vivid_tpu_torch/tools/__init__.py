@@ -1,18 +1,22 @@
-"""Kernel labs of the port: scripts that check a kernel against its plain
-version and then time it on the card (`python -m vivid_tpu_torch.tools.<lab>`)."""
+"""Tools of the port, run as `python -m vivid_tpu_torch.tools.<name>`: the
+kernel labs (check a kernel against its plain version, then time it on the
+card), the convergence proof (`overfit_smoke`), the memory reports
+(`mem_report`, `guided_mem`), the serving-protocol snapshots
+(`make_protocol_snapshots`) and the smoke's helpers."""
 
 import statistics
 
 import torch
 
 
-def lab_device(name):
-    """The device a lab runs on: the card, unless `name` asks for the CPU
-    (parity checks only: a time is the card's). Raises without a card."""
+def tool_device(name):
+    """The device a tool runs on: the card, unless `name` asks for the CPU
+    (a lab's parity checks alone: a time is the card's). Raises without a
+    card."""
     if name == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card found; pass --device cpu for the parity checks alone")
+        raise RuntimeError("no CUDA card found; pass --device cpu to run on the CPU")
     return torch.device(name or "cuda")
 
 

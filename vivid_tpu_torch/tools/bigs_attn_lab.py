@@ -26,7 +26,7 @@ import torch
 
 from vivid_tpu_torch.kernels import flash
 from vivid_tpu_torch.kernels.attention import fused_attention, reference_attention
-from vivid_tpu_torch.tools import cuda_ms, lab_device, normalize_rows, rel_l2
+from vivid_tpu_torch.tools import cuda_ms, tool_device, normalize_rows, rel_l2
 
 PARITY_REL_L2 = 1e-2   # a bf16 output against the fp32-softmax composite gives ~3e-3
 PARITY_SHAPES = [(1, 2, 512, 1024, 32), (1, 1, 4096, 2048, 32)]   # B, H, Sq, Sk, D
@@ -57,7 +57,7 @@ def main(argv=None):
                     help="flash_nomax, flash_attention and flash_fused at the SR model's four shapes")
     ap.add_argument("--device", default=None, help="cpu: the parity checks alone")
     args = ap.parse_args(argv)
-    device = lab_device(args.device)
+    device = tool_device(args.device)
     print("device:", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
           flush=True)
     gen = torch.Generator(device=device).manual_seed(0)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from vivid_tpu_torch.kernels import build, flash
-from vivid_tpu_torch.tools import cuda_ms, lab_device, rel_l2
+from vivid_tpu_torch.tools import cuda_ms, tool_device, rel_l2
 
 CHANNELS = 64          # the kernel's only width, in and out
 PARITY_REL_L2 = 3e-2   # the TPU lab's limit; two bf16 roundings give ~3e-3
@@ -79,7 +79,7 @@ def conv3x3_silu(x, w, fuse_silu=True):
                                         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"conv3x3_silu kernel launch failed: CUDA error {rc}")
-    flash.launches["conv3x3_silu"] += 1
+    flash.launched("conv3x3_silu", 2 * b * h * wd * 9 * CHANNELS * CHANNELS)
     return y
 
 
@@ -113,7 +113,7 @@ def main(argv=None):
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--device", default=None, help="cpu: the parity checks alone")
     args = ap.parse_args(argv)
-    device = lab_device(args.device)
+    device = tool_device(args.device)
     print("device:", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
           flush=True)
     gen = torch.Generator(device=device).manual_seed(0)

@@ -33,7 +33,7 @@ import torch
 
 from vivid_tpu_torch.kernels import build, flash
 from vivid_tpu_torch.kernels.attention import reference_attention
-from vivid_tpu_torch.tools import cuda_ms, lab_device, normalize_rows, rel_l2
+from vivid_tpu_torch.tools import cuda_ms, tool_device, normalize_rows, rel_l2
 
 PARITY_REL_L2 = 1e-2   # a bf16 output against the fp32-softmax composite gives ~3e-3
 VARIANTS = {           # name -> (fold_l, chains, prescale)
@@ -93,7 +93,7 @@ def nomax_attention(q, k, v, fold_l=False, chains=1, prescale=False):
             int(fold_l), chains, int(prescale), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flash_nomax_lab kernel launch failed: CUDA error {rc}")
-    flash.launches["nomax_lab_attention"] += 1
+    flash.launched("nomax_lab_attention", flash._bhsd_ops(q, k, 2))
     return out
 
 
@@ -139,7 +139,7 @@ def main(argv=None):
     ap.add_argument("--parity-only", action="store_true")
     ap.add_argument("--device", default=None, help="cpu: the parity checks alone")
     args = ap.parse_args(argv)
-    device = lab_device(args.device)
+    device = tool_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     print("device:", torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
           flush=True)

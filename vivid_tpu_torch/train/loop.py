@@ -55,12 +55,12 @@ import numpy as np
 import PIL.Image
 import torch
 
-from vivid_tpu_torch.core import checkpoint, dist, stats as stats_mod
+from vivid_tpu_torch.core import checkpoint, consistency, dist, stats as stats_mod
 from vivid_tpu_torch.core.consistency import check_param_consistency
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.logger import Logger, format_time
 from vivid_tpu_torch.core.rngs import fold_in
-from vivid_tpu_torch.core.summary import count_params, param_table
+from vivid_tpu_torch.core.summary import count_params, flops_analysis, param_table
 from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss, down_up_resize
@@ -132,6 +132,7 @@ def training_loop(
     debug: Optional[bool] = None,
     fsdp: bool = False,
     deterministic: bool = False,
+    debug_nans: bool = False,
     progress_bar: bool = False,
     device=None,
 ):
@@ -143,7 +144,10 @@ def training_loop(
     and wandb; the progress bar (tqdm) is drawn only with `progress_bar`,
     wandb only when WANDB_PROJECT is set. Runs on this process's card
     (cuda:LOCAL_RANK) unless `device` says otherwise; `fsdp` shards the
-    training state over the ranks of the process group. Returns EasyDict(state, ticks): the final
+    training state over the ranks of the process group. `debug_nans`
+    raises FloatingPointError at the first module of the net whose output
+    holds a NaN, and turns on autograd's anomaly mode (`core/consistency.py`
+    `debug_nans`; slow). Returns EasyDict(state, ticks): the final
     TrainState and one dict per status tick (nimg, steps, loss, loss_std,
     learning_rate, grad_norm as means over the tick's steps, seconds)."""
     args = dict(locals())
@@ -163,7 +167,7 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
            checkpoint_nimg, loss_scaling, force_finite, eval_samples, sr_training,
            vanilla_mode, plain_mse, single_image_mix, single_image_mix_path, sr_model,
            depth_model, metrics_fn, metrics_list, max_steps, debug, fsdp, deterministic,
-           progress_bar, device):
+           debug_nans, progress_bar, device):
     start_time = time.time()
     print0 = dist.print0
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -219,7 +223,7 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                                    sr_size=sr_model.cfg.img_resolution if sr_model else None)
         test_dataset = open_scene_dataset(test_dataset_path, seed=seed + 1, split=test_split)
         test_loader = BatchLoader(iter(test_dataset), test_collate,
-                                  batch_size=eval_samples, prefetch=1)
+                                  batch_size=eval_samples, prefetch=1, num_threads=1)
     if metrics_fn is None and metrics_nimg is not None:
         if not test_dataset_path:
             raise ValueError("metrics_nimg needs test_dataset_path (or a metrics_fn)")
@@ -290,13 +294,16 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
 
     # The loaders come after the resume: in deterministic mode they replay
     # the draws of the rows the earlier run consumed, one batch per step.
+    # Their batches do not depend on the thread count; deterministic mode
+    # keeps one thread all the same, as the JAX package does.
     steps_prev = state.cur_nimg // nimg_per_step
     loader = BatchLoader(iter(dataset), collate, batch_size=main_batch,
+                         num_threads=1 if deterministic else None,
                          skip_rows=steps_prev * main_batch if deterministic else 0)
     single_loader = None
     if single_ds is not None:
         single_loader = BatchLoader(iter(single_ds), single_ds, batch_size=n_single,
-                                    prefetch=1,
+                                    prefetch=1, num_threads=1,
                                     skip_rows=steps_prev * n_single if deterministic else 0)
 
     wandb_run = None
@@ -436,7 +443,10 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
     tick_start = time.time()
     prev_status_nimg = state.cur_nimg
     suspend_save = False   # set at a suspend tick: forces a checkpoint there
+    nan_watch = contextlib.ExitStack()
     try:
+        if debug_nans:
+            nan_watch.enter_context(consistency.debug_nans(net=net))
         while True:
             cur_nimg = state.cur_nimg
             prev_nimg = cur_nimg - nimg_per_step
@@ -531,12 +541,22 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
             # One stream per step and rank, a function of (seed, nimg, rank) alone.
             generator.manual_seed(fold_in(seed, cur_nimg) if world == 1
                                   else fold_in(fold_in(seed, cur_nimg), rank))
-            pending.append(step_fn(state, batch, generator))
+            if steps_done == 0:
+                # The start-up report of the JAX package's XLA cost analysis,
+                # counted as the first step runs (the count changes no bit).
+                counted = flops_analysis(step_fn, state, batch, generator)
+                pending.append(counted["result"])
+                print0(f"Train-step compute: {counted['flops'] / 1e9:.2f} GFLOPs "
+                       f"(FlopCounterMode's formulas and the kernels' counts: the products, "
+                       f"convolutions and attention of this process's step)")
+            else:
+                pending.append(step_fn(state, batch, generator))
             steps_done += 1
             cumulative_training_time += time.time() - batch_start
             if pbar is not None:
                 pbar.update(nimg_per_step)
     finally:
+        nan_watch.close()
         ckpt.wait()
         for closing in (pbar, loader, single_loader, test_loader, stats_jsonl):
             if closing is not None:

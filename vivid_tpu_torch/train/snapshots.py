@@ -19,6 +19,7 @@ from vivid_tpu_torch.compat.from_jax import from_jax, to_jax
 from vivid_tpu_torch.compat.torch_pickle import (ENCODER, load_reference_module,
                                                  snapshot_from_reference)
 from vivid_tpu_torch.core.easydict import EasyDict
+from vivid_tpu_torch.core.util import open_url
 from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
 
 SNAPSHOT_FORMAT = "vivid_tpu.snapshot.v1"
@@ -49,9 +50,11 @@ def save_snapshot(path: str, net: NVPrecond, state=None, dataset_kwargs=None,
 
 def load_snapshot(path: str, device="cpu") -> EasyDict:
     """-> EasyDict(net=NVPrecond on `device` in eval mode, cfg, encoder,
-    dataset_kwargs, loss_kwargs). A pickle that is not a v1 snapshot is read
-    as a reference pickle (`compat.torch_pickle`); a file that is not a
-    pickle raises ValueError."""
+    dataset_kwargs, loss_kwargs). `path` is a local path, a file:// URL or
+    an HTTP(S) URL in the download cache (`core.util.open_url`). A pickle
+    that is not a v1 snapshot is read as a reference pickle
+    (`compat.torch_pickle`); a file that is not a pickle raises ValueError."""
+    path = open_url(os.fspath(path), return_filename=True, verbose=False)
     with open(path, "rb") as f:
         head = f.read(1)
     if head != b"\x80":
