@@ -66,14 +66,20 @@ its own:
            1024; only the batch is cut): the whole gradient of one loss
            through the kernels vs the plain versions, held against a one-ulp
            noise control, with planted faults (one source's dfeats zeroed,
-           the norm VJP's projection skipped) that must fail it; then 4
+           the norm VJP's projection skipped) that must fail it; the
+           recompute modes false, true and save_dots, each held to the
+           plan's launches (save_dots: the forward attention kernels once a
+           block) and to the gate, with the bytes held after the forward,
+           the peak, event ms and device busy ms of a loss and its
+           backward; then 4
            steps of vivid-base and 2 of vivid-uncond through the trainer's
            entry point (launch counts, ms per step, peak memory), and the
            snapshots it wrote sampled by generate_images_nvs. Then the same
            for full-width vivid-sr at 256px, batch 8 (the preset's global
            batch is 128; only the batch is cut): the whole gradient of one
            SRNVLoss with a planted fault (dk of the cross keys zeroed), the
-           recompute modes, 3 steps of the vivid-sr preset through the
+           recompute modes as above (K6 8 launches under save_dots, 14
+           under true), 3 steps of the vivid-sr preset through the
            trainer's entry point with the preset's recompute and 3 without,
            and the snapshot sampled as the SR model alone
   shell    in a process of its own, with cuBLAS's deterministic workspace:
@@ -102,7 +108,8 @@ its own:
            per step with and without the flag
   overfit  the convergence proof (vivid_tpu_torch/tools/overfit_smoke.py) at
            its widths for OVERFIT_STEPS of its 2000 steps: both gates must
-           pass, the loss gate the corrected one
+           pass, the loss gate the corrected one; in a process of its own,
+           run beside the dist phase (its lines printed after dist's)
   trace    one guided 64px evaluation in an annotated range under
            core/trace.py's trace: the trace file must hold the range and
            K1/K2's kernels; flops_analysis of one full-width vivid-base step
@@ -1416,7 +1423,6 @@ def main():
         check(row.get("launches", 0) > 0 and "ms" in row,
               f"{row['name']}: no launch on its path, or no headline case: {row}")
     timed("entry", phase_entry, card)
-    timed("overfit", phase_overfit, card)
     timed("trace", phase_trace, card, *nets[:2])
     timed("profile", phase_profile, *nets[:2])
     timed("profile_nomax", phase_profile, *nets[:2], nomax=True)
@@ -1425,7 +1431,14 @@ def main():
     timed("profile_train", phase_profile_train)
     timed("profile_train_sr", phase_profile_train_sr)
     timed("mem", phase_mem, card)
-    timed("dist", phase_dist, card)
+    overfit, overfit_log = start_overfit_phase()
+    try:
+        timed("dist", phase_dist, card)
+    except BaseException:
+        overfit.kill()
+        overfit.wait()
+        raise
+    timed("overfit_after_dist", finish_overfit_phase, overfit, overfit_log)
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2414,7 +2427,6 @@ def phase_train(card):
     the snapshots it wrote are sampled. Returns the kernels' launch counts
     of the `vivid-base` run."""
     import contextlib
-    import dataclasses
     from unittest import mock
     import torch
     from vivid_tpu_torch.data.scenes import make_synthetic_dataset
@@ -2497,7 +2509,7 @@ def phase_train(card):
                 torch.cuda.max_memory_allocated() / 1e9)
 
     with _packed_bwd_shapes() as shapes:
-        loss_k, got, used, peak_gb = measured()
+        loss_k, got, used, _ = measured()
     say("train", check="packed_bwd_launches_by_shape", net="vivid-base", **shapes)
     loss_p, want = gradient("plain")
     control = _rel_l2(gradient("control")[1], want)
@@ -2548,20 +2560,10 @@ def phase_train(card):
 
     # Recompute in the backward pass: each mode gives the gradient of the
     # mode that keeps every activation, no further from it than the gate.
-    say("train", check="remat", mode=False, kernel_launches=used, peak_memory_GB=f"{peak_gb:.2f}")
-    for mode in (True, "save_dots"):
-        for unet in (net.unet, net.encoder):
-            unet.cfg = dataclasses.replace(unet.cfg, remat=mode)
-        loss_m, grad_m, used_m, peak_m = measured()
-        err_m = _rel_l2(grad_m, got)
-        say("train", check="remat", mode=mode, kernel_launches=used_m,
-            peak_memory_GB=f"{peak_m:.2f}", grad_rel_l2_vs_no_remat=f"{err_m:.3e}",
-            loss=f"{loss_m:.6f}")
-        check(err_m <= gate and used_m["flash_fused_packed_bwd"] == used["flash_fused_packed_bwd"]
-              and used_m["flash_fused_packed_xattn_bwd"] == used["flash_fused_packed_xattn_bwd"]
-              and used_m["flash_fused_packed"] >= used["flash_fused_packed"],
-              f"train: remat={mode!r}: gradient rel L2 {err_m} (gate {gate}), launches {used_m}")
-        del grad_m
+    check(used == _train_launches(net.cfg),
+          f"train: one loss and its backward launched {used}, want {_train_launches(net.cfg)}")
+    _remat_modes("train", card, net, params, got, gate, lambda: clamp_loss(loss_fn(
+        net, batch["src"], batch["tgt"], batch["geometry"], sigma=sigma, eps=eps)).sum() / BATCH)
     del net, params, got
     torch.cuda.empty_cache()
 
@@ -2591,6 +2593,110 @@ def phase_train(card):
     return runs["vivid-base"][1]
 
 
+def _remat_modes(tag, card, net, params, want, gate, loss_of, reps=3, plan=True):
+    """Each recompute mode (False, True, "save_dots") on `net`, one loss
+    (`loss_of()`, a scalar) and its backward: the kernels' launches against
+    the model's plan (`_train_launches`; `plan=False` prints them alone), the
+    gradient against `want` (remat off's; None: this run's remat off) within
+    `gate` (None: printed alone), and what the mode costs: the bytes held
+    after the forward pass (allocated after it minus before), the
+    allocator's peak, the ms of a loss and its backward between CUDA events
+    (median of `reps` runs, the first of them the one counted; the host's
+    gaps between launches count), and under torch.profiler the device's busy
+    ms of one and the ms of its forward attention kernels (K1/K2, K6, K7; a
+    profile that comes back without device events is taken again, up to
+    three in all)."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vivid_tpu_torch.kernels import flash
+    forward_kernels = ("packed_fwd_", "flash_nomax_kernel", "nomax_packed_")
+
+    def backward():
+        for p in params:
+            p.grad = None
+        loss_of().backward()
+
+    for mode in (False, True, "save_dots"):
+        for owner in (net, net.unet, net.encoder):
+            if owner is not None:
+                owner.cfg = dataclasses.replace(owner.cfg, remat=mode)
+        times = []
+        for i in range(reps):   # the first also counts launches, bytes and the gradient
+            for p in params:
+                p.grad = None
+            torch.cuda.synchronize()
+            if i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                before, base = dict(flash.launches), torch.cuda.memory_allocated()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = loss_of()
+            if i == 0:
+                held = torch.cuda.memory_allocated() - base
+            loss.backward()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated()
+                used = {k: n - before[k] for k, n in flash.launches.items()}
+                grad = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                  .float().reshape(-1) for p in params])
+                if want is None:
+                    want = grad
+                err = _rel_l2(grad, want)
+                del grad
+        ms = statistics.median(times)
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                backward()
+                torch.cuda.synchronize()
+            dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if dev:
+                break
+        check(dev, f"{tag}: the profiler saw no device event in three profiles")
+        fwd_ms = sum(e.time_range.elapsed_us() for e in dev
+                     if any(k in e.name for k in forward_kernels)) / 1e3
+        say(tag, check="remat", mode=mode, batch=BATCH, held_after_forward_GB=f"{held / 1e9:.3f}",
+            peak_allocated_GB=f"{peak / 1e9:.3f}", loss_and_backward_event_ms=f"{ms:.3f}",
+            reps=reps, device_busy_ms=f"{_busy_ms(dev):.3f}",
+            attention_forward_device_ms=f"{fwd_ms:.3f}",
+            grad_rel_l2_vs_no_remat=f"{err:.3e}", loss=f"{loss.item():.6f}",
+            kernel_launches={k: n for k, n in used.items() if n}, card=f"'{card}'")
+        check((gate is None or err <= gate) and (not plan or used == _train_launches(net.cfg)),
+              f"{tag}: remat={mode!r}: gradient rel L2 {err} (gate {gate}), launches {used}, "
+              f"want {_train_launches(net.cfg)}")
+    for p in params:
+        p.grad = None
+
+
+def phase_remat_cost(card):
+    """What each recompute mode costs at full width, batch 8: `_remat_modes`
+    on `vivid-base` and on `vivid-sr` (one loss and its backward, seeded
+    inputs), the launches printed but not held to this checkout's plan, so
+    that `vivid_tpu_torch/tools/smoke_phase.py remat_cost --port DIR` times
+    another checkout's port at the same cases."""
+    import torch
+    from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss, clamp_loss
+    for tag, sr in (("remat_cost_base", False), ("remat_cost_sr", True)):
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        res, srcs = (256, 1) if sr else (64, 2)
+        src = torch.randn(BATCH, srcs, res, res, 3, generator=gen, device="cuda").clamp(-1, 1)
+        tgt = torch.randn(BATCH, res, res, 3, generator=gen, device="cuda").clamp(-1, 1)
+        geometry = torch.randn(BATCH, srcs, 20, generator=gen, device="cuda")
+        eps = torch.randn(tgt.shape, generator=gen, device="cuda")
+        loss_fn = SRNVLoss(P_mean=-0.8, P_std=1.6) if sr else NVLoss(P_mean=-0.8, P_std=1.6)
+        sigma = loss_fn.sample_sigma(gen, BATCH, "cuda")
+        extra = dict(cond_noise=torch.randn(tgt.shape, generator=gen, device="cuda")) if sr else {}
+        net = _full_width_sr(train=True) if sr else _full_width(uncond=False, train=True)
+        _remat_modes(tag, card, net, list(net.parameters()), None, None, lambda: clamp_loss(
+            loss_fn(net, src, tgt, geometry, sigma=sigma, eps=eps, **extra)).sum() / BATCH,
+            plan=False)
+        del net
+        torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def _packed_bwd_shapes():
     """While the block runs, the calls of K3 and K4 by sequence length and
@@ -2618,10 +2724,11 @@ def _packed_bwd_shapes():
 def _train_launches(cfg):
     """Kernel launches of one loss and its backward, from the model's plan:
     every attention block launches its forward kernel once, and once more
-    where its block is recomputed in the backward pass (`remat`: the
-    decoder's blocks and every block of an encoder); S >= 4096 without a
-    zero sink goes to K6 forward and K8 forward + backward, the rest to the
-    packed kernels and their backward."""
+    where `remat=True` recomputes its block in the backward pass (the
+    decoder's blocks and every block of an encoder); "save_dots" keeps the
+    attention outputs, so its forward kernels launch once a block, as
+    without remat. S >= 4096 without a zero sink goes to K6 forward and K8
+    forward + backward, the rest to the packed kernels and their backward."""
     from vivid_tpu_torch.kernels import flash
     from vivid_tpu_torch.kernels.attention import NOMAX_MIN_SQ
     from vivid_tpu_torch.nn.unet import attention_feature_spec
@@ -2631,8 +2738,8 @@ def _train_launches(cfg):
         nets.append((cfg.encoder_cfg, "flash_fused_packed"))
     for ucfg, packed in nets:
         for name, _, res in attention_feature_spec(ucfg):
-            forwards = 2 if ucfg.remat and (name.startswith("dec/")
-                                            or ucfg.kind == "encoder") else 1
+            forwards = 2 if ucfg.remat is True and (name.startswith("dec/")
+                                                    or ucfg.kind == "encoder") else 1
             if res * res >= NOMAX_MIN_SQ and not cfg.uncond:
                 want["flash_nomax"] += forwards
                 want["flash_attention"] += 1
@@ -2741,7 +2848,6 @@ def phase_train_sr(card, keep_dir=None):
     `keep_dir` (as vivid-sr.pkl) when one is given. Returns the kernels'
     launch counts of the preset's run."""
     import contextlib
-    import dataclasses
     from unittest import mock
     import torch
     from vivid_tpu_torch.data.scenes import make_synthetic_dataset
@@ -2850,24 +2956,15 @@ def phase_train_sr(card, keep_dir=None):
         control_other_seed_rel_l2=f"{_rel_l2(gradient('control', 6)[1], want):.3e}")
     del want
 
-    # Recompute in the backward pass: K6 runs again in every recomputed block,
-    # K8 as often as without; the gradient stays within the gate of the mode
-    # that keeps every activation.
-    say("train_sr", check="remat", mode=False, kernel_launches=used,
-        peak_memory_GB=f"{peak_gb:.2f}", resident_before_GB=f"{resident_gb:.2f}")
-    for mode in (True, "save_dots"):
-        net.cfg = dataclasses.replace(net.cfg, remat=mode)
-        for unet in (net.unet, net.encoder):
-            unet.cfg = dataclasses.replace(unet.cfg, remat=mode)
-        loss_m, grad_m, used_m, peak_m = measured()
-        err_m = _rel_l2(grad_m, got)
-        say("train_sr", check="remat", mode=mode, kernel_launches=used_m,
-            peak_memory_GB=f"{peak_m:.2f}", grad_rel_l2_vs_no_remat=f"{err_m:.3e}",
-            bitwise_equal=torch.equal(grad_m, got), loss=f"{loss_m:.6f}")
-        check(err_m <= gate and used_m == _train_launches(net.cfg),
-              f"train_sr: remat={mode!r}: gradient rel L2 {err_m} (gate {gate}), launches "
-              f"{used_m}, want {_train_launches(net.cfg)}")
-        del grad_m
+    # Recompute in the backward pass: under True K6 runs again in every
+    # recomputed block, under save_dots once a block, as without; K8 as often
+    # in every mode; the gradient stays within the gate of the mode that
+    # keeps every activation.
+    say("train_sr", check="remat", mode=False, peak_memory_GB=f"{peak_gb:.2f}",
+        resident_before_GB=f"{resident_gb:.2f}")
+    _remat_modes("train_sr", card, net, params, got, gate, lambda: clamp_loss(loss_fn(
+        net, batch["src"], batch["tgt"], batch["geometry"], sigma=sigma, eps=eps,
+        cond_noise=cond_noise)).sum() / BATCH)
     del net, params, got
     torch.cuda.empty_cache()
 
@@ -2915,6 +3012,37 @@ def run_shell_phase(sr_model):
     print("\n".join(l for l in lines if l.startswith("[shell]")) if proc.returncode == 0
           else "\n".join(lines[-300:]), flush=True)
     check(proc.returncode == 0, f"shell: the phase's process exited with {proc.returncode}")
+
+
+def start_overfit_phase():
+    """The `overfit` phase in a process of its own, started so that it runs
+    beside the `dist` phase: both are bound by the host, and neither measures
+    speed (dist's step times are marked as no speed, overfit's gates are its
+    loss and its PSNR), so the card serves both at once. Its output goes to
+    a temporary file, which no pipe's size can stall. Returns (the process,
+    the file) for `finish_overfit_phase`."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "vivid_tpu_torch",
+                          "tools", "smoke_phase.py")
+    log = tempfile.TemporaryFile(mode="w+")
+    return subprocess.Popen([sys.executable, script, "overfit"], stdout=log,
+                            stderr=subprocess.STDOUT, text=True), log
+
+
+def finish_overfit_phase(proc, log, timeout=600):
+    """Waits for `start_overfit_phase`'s process (killed after `timeout`
+    more seconds) and prints its `[overfit]` lines, or its last lines if it
+    failed."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log.seek(0)
+    lines = log.read().splitlines()
+    log.close()
+    print("\n".join(l for l in lines if l.startswith("[overfit]")) if proc.returncode == 0
+          else "\n".join(lines[-300:]), flush=True)
+    check(proc.returncode == 0, f"overfit: the phase's process exited with {proc.returncode}")
 
 
 def _same_state(a, b):
@@ -4246,6 +4374,18 @@ def phase_trace(card, base=None, gnet=None):
     torch.cuda.empty_cache()
 
 
+def _busy_ms(dev):
+    """ms of the union of the device events' intervals: the card's busy time."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy_us += cur_end - cur_start
+            cur_start = start
+        cur_end = max(cur_end, end)
+    return (busy_us + cur_end - cur_start) / 1e3
+
+
 def _profile(tag, fn, units, unit):
     """Time `fn` (which does `units` units of work) with a host clock, then
     under torch.profiler. Busy time is the union of the device's kernel and
@@ -4267,15 +4407,7 @@ def _profile(tag, fn, units, unit):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     check(dev, "the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy_us, cur_start, cur_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy_us += cur_end - cur_start
-            cur_start = start
-        cur_end = max(cur_end, end)
-    busy_us += cur_end - cur_start
-    busy_ms = busy_us / 1e3 / units
+    busy_ms = _busy_ms(dev) / units
     by_name = {}
     for e in dev:
         n, us = by_name.get(e.name, (0, 0.0))

@@ -241,7 +241,9 @@ def test_fused_attention_matches_reference_attention(sq, sk, with_bias, route, m
     leaves = _leaves(arrays)
     got = attention.fused_attention(*leaves)
     grads = torch.autograd.grad(got, leaves, torch.from_numpy(g))
-    assert calls == ([] if route == "reference" else [route])
+    # The no-max route's backward runs K8's forward for the row statistics.
+    assert calls == {"reference": [], "flash_attention": ["flash_attention"],
+                     "flash_nomax": ["flash_nomax", "flash_attention"]}[route]
     _hold(got, grads, want, vjp(jnp.asarray(g)))
     ref = attention.reference_attention(*(t.detach() for t in leaves))
     np.testing.assert_allclose(ref.numpy(), np.asarray(want), atol=ATOL["float32"], rtol=0)

@@ -114,11 +114,24 @@ def test_warp_perspective_matches_jax(out_shape):
     _close(warp.inverse_3x3(torch.from_numpy(H)), np.linalg.inv(H), rtol=RTOL_INV, atol=1e-6)
 
 
-def test_native_probes_match_jax(monkeypatch):
+def _fresh_jax_library(monkeypatch, path):
+    """vivid_tpu's probes asked anew, its library built at `path`. The JAX
+    package builds in place in its own directory, where a process that loads
+    the library while another writes it fails, and caches the failure for its
+    life (ROADMAP C-ref-12); a library of this test's own is whole."""
+    monkeypatch.setattr(jfast_image, "_LIB", str(path))
+    monkeypatch.setattr(jfast_image, "_lib", None)
+    monkeypatch.setattr(jfast_image, "_failed", False)
+
+
+def test_native_probes_match_jax(monkeypatch, tmp_path):
+    _fresh_jax_library(monkeypatch, tmp_path / "libfast_image.so")
     assert fast_image.fast_resize_available() == jfast_image.fast_resize_available() is True
     assert fast_image.png_decode_available() == jfast_image.png_decode_available() is True
     monkeypatch.setenv("VIVID_NO_NATIVE", "1")
+    _fresh_jax_library(monkeypatch, tmp_path / "libfast_image.so")
     assert not fast_image.fast_resize_available() and not fast_image.png_decode_available()
+    assert not jfast_image.fast_resize_available() and not jfast_image.png_decode_available()
 
 
 def test_register_and_call_func_by_name_match_jax():

@@ -232,7 +232,7 @@ def launch_training(run_dir, c):
 @click.option("--deterministic", help="Bit-reproducible kill and resume: the resumed loaders replay the consumed rows; deterministic algorithms on the card (needs CUBLAS_WORKSPACE_CONFIG=:4096:8)", is_flag=True)
 @click.option("--bf16", help="Enable bfloat16 compute", metavar="BOOL", type=bool, default=True, show_default=True)
 @click.option("--force-wn", help="Forced weight normalization (EDM2 Eq. 66)", metavar="BOOL", type=bool, default=False, show_default=True)
-@click.option("--remat", help="Recompute blocks in backward: true, false, or save_dots (keep conv and matrix-product outputs, recompute elementwise)", metavar="BOOL|save_dots", type=str, default="true", show_default=True)
+@click.option("--remat", help="Recompute blocks in backward: true, false, or save_dots (keep what the JAX package names mpconv_out and attn_out: MPConv products and attention outputs, the convolutions above VIVID_REMAT_HIRES_AREA excepted; wnorm too under VIVID_SAVE_WNORM; recompute the rest)", metavar="BOOL|save_dots", type=str, default="true", show_default=True)
 @click.option("--ls", help="Loss scaling", metavar="FLOAT", type=click.FloatRange(min=0, min_open=True), default=1, show_default=True)
 @click.option("--device", help="Device to train on  [default: cuda]", metavar="STR", type=str, default=None)
 # I/O-related options.

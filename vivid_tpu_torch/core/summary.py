@@ -9,7 +9,9 @@ Counterpart of vivid_tpu/core/summary.py:
     reference's DeepSpeed profiler): the formulas of
     `torch.utils.flop_counter.FlopCounterMode` count the operators
     (products, convolutions, attention), and the hand-written kernels, which
-    they cannot see, add their own (`kernels/flash.py` `flops`);
+    they cannot see, add their own (`kernels/flash.py` `flops`). An
+    attention operator of `kernels/flash.py` is counted by its kernel's
+    tally where a kernel ran, else by its formula: once either way;
   * `profiled_function`, a named range in a `core/trace.py` trace.
 """
 
@@ -21,6 +23,7 @@ from torch.utils.flop_counter import flop_registry
 
 from vivid_tpu_torch.compat.from_jax import to_jax
 from vivid_tpu_torch.core.trace import annotate
+from vivid_tpu_torch.kernels import flash
 
 
 def param_table(state: Dict, max_depth: int = 2) -> str:
@@ -66,7 +69,11 @@ class _OperatorCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        ours = func in flash.OPERATORS
+        tallied = sum(flash.flops.values()) if ours else 0
         out = func(*args, **kwargs)
+        if ours and sum(flash.flops.values()) != tallied:
+            return out   # a kernel ran: `flops_analysis` adds its tally
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops += int(count(*args, **kwargs, out_val=out))
@@ -79,7 +86,6 @@ def flops_analysis(fn: Callable, *args, **kwargs) -> dict:
     "kernels": {kernel: its count}, "result": fn's result}. Unlike XLA's
     analysis, which compiles without running, this runs `fn`; its results
     are what they are without the count."""
-    from vivid_tpu_torch.kernels import flash
     before = dict(flash.flops)
     with _OperatorCounter() as counter:
         result = fn(*args, **kwargs)

@@ -30,7 +30,10 @@ normalised rows, `attention_from_raw` on raw ones) have no sharding branch:
 the port has no mesh code yet. `fused_attention` picks by length alone:
 Sq >= NOMAX_MIN_SQ the no-max kernel (big-S flash backward), from
 FLASH_MIN_S queries and keys on the big-S flash attention kernels forward
-and backward, shorter the plain einsum composite.
+and backward, shorter the plain einsum composite. The blocks' entries reach
+the kernels through `torch.library` operators (kernels/flash.py), which
+remat="save_dots" keeps by name; `attention_from_raw` (K5), on no model
+path, stays an autograd function.
 """
 
 import os

@@ -11,15 +11,18 @@ the forward on wgmma and TMA, whose grid `packed_fwd_plan` gives), the
 backward wrappers the three of csrc/flash_packed_bwd.cu (the same pre-pass,
 then the dq and the dk/dv kernels on wgmma and TMA, whose grids
 `packed_bwd_plan` gives). `packed_self_attention` and `packed_xattn` are the
-differentiable entries: autograd functions whose forward and backward are
-those wrappers. `flash_nomax` is the big-S forward kernel of the 256px model
+differentiable entries: `torch.library` operators (vivid::packed_self_attention,
+vivid::packed_xattn) whose forward and backward are those wrappers.
+`flash_nomax` is the big-S forward kernel of the 256px model
 (csrc/flash_nomax.cu, counterpart of `flash_nomax` there), on q, k, v
 [B, H, S, D] that the caller has already pixel-normalised. `flash_attention`
 and `flash_attention_bwd` (csrc/flash_bwd.cu) are the counterpart of JAX's
 `pallas.ops.tpu.flash_attention` as vivid_tpu/kernels/attention.py
 `_stock_flash` calls it: the forward with a running max that also returns the
-row log-sum-exp, and the backward kernels for dk/dv and for dq and the bias.
-`nomax_attention` is the differentiable big-S entry: forward `flash_nomax`,
+row log-sum-exp, and the backward kernels for dk/dv and for dq and the bias;
+`stock_attention` (vivid::stock_attention) is their differentiable entry.
+`nomax_attention` (vivid::nomax_attention) is the differentiable big-S
+entry: forward `flash_nomax`,
 backward `flash_attention` again for the output and the statistics, then
 `flash_attention_bwd`, which is the JAX package's own schedule
 (`jax.vjp(_stock_flash)` behind the no-max forward). `flash_fused`
@@ -49,15 +52,21 @@ its plain version's five products, the logits recomputed among them;
 K3/K4's 12, since their plain version runs the forward again under
 autograd; the norm pre-pass none). So a count through the kernels
 (`core/summary.py` `flops_analysis`) equals the count through the plain
-versions. Between forward and backward only the inputs are kept: the
-backward recomputes the softmax from them.
+versions. Each operator's forward has a formula registered with
+`torch.utils.flop_counter` too, which counts it where no kernel tallied it
+(the CPU's plain version), so that the attention is counted once. Between
+forward and backward the packed and no-max entries keep their inputs alone,
+and the backward recomputes the softmax from them; `stock_attention` keeps
+its output and row statistics too.
 """
 
 import ctypes
 import math
+from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.utils.flop_counter import register_flop_formula
 
 from vivid_tpu_torch.kernels import build
 
@@ -416,62 +425,120 @@ def flash_nomax_packed_info(d: int):
     return _forward_info("flash_nomax_packed_info", d, False)
 
 
-class _PackedSelfAttention(torch.autograd.Function):
-    """K1 (with `nomax` K7) forward, K3 backward; keeps qkv only."""
+# -- the differentiable entries, as operators ---------------------------------
+#
+# Each entry a model block calls is a `torch.library` operator of the "vivid"
+# namespace, so that a dispatch mode sees it as one operator: remat="save_dots"
+# (nn/unet.py) keeps its output as the JAX package keeps "attn_out", and
+# `core/summary.py` counts it once. Its implementation is the wrapper above on
+# either device: a CUDA tensor launches the kernel or the call raises, a CPU
+# tensor runs the plain version. Its autograd formula keeps what the backward
+# kernel needs. A tensor on any other device (meta) would take the operator's
+# fake implementation, so the entries hand it to the wrapper, which raises.
 
-    @staticmethod
-    def forward(ctx, qkv, num_heads, zero_sink, nomax, eps):
-        ctx.save_for_backward(qkv)
-        ctx.args = (num_heads, zero_sink, eps)
-        if nomax:
-            return flash_nomax_packed(qkv, (), num_heads, zero_sink, eps)
-        return flash_fused_packed(qkv, num_heads, zero_sink, eps)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None, None, None
+_DEVICES = ("cpu", "cuda")
 
 
-class _PackedXAttn(torch.autograd.Function):
-    """K2 (with `nomax` K7) forward, K4 backward; keeps qkv, the sources and
-    the biases."""
+def _packed_self(qkv: torch.Tensor, num_heads: int, zero_sink: int, nomax: bool,
+                 eps: float) -> torch.Tensor:
+    """K1, or with `nomax` K7."""
+    if nomax:
+        return flash_nomax_packed(qkv, (), num_heads, zero_sink, eps)
+    return flash_fused_packed(qkv, num_heads, zero_sink, eps)
 
-    @staticmethod
-    def forward(ctx, num_heads, n_src, nomax, eps, qkv, *rest):
-        ctx.save_for_backward(qkv, *rest)
-        ctx.args = (num_heads, n_src, eps)
-        if nomax:
-            return flash_nomax_packed(qkv, rest, num_heads, 0, eps)
-        return flash_fused_packed_xattn(qkv, rest[:n_src], num_heads, rest[n_src:], eps)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        num_heads, n_src, eps = ctx.args
-        qkv, *rest = ctx.saved_tensors
-        dqkv, dfeats, dbiases = flash_fused_packed_xattn_bwd(
-            qkv, rest[:n_src], g, num_heads, rest[n_src:], eps)
-        return None, None, None, None, dqkv, *dfeats, *dbiases
+_packed_self_op = torch.library.custom_op("vivid::packed_self_attention", _packed_self,
+                                          mutates_args=(), device_types=_DEVICES)
+
+
+@_packed_self_op.register_fake
+def _(qkv, num_heads, zero_sink, nomax, eps):
+    return qkv.new_empty(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)
+
+
+def _keep_qkv(ctx, inputs, output):
+    qkv, num_heads, zero_sink, _, eps = inputs
+    ctx.save_for_backward(qkv)
+    ctx.args = (num_heads, zero_sink, eps)
+
+
+@once_differentiable
+def _packed_self_bwd(ctx, g):
+    """K3, which recomputes the softmax from qkv alone."""
+    (qkv,) = ctx.saved_tensors
+    return flash_fused_packed_bwd(qkv, g, *ctx.args), None, None, None, None
+
+
+_packed_self_op.register_autograd(_packed_self_bwd, setup_context=_keep_qkv)
+
+
+def _packed_xattn(qkv: torch.Tensor, feats: List[torch.Tensor], num_heads: int,
+                  biases: List[torch.Tensor], nomax: bool, eps: float) -> torch.Tensor:
+    """K2, or with `nomax` K7 (no bias)."""
+    if nomax:
+        return flash_nomax_packed(qkv, feats, num_heads, 0, eps)
+    return flash_fused_packed_xattn(qkv, feats, num_heads, biases, eps)
+
+
+_packed_xattn_op = torch.library.custom_op("vivid::packed_xattn", _packed_xattn,
+                                           mutates_args=(), device_types=_DEVICES)
+
+
+@_packed_xattn_op.register_fake
+def _(qkv, feats, num_heads, biases, nomax, eps):
+    return qkv.new_empty(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)
+
+
+def _keep_packed_inputs(ctx, inputs, output):
+    qkv, feats, num_heads, biases, _, eps = inputs
+    ctx.save_for_backward(qkv, *feats, *biases)
+    ctx.args = (num_heads, len(feats), eps)
+
+
+@once_differentiable
+def _packed_xattn_grads(ctx, g):
+    """K4, which recomputes the softmax from qkv, the sources and the
+    biases -> (dqkv, *dfeats, *dbiases)."""
+    num_heads, n_src, eps = ctx.args
+    qkv, *rest = ctx.saved_tensors
+    dqkv, dfeats, dbiases = flash_fused_packed_xattn_bwd(
+        qkv, rest[:n_src], g, num_heads, rest[n_src:], eps)
+    return (dqkv, *dfeats, *dbiases)
+
+
+def _packed_xattn_bwd(ctx, g):
+    grads = _packed_xattn_grads(ctx, g)
+    dqkv, *rest = (grads,) if isinstance(grads, torch.Tensor) else grads
+    n_src = ctx.args[1]
+    return dqkv, rest[:n_src], None, rest[n_src:], None, None
+
+
+_packed_xattn_op.register_autograd(_packed_xattn_bwd, setup_context=_keep_packed_inputs)
 
 
 def packed_self_attention(qkv, num_heads: int, zero_sink: int = 0, nomax: bool = False,
                           eps: float = NORM_EPS):
-    """Differentiable K1: its gradient is K3. `nomax` swaps the forward for
-    K7; K3 recomputes the softmax from qkv alone, so the backward is the same.
-    `eps` is the pixel norm's, in both directions."""
-    return _PackedSelfAttention.apply(qkv, num_heads, zero_sink, nomax, eps)
+    """Differentiable K1 (the operator vivid::packed_self_attention): its
+    gradient is K3. `nomax` swaps the forward for K7; K3 recomputes the
+    softmax from qkv alone, so the backward is the same. `eps` is the pixel
+    norm's, in both directions. Only qkv is kept for the backward."""
+    if qkv.device.type not in _DEVICES:
+        return _packed_self(qkv, num_heads, zero_sink, nomax, eps)
+    return _packed_self_op(qkv, num_heads, zero_sink, nomax, eps)
 
 
 def packed_xattn(qkv, feats, num_heads: int, biases=(), nomax: bool = False,
                  eps: float = NORM_EPS):
-    """Differentiable K2: its gradients are K4's. `nomax` swaps the forward
-    for K7, which takes no bias."""
-    feats = tuple(feats)
-    if nomax and len(biases):
+    """Differentiable K2 (the operator vivid::packed_xattn): its gradients,
+    one for qkv, each source and each bias, are K4's. `nomax` swaps the
+    forward for K7, which takes no bias. qkv, the sources and the biases are
+    kept for the backward."""
+    feats, biases = list(feats), list(biases)
+    if nomax and biases:
         raise ValueError("the no-max packed forward takes no bias")
-    return _PackedXAttn.apply(num_heads, len(feats), nomax, eps, qkv, *feats, *biases)
+    if qkv.device.type not in _DEVICES:
+        return _packed_xattn(qkv, feats, num_heads, biases, nomax, eps)
+    return _packed_xattn_op(qkv, feats, num_heads, biases, nomax, eps)
 
 
 def _nomax_shift(bias, d):
@@ -842,53 +909,91 @@ def flash_packed_bwd_info(d: int, biased: bool = False):
     return out
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K8 forward, K8 backward; keeps the inputs, the output and the row
-    statistics."""
+@torch.library.custom_op("vivid::stock_attention", mutates_args=(), device_types=_DEVICES)
+def _stock_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8's forward -> (out, lse)."""
+    return flash_attention(q, k, v, bias)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        out, lse = flash_attention(q, k, v, bias)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        return out
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        return flash_attention_bwd(*ctx.saved_tensors, g)
+@_stock_op.register_fake
+def _(q, k, v, bias):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _keep_inputs_and_stats(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, *output)
+
+
+@once_differentiable
+def _stock_bwd(ctx, g, g_lse):
+    """K8's backward, from the output and the row statistics the forward
+    returned."""
+    return flash_attention_bwd(*ctx.saved_tensors, g)
+
+
+_stock_op.register_autograd(_stock_bwd, setup_context=_keep_inputs_and_stats)
 
 
 def stock_attention(q, k, v, bias=None):
-    """Differentiable K8: `flash_attention`'s output, its gradients by
-    `flash_attention_bwd` (the role of `_stock_flash` in the JAX package). A
-    CPU tensor takes the plain version under ordinary autograd."""
-    if q.device.type == "cpu":
+    """Differentiable K8 (the operator vivid::stock_attention, which returns
+    the output and the row log-sum-exp): `flash_attention`'s output, its
+    gradients by `flash_attention_bwd` (the role of `_stock_flash` in the
+    JAX package). The inputs, the output and the statistics are kept for the
+    backward."""
+    if q.device.type not in _DEVICES:
         return flash_attention(q, k, v, bias)[0]
-    return _FlashAttention.apply(q, k, v, bias)
+    return _stock_op(q, k, v, bias)[0]
 
 
-class _NomaxAttention(torch.autograd.Function):
-    """K6 forward, K8 backward; keeps the inputs only. The backward runs K8's
-    forward for the output and the row statistics and feeds K8's own output
-    (not K6's, which may differ in the last bit) to delta, so the backward
-    pair is consistent in itself."""
+@torch.library.custom_op("vivid::nomax_attention", mutates_args=(), device_types=_DEVICES)
+def _nomax_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """K6."""
+    return flash_nomax(q, k, v, bias)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        ctx.save_for_backward(q, k, v, bias)
-        return flash_nomax(q, k, v, bias)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        out, lse = flash_attention(q, k, v, bias)
-        return flash_attention_bwd(q, k, v, bias, out, lse, g)
+@_nomax_op.register_fake
+def _(q, k, v, bias):
+    return torch.empty_like(q)
+
+
+def _keep_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+@once_differentiable
+def _nomax_bwd(ctx, g):
+    """K8's forward for the output and the row statistics, then K8's
+    backward fed K8's own output (not K6's, which may differ in the last
+    bit), so that the backward pair is consistent in itself."""
+    q, k, v, bias = ctx.saved_tensors
+    out, lse = flash_attention(q, k, v, bias)
+    return flash_attention_bwd(q, k, v, bias, out, lse, g)
+
+
+_nomax_op.register_autograd(_nomax_bwd, setup_context=_keep_inputs)
 
 
 def nomax_attention(q, k, v, bias=None):
-    """Differentiable K6: `flash_nomax` whose gradients are K8's. A CPU
-    tensor takes the plain version under ordinary autograd."""
-    if q.device.type == "cpu":
+    """Differentiable K6 (the operator vivid::nomax_attention): `flash_nomax`
+    whose gradients are K8's. Only the inputs are kept for the backward."""
+    if q.device.type not in _DEVICES:
         return flash_nomax(q, k, v, bias)
-    return _NomaxAttention.apply(q, k, v, bias)
+    return _nomax_op(q, k, v, bias)
+
+
+# What each operator's forward does, as its kernel's tally counts it: the
+# formula `torch.utils.flop_counter` applies (`core/summary.py` applies it
+# where no kernel tallied the call).
+_vivid = torch.ops.vivid
+for _packet, _ops in (
+        (_vivid.packed_self_attention, lambda qkv, h, *a, **kw: _packed_ops(qkv, (), h, 2)),
+        (_vivid.packed_xattn, lambda qkv, feats, h, *a, **kw: _packed_ops(qkv, feats, h, 2)),
+        (_vivid.stock_attention, lambda q, k, *a, **kw: _bhsd_ops(q, k, 2)),
+        (_vivid.nomax_attention, lambda q, k, *a, **kw: _bhsd_ops(q, k, 2))):
+    register_flop_formula(_packet, get_raw=True)(_ops)
+
+# The operators whose outputs remat="save_dots" keeps, as "attn_out".
+OPERATORS = (_vivid.packed_self_attention.default, _vivid.packed_xattn.default,
+             _vivid.stock_attention.default, _vivid.nomax_attention.default)

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from vivid_tpu_torch.geometry.epipolar import get_epipolar_attn, get_epipolar_dist
 from vivid_tpu_torch.kernels import attention
-from vivid_tpu_torch.nn.mp import MPConv, mp_silu, mp_sum, normalize, resample
+from vivid_tpu_torch.nn.mp import MPConv, mp_silu, mp_sum, normalize, remat_name, resample
 
 RES_BALANCE = 0.3      # mp_sum weight of the residual branch
 ATTN_BALANCE = 0.3     # mp_sum weight of the attention branch
@@ -53,13 +53,15 @@ def _packed_linear(conv: MPConv, x, num_heads: int, parts: int, heads=None):
     """The 1x1 projection as a linear on [B, S, C], its output channels
     permuted from the reference packing c = head*(D*parts) + d*parts + part
     to the part-major c = part*(heads*D) + head*D + d (`_qkv_perm`). `heads`
-    (a slice) keeps those heads' rows (tensor parallelism)."""
+    (a slice) keeps those heads' rows (tensor parallelism). The product is
+    "mpconv_out"."""
     w = conv.normalized_weight(x.dtype).flatten(1)          # [out, in]
     w = w.view(num_heads, -1, parts, w.shape[1])
     if heads is not None:
         w = w[heads]
-    w = w.permute(2, 0, 1, 3)
-    return F.linear(x, w.reshape(-1, w.shape[-1]))
+    w = w.permute(2, 0, 1, 3).reshape(-1, w.shape[-1])
+    with remat_name("mpconv_out"):
+        return F.linear(x, w)
 
 
 def attention_with_zero_sink(q, k, v, num_zero_cols: int):
@@ -177,7 +179,8 @@ class Block(nn.Module):
             d = cfg.channels_per_head
             cols = None if mine is None else slice(mine.start * d, mine.stop * d)
             w_proj = self.attn_proj.normalized_weight(y.dtype, cols=cols).flatten(1)
-            y = F.linear(y, w_proj)
+            with remat_name("mpconv_out"):
+                y = F.linear(y, w_proj)
             if tp is not None:
                 y = tp.all_reduce(y)
             x = mp_sum(x, y.reshape(b, h, w, ch), t=ATTN_BALANCE)

@@ -5,13 +5,39 @@ Counterpart of vivid_tpu/nn/mp.py. Activations are channel-last
 `permute(0, 3, 1, 2)` view (NCHW in channels_last memory, no copy). Weights
 keep the reference's torch layouts: conv OIHW, linear [out, in]. Norm math
 runs in float32 whatever the compute dtype.
+
+`remat_name` names what the operators run inside it put out, as
+`jax.ad_checkpoint.checkpoint_name` names a value in the JAX package: an
+MPConv's product is "mpconv_out", its normalised weight "wnorm", and
+remat="save_dots" (nn/unet.py) keeps by these names.
 """
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+_region = threading.local()   # the name `remat_name` gives, on the thread that runs the ops
+
+
+@contextlib.contextmanager
+def remat_name(name: str):
+    """Name the outputs of the operators run inside: a dispatch mode (the
+    recompute policy) reads it with `current_remat_name`. Nothing is copied."""
+    outer = getattr(_region, "name", None)
+    _region.name = name
+    try:
+        yield
+    finally:
+        _region.name = outer
+
+
+def current_remat_name():
+    """The name of the innermost `remat_name` on this thread, None outside."""
+    return getattr(_region, "name", None)
 
 
 def normalize(x, dim=None, eps: float = 1e-4):
@@ -97,28 +123,35 @@ class MPConv(nn.Module):
         """Each output filter scaled to L2 norm `gain` (fp32), then cast;
         `rows` / `cols` (slices) keep some output / input channels of the
         weight, normalised whole first (tensor parallelism: a slice of the
-        input channels normalised by itself would have another norm)."""
+        input channels normalised by itself would have another norm). The
+        last operator, the cast or, where there is none, the gain's product,
+        puts out the "wnorm" of the JAX package."""
         w = self.weight.float()
         dims = tuple(range(1, w.ndim))
         norm = torch.sqrt(w.square().sum(dim=dims, keepdim=True))
         w = w / (1e-4 + math.sqrt(norm.numel() / w.numel()) * norm)
-        fan_in = w[0].numel()
-        w = w * (gain / math.sqrt(fan_in))
+        scale = gain / math.sqrt(w[0].numel())
         if rows is not None:
             w = w[rows]
         if cols is not None:
             w = w[:, cols]
-        return w.to(dtype)
+        if w.dtype == dtype:
+            with remat_name("wnorm"):
+                return w * scale
+        w = w * scale
+        with remat_name("wnorm"):
+            return w.to(dtype)
 
     def forward(self, x, gain=1.0, rows=None, cols=None):
         """Linear on [..., in] or conv on [B, H, W, in] (channel-last), with
         the output channels `rows` of the whole and its input channels `cols`
-        (slices; None: all)."""
+        (slices; None: all). The product is "mpconv_out"."""
         w = self.normalized_weight(x.dtype, gain, rows, cols)
-        if w.ndim == 2:
-            return F.linear(x, w)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w,
-                     padding=(w.shape[2] // 2, w.shape[3] // 2))
+        with remat_name("mpconv_out"):
+            if w.ndim == 2:
+                return F.linear(x, w)
+            y = F.conv2d(x.permute(0, 3, 1, 2), w,
+                         padding=(w.shape[2] // 2, w.shape[3] // 2))
         return y.permute(0, 2, 3, 1)
 
 

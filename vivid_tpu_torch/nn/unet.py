@@ -20,15 +20,17 @@ Kinds:
 blocks and on every block of an encoder, as the JAX package places it:
 False keeps every activation; True wraps each such block in
 `torch.utils.checkpoint`; "save_dots" does the same under a selective
-policy that keeps the outputs of convolutions and matrix products and
-recomputes the elementwise chains between them, except the outputs of
-convolutions whose input area H * W exceeds VIVID_REMAT_HIRES_AREA (128 *
-128 unless the environment says otherwise, read at each call): those are
-recomputed too, as the JAX package's "mpconv_out_hires" are (the 256px
-level of the SR model is what dominates its memory). On a CUDA tensor the
-attention kernel is no operator the policy can see, so "save_dots"
-launches the forward attention kernel again in the backward pass. All
-three give the same gradients.
+policy that keeps what the JAX package's `_remat_wrap` keeps by name and
+recomputes the rest: "attn_out", the outputs of the attention operators
+(kernels/flash.py `OPERATORS`: on a card the forward attention kernel runs
+once a block, as without remat); "mpconv_out", the products of MPConv
+(nn/mp.py `remat_name`), except the outputs of convolutions whose input area
+H * W exceeds VIVID_REMAT_HIRES_AREA (128 * 128 unless the environment says
+otherwise), which the JAX package names "mpconv_out_hires" and recomputes
+(the 256px level of the SR model is what dominates its memory); and, when
+VIVID_SAVE_WNORM is set, "wnorm", each normalised weight. Both variables are
+read at each call. Every other operator is recomputed, the other products
+(the geometry's, say) among them. All three give the same gradients.
 """
 
 import functools
@@ -40,8 +42,9 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from vivid_tpu_torch.kernels import flash
 from vivid_tpu_torch.nn.blocks import Block, BlockConfig
-from vivid_tpu_torch.nn.mp import MPConv, MPFourier, mp_cat, mp_silu, mp_sum
+from vivid_tpu_torch.nn.mp import MPConv, MPFourier, current_remat_name, mp_cat, mp_silu, mp_sum
 
 LABEL_BALANCE = 0.5    # mp_sum weight of the geometry embedding
 REMAT_HIRES_AREA = 128 * 128   # save_dots recomputes convs whose input area exceeds this
@@ -183,18 +186,27 @@ def remat_hires_area() -> int:
 
 
 def _save_dots_policy(hires_area: int):
-    """Keep what a convolution or a matrix product puts out, unless the
-    convolution's input (N, C, H, W) has H * W > hires_area; recompute the
-    rest."""
+    """Keep what the JAX package's save_dots keeps by name, recompute the
+    rest: an attention operator's output ("attn_out"); a product's in an
+    "mpconv_out" region, unless it is a convolution whose input (N, C, H, W)
+    has H * W > hires_area ("mpconv_out_hires"); and when VIVID_SAVE_WNORM is
+    set (read here, at each call) the one operator's of a "wnorm" region."""
     aten = torch.ops.aten
-    dots = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+    products = (aten.mm.default, aten.addmm.default, aten.bmm.default)
+    wnorm = bool(os.environ.get("VIVID_SAVE_WNORM"))
 
     def policy(ctx, op, *args, **kwargs):
-        if op is aten.convolution.default:
-            h, w = args[0].shape[-2:]
-            keep = h * w <= hires_area
+        region = current_remat_name()
+        if op in flash.OPERATORS:
+            keep = True
+        elif region == "mpconv_out":
+            if op is aten.convolution.default:
+                h, w = args[0].shape[-2:]
+                keep = h * w <= hires_area
+            else:
+                keep = op in products
         else:
-            keep = op in dots
+            keep = wnorm and region == "wnorm"
         return ckpt.CheckpointPolicy.MUST_SAVE if keep else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
