@@ -110,11 +110,14 @@ its own:
            its widths for OVERFIT_STEPS of its 2000 steps: both gates must
            pass, the loss gate the corrected one; in a process of its own,
            run beside the dist phase (its lines printed after dist's)
-  trace    one guided 64px evaluation in an annotated range under
-           core/trace.py's trace: the trace file must hold the range and
-           K1/K2's kernels; flops_analysis of one full-width vivid-base step
-           (batch 8) through the kernels and through the plain versions must
-           give the same count
+  trace    one guided 64px evaluation in a span under core/trace.py's
+           trace: the trace file must hold the span's range, the hot path's
+           ranges (sampler.step, sampler.eval:net, sampler.eval:guide,
+           net.encoder, net.denoiser) and K1/K2's kernels; the host's cost of
+           one span outside a trace and inside it, and the spans' cost a
+           guided evaluation; flops_analysis of one
+           full-width vivid-base step (batch 8) through the kernels and
+           through the plain versions must give the same count
   profile  torch.profiler over 3 guided evaluations, over 3 SR evaluations,
            over 2 training steps at 64px and over 2 at 256px: device busy
            time, device operations, idle share, time by kind, the top kernels
@@ -4288,8 +4291,9 @@ def phase_mem(card):
 
 def phase_trace(card, base=None, gnet=None):
     """`core/trace.py` on the card: one full-width guided 64px evaluation
-    (batch 8) in an `annotate`d range under `trace`; the trace file must
-    hold the range and K1/K2's kernels. Then `flops_analysis` of one
+    (batch 8) in a `span` under `trace`; the trace file must hold its range,
+    the hot path's ranges and K1/K2's kernels. The host's cost of a span
+    outside a trace and inside one. Then `flops_analysis` of one
     full-width vivid-base training step (batch 8) through the kernels and
     through their plain versions (the train phase's patching): the counts
     must be equal. Without nets it builds the full-width pair from their
@@ -4297,7 +4301,7 @@ def phase_trace(card, base=None, gnet=None):
     from unittest import mock
     import torch
     from vivid_tpu_torch.core.summary import flops_analysis
-    from vivid_tpu_torch.core.trace import annotate, trace
+    from vivid_tpu_torch.core.trace import drain, span, trace
     from vivid_tpu_torch.diffusion.loss import NVLoss
     from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
     from vivid_tpu_torch.kernels import flash
@@ -4309,7 +4313,7 @@ def phase_trace(card, base=None, gnet=None):
     geo = torch.randn(BATCH, 2, 20, generator=gen, device="cuda")
     noise = torch.randn(BATCH, 64, 64, 3, generator=gen, device="cuda")
 
-    @annotate("vivid_guided_evaluation")
+    @span("vivid_guided_evaluation")
     def evaluation():
         with torch.no_grad():   # one Heun step: one guided evaluation
             return edm_sampler(make_denoiser(base, src, geo), noise,
@@ -4329,11 +4333,43 @@ def phase_trace(card, base=None, gnet=None):
     kernels = {k: sum(k in n for n in names) for k in ("packed_fwd_norm_kernel",
                                                        "packed_fwd_kernel")}
     ranges = sum(n == "vivid_guided_evaluation" for n in names)
+    # One Heun step is one guided evaluation: the net (encoder and denoiser) and the guide
+    # (an unconditional net: no encoder). Host ranges only: the trace marks each range
+    # on the card's timeline too (category gpu_user_annotation).
+    host = [e.get("name", "") for e in events if e.get("cat") == "user_annotation"]
+    path = {k: host.count(k) for k in ("sampler.step", "sampler.eval:net",
+                                       "sampler.eval:guide", "net.encoder", "net.denoiser")}
     say("trace", evaluation="guided_64px", batch=BATCH, trace_MB=f"{size_mb:.1f}",
-        events=len(events), ranges=ranges, kernel_events=kernels,
+        events=len(events), ranges=ranges, path_ranges=path, kernel_events=kernels,
         seconds=f"{seconds:.2f}", card=f"'{card}'")
     check(ranges >= 1 and all(kernels.values()),
           f"trace: the range ({ranges}) or K1/K2's kernels ({kernels}) missing from the trace")
+    check(path == {"sampler.step": 1, "sampler.eval:net": 1, "sampler.eval:guide": 1,
+                   "net.encoder": 1, "net.denoiser": 2},
+          f"trace: the hot path's ranges in one guided evaluation are {path}")
+
+    # The host's cost of one span, always recorded, and of one under trace(), which is a
+    # profiler range too.
+    reps = 20000
+
+    def span_us():
+        drain()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            with span("smoke.span", rows=1):
+                pass
+        took = (time.perf_counter_ns() - t0) / reps / 1e3
+        check(len(drain()) == reps, "trace: a span was not recorded")
+        return took
+    plain_us = span_us()
+    with tempfile.TemporaryDirectory(prefix="vivid_chip_smoke_ranges_") as tmp:
+        with trace(tmp):
+            traced_us = span_us()
+    per_eval = sum(path.values())
+    say("trace_cost", span_us=f"{plain_us:.3f}", traced_span_us=f"{traced_us:.3f}",
+        spans_a_guided_evaluation=per_eval,
+        spans_us_a_guided_evaluation=f"{per_eval * plain_us:.2f}",
+        traced_us_a_guided_evaluation=f"{per_eval * traced_us:.2f}", card=f"'{card}'")
 
     net = _full_width(uncond=False, train=True)
     tcfg = TrainConfig(batch_size=BATCH, nimg_mult=6)

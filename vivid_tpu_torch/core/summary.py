@@ -1,4 +1,4 @@
-"""Parameter table, operation counts and profiled functions.
+"""Parameter table and operation counts.
 
 Counterpart of vivid_tpu/core/summary.py:
   * `param_table` / `count_params` over the port's state_dict: the names go
@@ -11,8 +11,7 @@ Counterpart of vivid_tpu/core/summary.py:
     (products, convolutions, attention), and the hand-written kernels, which
     they cannot see, add their own (`kernels/flash.py` `flops`). An
     attention operator of `kernels/flash.py` is counted by its kernel's
-    tally where a kernel ran, else by its formula: once either way;
-  * `profiled_function`, a named range in a `core/trace.py` trace.
+    tally where a kernel ran, else by its formula: once either way.
 """
 
 from typing import Callable, Dict
@@ -22,7 +21,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from vivid_tpu_torch.compat.from_jax import to_jax
-from vivid_tpu_torch.core.trace import annotate
 from vivid_tpu_torch.kernels import flash
 
 
@@ -93,7 +91,3 @@ def flops_analysis(fn: Callable, *args, **kwargs) -> dict:
     return {"flops": counter.flops + sum(kernels.values()), "operators": counter.flops,
             "kernels": kernels, "result": result}
 
-
-def profiled_function(fn: Callable) -> Callable:
-    """fn, each call a range named after it in a `core/trace.py` trace."""
-    return annotate(getattr(fn, "__qualname__", getattr(fn, "__name__", "fn")))(fn)

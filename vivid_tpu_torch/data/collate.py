@@ -21,6 +21,7 @@ from typing import Iterator, Optional
 import numpy as np
 import PIL.Image
 
+from vivid_tpu_torch.core.trace import span
 from vivid_tpu_torch.geometry.codec import compose_geometry_np
 from vivid_tpu_torch.native import fast_image
 
@@ -136,7 +137,9 @@ class BatchLoader:
     repeating its last row; `valid` marks the real rows, and every row of the
     stream comes out exactly once. `skip_rows` replays the draws of that many
     rows (no pixel work) before the first batch: a resumed run continues the
-    stream where the earlier one stopped."""
+    stream where the earlier one stopped. Each `next` is a `loader.wait` span
+    (`core/trace.py`, attribute `rows`): the caller's time blocked on the
+    prefetch queue."""
 
     def __init__(self, scene_iter: Iterator, collate, batch_size: int,
                  prefetch: int = 4, num_threads: Optional[int] = None, skip_rows: int = 0):
@@ -235,7 +238,9 @@ class BatchLoader:
         return self
 
     def __next__(self):
-        item = self.queue.get()
+        with span("loader.wait") as waited:
+            item = self.queue.get()
+            waited.attrs["rows"] = 0 if item is None else self.batch_size
         if item is None:
             raise StopIteration
         return item

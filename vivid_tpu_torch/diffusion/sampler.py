@@ -16,6 +16,9 @@ import numpy as np
 import torch
 
 from vivid_tpu_torch.core.rngs import seeded_normal
+from vivid_tpu_torch.core.trace import span
+
+NUM_STEPS = 32   # Heun steps when the caller names none
 
 
 def sigma_schedule(num_steps=32, sigma_min=0.002, sigma_max=80.0, rho=7.0):
@@ -29,7 +32,7 @@ def sigma_schedule(num_steps=32, sigma_min=0.002, sigma_max=80.0, rho=7.0):
 @torch.no_grad()
 def edm_sampler(denoise: Callable, noise: torch.Tensor,
                 gnet_denoise: Optional[Callable] = None,
-                num_steps: int = 32, sigma_min: float = 0.002,
+                num_steps: int = NUM_STEPS, sigma_min: float = 0.002,
                 sigma_max: float = 80.0, rho: float = 7.0, guidance: float = 1.0,
                 S_churn: float = 0.0, S_min: float = 0.0,
                 S_max: float = float("inf"), S_noise: float = 1.0,
@@ -41,10 +44,12 @@ def edm_sampler(denoise: Callable, noise: torch.Tensor,
 
     def guided(x, t):
         tt = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
-        d = denoise(x, tt)
+        with span("sampler.eval:net"):
+            d = denoise(x, tt)
         if gnet_denoise is None:
             return d
-        ref = gnet_denoise(x, tt)
+        with span("sampler.eval:guide"):
+            ref = gnet_denoise(x, tt)
         return ref + guidance * (d - ref)
 
     churn = min(S_churn / num_steps, math.sqrt(2.0) - 1.0) if S_churn > 0 else 0.0
@@ -53,19 +58,20 @@ def edm_sampler(denoise: Callable, noise: torch.Tensor,
 
     x_next = noise.float() * float(t_steps[0])
     for i in range(num_steps):
-        t_cur, t_next = t_steps[i], t_steps[i + 1]
-        x_cur = x_next
-        gamma = np.float32(churn if S_min <= t_cur <= S_max else 0.0)
-        t_hat = np.float32(t_cur + gamma * t_cur)
-        x_hat = x_cur
-        if gamma > 0:
-            eps = seeded_normal(seeds, x_cur.shape[1:], x_cur.device, data=i + 1)
-            x_hat = x_cur + float(np.sqrt(max(t_hat ** 2 - t_cur ** 2, 0.0))) * S_noise * eps
-        d_cur = (x_hat - guided(x_hat, t_hat)) / float(t_hat)
-        x_next = x_hat + float(np.float32(t_next - t_hat)) * d_cur
-        if i < num_steps - 1:
-            d_prime = (x_next - guided(x_next, t_next)) / float(t_next)
-            x_next = x_hat + float(np.float32(t_next - t_hat)) * (0.5 * d_cur + 0.5 * d_prime)
+        with span("sampler.step"):
+            t_cur, t_next = t_steps[i], t_steps[i + 1]
+            x_cur = x_next
+            gamma = np.float32(churn if S_min <= t_cur <= S_max else 0.0)
+            t_hat = np.float32(t_cur + gamma * t_cur)
+            x_hat = x_cur
+            if gamma > 0:
+                eps = seeded_normal(seeds, x_cur.shape[1:], x_cur.device, data=i + 1)
+                x_hat = x_cur + float(np.sqrt(max(t_hat ** 2 - t_cur ** 2, 0.0))) * S_noise * eps
+            d_cur = (x_hat - guided(x_hat, t_hat)) / float(t_hat)
+            x_next = x_hat + float(np.float32(t_next - t_hat)) * d_cur
+            if i < num_steps - 1:
+                d_prime = (x_next - guided(x_next, t_next)) / float(t_next)
+                x_next = x_hat + float(np.float32(t_next - t_hat)) * (0.5 * d_cur + 0.5 * d_prime)
     return x_next
 
 

@@ -39,8 +39,16 @@ each block's channels and heads are split over the group's ranks (the nets
 passed in stay split). Only the first rank of a group writes PNGs and hands
 images on; the others yield rows without images, as a rank without seeds
 does.
+
+Each batch is a root span `generate.batch` (`core/trace.py`; attributes
+`batch_idx`, `rows`, `num_steps` and `call`, the id of this call) over the
+spans of its parts: `loader.wait`, `generate.prepare` (inputs encoded, noise,
+conditioning, the denoisers bound), `generate.sample` (the sampler's host
+time; `generate.sr` for the cascade's SR stage), `generate.decode` (its copy
+to the host waits for the card), `generate.png` and `generate.barrier`.
 """
 
+import itertools
 import os
 from typing import Optional
 
@@ -52,13 +60,16 @@ import torch.nn.functional as F
 from vivid_tpu_torch.core import dist
 from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.rngs import fold_in, seeded_normal
+from vivid_tpu_torch.core.trace import span
 from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.data.re10k_scenes import open_scene_dataset
 from vivid_tpu_torch.diffusion.loss import down_up_resize
-from vivid_tpu_torch.diffusion.sampler import edm_sampler, make_denoiser
+from vivid_tpu_torch.diffusion.sampler import NUM_STEPS, edm_sampler, make_denoiser
 from vivid_tpu_torch.geometry.depth import add_depth, resolve_depth_model
 from vivid_tpu_torch.train.snapshots import load_snapshot
+
+_calls = itertools.count()   # ids of `generate_images_nvs` calls, on their batches' spans
 
 config_presets = {
     "vivid": EasyDict(net="vivid-base.pkl", sr_model="vivid-sr.pkl",
@@ -145,6 +156,9 @@ def generate_images_nvs(
         datakwargs["path"], seed=rng_seed, process_index=data_index, process_count=data_count,
         **{k: v for k, v in datakwargs.items() if k not in ("path", "class_name")})
     use_gnet = gnet is not None and guidance != 1
+    num_steps = sampler_kwargs.get("num_steps", NUM_STEPS)
+    evaluations = 2 * num_steps - 1     # the sampler's calls of a net (and its guide) a batch
+    call = next(_calls)
     if verbose:
         dist.print0(f"Generating {len(seeds)} images on {world} process(es)"
                     + (f" in tensor-parallel groups of {tp}" if tp_group is not None else "")
@@ -160,8 +174,11 @@ def generate_images_nvs(
                 batch_size=max_batch_size, prefetch=2, num_threads=2)
             try:
                 for batch_idx, indices in enumerate(batches):
-                    r = self._batch(loader, batch_idx, indices)
-                    dist.barrier("gen-batch")
+                    with span("generate.batch", batch_idx=batch_idx, rows=len(indices),
+                              num_steps=num_steps, call=call):
+                        r = self._batch(loader, batch_idx, indices)
+                        with span("generate.barrier"):
+                            dist.barrier("gen-batch")
                     yield r
             finally:
                 loader.close()
@@ -174,57 +191,63 @@ def generate_images_nvs(
             if not r.seeds:
                 return r
             raw = next(loader)
-            n = min(len(r.seeds), int(raw["valid"].sum()))
-            r.seeds = r.seeds[:n]
-            prefix = "sr_" if super_res else ""
-            src_raw = raw[prefix + "src_image"][:n]
-            tgt_raw = raw[prefix + "tgt_image"][:n]
-            geometry = torch.as_tensor(raw[prefix + "geometry"][:n], device=device)
-            src = encoder.encode_latents(src_raw, device=device)
-            if depth_model is not None:
-                # Depth of each source view, from its pixels.
-                flat_raw = torch.as_tensor(src_raw, device=device).flatten(0, 1)
-                flat = add_depth(depth_model, flat_raw, src.flatten(0, 1),
-                                 inv_norm=cfg.depth_input)
-                src = flat.reshape(src.shape[:2] + flat.shape[1:])
-            noise = seeded_normal(r.seeds, (imsize, imsize, cfg.img_channels), device)
-            # One stream per batch for the conditioning noise of an SR model.
-            gen = torch.Generator(device=device).manual_seed(fold_in(rng_seed, batch_idx))
+            with span("generate.prepare"):
+                n = min(len(r.seeds), int(raw["valid"].sum()))
+                r.seeds = r.seeds[:n]
+                prefix = "sr_" if super_res else ""
+                src_raw = raw[prefix + "src_image"][:n]
+                tgt_raw = raw[prefix + "tgt_image"][:n]
+                geometry = torch.as_tensor(raw[prefix + "geometry"][:n], device=device)
+                src = encoder.encode_latents(src_raw, device=device)
+                if depth_model is not None:
+                    # Depth of each source view, from its pixels.
+                    flat_raw = torch.as_tensor(src_raw, device=device).flatten(0, 1)
+                    flat = add_depth(depth_model, flat_raw, src.flatten(0, 1),
+                                     inv_norm=cfg.depth_input)
+                    src = flat.reshape(src.shape[:2] + flat.shape[1:])
+                noise = seeded_normal(r.seeds, (imsize, imsize, cfg.img_channels), device)
+                # One stream per batch for the conditioning noise of an SR model.
+                gen = torch.Generator(device=device).manual_seed(fold_in(rng_seed, batch_idx))
+                with torch.no_grad():
+                    cond = None
+                    if super_res:
+                        cond = down_up_resize(encoder.encode_latents(tgt_raw, device=device), 4)
+                    denoise = make_denoiser(net.net, src, geometry, conditioning_image=cond,
+                                            generator=gen)
+                    gden = None
+                    if use_gnet:
+                        # An unconditional gnet gets neither sources nor geometry.
+                        g_uncond = gnet.cfg.uncond
+                        gden = make_denoiser(gnet.net, None if g_uncond else src,
+                                             None if g_uncond else geometry)
             with torch.no_grad():
-                cond = None
-                if super_res:
-                    cond = down_up_resize(encoder.encode_latents(tgt_raw, device=device), 4)
-                denoise = make_denoiser(net.net, src, geometry, conditioning_image=cond,
-                                        generator=gen)
-                gden = None
-                if use_gnet:
-                    # An unconditional gnet gets neither sources nor geometry.
-                    g_uncond = gnet.cfg.uncond
-                    gden = make_denoiser(gnet.net, None if g_uncond else src,
-                                         None if g_uncond else geometry)
-                latents = edm_sampler(denoise, noise, gnet_denoise=gden,
-                                      guidance=guidance, seeds=r.seeds, **sampler_kwargs)
+                with span("generate.sample", evaluations=evaluations):
+                    latents = edm_sampler(denoise, noise, gnet_denoise=gden,
+                                          guidance=guidance, seeds=r.seeds, **sampler_kwargs)
                 r.src, r.tgt = src_raw[:, 0], tgt_raw
                 if sr_model is not None:
-                    latents = self._sr_stage(raw, n, r, latents, gen)
+                    with span("generate.sr", evaluations=evaluations):
+                        latents = self._sr_stage(raw, n, r, latents, gen)
             if tp_index != 0:   # the first rank of the group hands the images on
                 r.src = r.tgt = None
                 return r
             r.latents = latents
-            r.images = encoder.decode(latents)
+            with span("generate.decode"):
+                r.images = encoder.decode(latents)
             if outdir is not None:
-                for seed, _src, _tgt, image in zip(
-                        r.seeds, np.clip(r.src, 0, 255).astype(np.uint8),
-                        np.clip(r.tgt, 0, 255).astype(np.uint8), r.images):
-                    image_dir = (os.path.join(outdir, f"{seed // 1000 * 1000:06d}")
-                                 if subdirs else outdir)
-                    os.makedirs(image_dir, exist_ok=True)
-                    PIL.Image.fromarray(_src, "RGB").save(
-                        os.path.join(image_dir, f"src_{seed:06d}.png"))
-                    PIL.Image.fromarray(_tgt, "RGB").save(
-                        os.path.join(image_dir, f"tgt_{seed:06d}.png"))
-                    PIL.Image.fromarray(image, "RGB").save(
-                        os.path.join(image_dir, f"sample_{seed:06d}.png"))
+                with span("generate.png", files=3 * n):
+                    for seed, _src, _tgt, image in zip(
+                            r.seeds, np.clip(r.src, 0, 255).astype(np.uint8),
+                            np.clip(r.tgt, 0, 255).astype(np.uint8), r.images):
+                        image_dir = (os.path.join(outdir, f"{seed // 1000 * 1000:06d}")
+                                     if subdirs else outdir)
+                        os.makedirs(image_dir, exist_ok=True)
+                        PIL.Image.fromarray(_src, "RGB").save(
+                            os.path.join(image_dir, f"src_{seed:06d}.png"))
+                        PIL.Image.fromarray(_tgt, "RGB").save(
+                            os.path.join(image_dir, f"tgt_{seed:06d}.png"))
+                        PIL.Image.fromarray(image, "RGB").save(
+                            os.path.join(image_dir, f"sample_{seed:06d}.png"))
             return r
 
         def _sr_stage(self, raw, n, r, latents, gen):

@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from vivid_tpu_torch.core.trace import span
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -95,8 +97,13 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with every entry point's signature set."""
-    lib = ctypes.CDLL(build()["path"])
+    """The loaded kernel library with every entry point's signature set.
+    Loading it is the span `kernels.load` (`core/trace.py`): nvcc and the
+    `dlopen`, or with attribute `cached` the hash and the `dlopen` alone."""
+    with span("kernels.load") as load:
+        built = build()
+        load.attrs["cached"] = built["cached"]
+        lib = ctypes.CDLL(built["path"])
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vivid_flash_packed_fwd.argtypes = [
         ptr, ptr, ptr,                          # qkv, out, rows (scratch)

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from vivid_tpu_torch.core.trace import span
 from vivid_tpu_torch.geometry.warp import get_warped_features
 from vivid_tpu_torch.nn.mp import MPConv, MPFourier
 from vivid_tpu_torch.nn.unet import UNet, UNetConfig
@@ -192,7 +193,8 @@ class NVPrecond(nn.Module):
         elif cfg.uncond:
             features = "zeros"
         else:
-            features = self.encode_sources(src.to(dtype), c_noise, geometry, generator)
+            with span("net.encoder"):
+                features = self.encode_sources(src.to(dtype), c_noise, geometry, generator)
         if return_features:
             return features
 
@@ -208,8 +210,9 @@ class NVPrecond(nn.Module):
 
         src_geometries = ([geometry[:, i] for i in range(cfg.num_sources)]
                           if cfg.epipolar_attention_bias else None)
-        F_x = self.unet(x_in, c_noise, geometry.reshape(b, -1), features=features,
-                        generator=generator, src_geometries=src_geometries)
+        with span("net.denoiser"):
+            F_x = self.unet(x_in, c_noise, geometry.reshape(b, -1), features=features,
+                            generator=generator, src_geometries=src_geometries)
         D_x = c_skip * x + c_out * F_x.float()
         if return_logvar:
             logvar = self.logvar_linear(self.logvar_fourier(c_noise)).reshape(b, 1, 1, 1)

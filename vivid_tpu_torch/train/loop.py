@@ -61,6 +61,7 @@ from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.core.logger import Logger, format_time
 from vivid_tpu_torch.core.rngs import fold_in
 from vivid_tpu_torch.core.summary import count_params, flops_analysis, param_table
+from vivid_tpu_torch.core.trace import drain, span
 from vivid_tpu_torch.data.collate import BatchLoader, DualSourceCollate, VanillaCollate
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.diffusion.loss import NVLoss, SRNVLoss, down_up_resize
@@ -324,8 +325,6 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         except ImportError:
             pass
 
-    loader_wait = [0.0, 0]   # seconds blocked on the scene loader, rows fetched
-
     def with_depth(src, raw_src):
         """Source latents [B, S, H, W, C] with each view's predicted depth
         appended, from its pixels `raw_src`."""
@@ -337,10 +336,7 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
         return flat.reshape(src.shape[:2] + flat.shape[1:])
 
     def fetch_batch():
-        t0 = time.time()
         raw = next(loader)
-        loader_wait[0] += time.time() - t0
-        loader_wait[1] += len(raw["tgt_image"])
         if single_loader is not None:
             extra = next(single_loader)
             raw = {k: np.concatenate([raw[k], extra[k]], axis=0) for k in raw}
@@ -433,13 +429,13 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
             return False
         return cur // interval != prev // interval or cur == start_nimg == 0
 
-    # Reports left over by an earlier run in this process are not this run's.
+    # Reports and spans left over by an earlier run in this process are not this run's.
     stats_mod.default_collector.update()
     stats_mod.default_collector.as_dict()
+    drain()
     stats_jsonl = None
     ticks, pending = [], []
     steps_done = 0
-    cumulative_training_time = 0.0
     tick_start = time.time()
     prev_status_nimg = state.cur_nimg
     suspend_save = False   # set at a suspend tick: forces a checkpoint there
@@ -463,12 +459,17 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                 report0("Progress/iter", cur_nimg / nimg_per_step)
                 report0("Timing/total_sec", now - start_time)
                 report0("Timing/sec_per_tick", tick_time)
-                report0("Timing/sec_per_kimg", cumulative_training_time
+                # The tick's steps (fetch and dispatch) and their waits on the loaders.
+                finished = drain()
+                steps = {sp.id for sp in finished if sp.name == "train.step"}
+                waits = [sp for sp in finished if sp.name == "loader.wait" and sp.parent in steps]
+                training_time = sum(sp.seconds for sp in finished if sp.id in steps)
+                report0("Timing/sec_per_kimg", training_time
                         / max(cur_nimg - prev_status_nimg, 1) * 1e3)
-                report0("Timing/maintenance_sec", tick_time - cumulative_training_time)
-                report0("Timing/loader_wait_sec", loader_wait[0])
-                report0("Timing/loader_rows_per_s", loader_wait[1] / max(tick_time, 1e-9))
-                loader_wait[:] = [0.0, 0]
+                report0("Timing/maintenance_sec", tick_time - training_time)
+                report0("Timing/loader_wait_sec", sum(sp.seconds for sp in waits))
+                report0("Timing/loader_rows_per_s",
+                        sum(sp.attrs["rows"] for sp in waits) / max(tick_time, 1e-9))
                 report0("Resources/cpu_mem_gb",
                         resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
                 if device.type == "cuda":
@@ -503,7 +504,6 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
                         wandb_run.log({k.replace("/", "_"): v for k, v in items.items()},
                                       step=cur_nimg)
                 pending = []
-                cumulative_training_time = 0.0
                 prev_status_nimg = cur_nimg
                 tick_start = now
                 dist.update_progress(cur_nimg // 1000, stop_at_nimg // 1000)
@@ -536,23 +536,22 @@ def _train(run_dir, dataset_kwargs, test_dataset_path, encoder_kwargs, network_k
             if done:
                 break
 
-            batch_start = time.time()
-            batch = fetch_batch()
-            # One stream per step and rank, a function of (seed, nimg, rank) alone.
-            generator.manual_seed(fold_in(seed, cur_nimg) if world == 1
-                                  else fold_in(fold_in(seed, cur_nimg), rank))
-            if steps_done == 0:
-                # The start-up report of the JAX package's XLA cost analysis,
-                # counted as the first step runs (the count changes no bit).
-                counted = flops_analysis(step_fn, state, batch, generator)
-                pending.append(counted["result"])
-                print0(f"Train-step compute: {counted['flops'] / 1e9:.2f} GFLOPs "
-                       f"(FlopCounterMode's formulas and the kernels' counts: the products, "
-                       f"convolutions and attention of this process's step)")
-            else:
-                pending.append(step_fn(state, batch, generator))
-            steps_done += 1
-            cumulative_training_time += time.time() - batch_start
+            with span("train.step", nimg=cur_nimg):
+                batch = fetch_batch()
+                # One stream per step and rank, a function of (seed, nimg, rank) alone.
+                generator.manual_seed(fold_in(seed, cur_nimg) if world == 1
+                                      else fold_in(fold_in(seed, cur_nimg), rank))
+                if steps_done == 0:
+                    # The start-up report of the JAX package's XLA cost analysis,
+                    # counted as the first step runs (the count changes no bit).
+                    counted = flops_analysis(step_fn, state, batch, generator)
+                    pending.append(counted["result"])
+                    print0(f"Train-step compute: {counted['flops'] / 1e9:.2f} GFLOPs "
+                           f"(FlopCounterMode's formulas and the kernels' counts: the products, "
+                           f"convolutions and attention of this process's step)")
+                else:
+                    pending.append(step_fn(state, batch, generator))
+                steps_done += 1
             if pbar is not None:
                 pbar.update(nimg_per_step)
     finally:
