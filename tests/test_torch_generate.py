@@ -1,15 +1,20 @@
 """The port's sampling slice as a whole against vivid_tpu (CPU, tiny):
 collate, snapshots in both directions, sampler + decode on one collated
-batch, the PNG writer, and the port running with JAX and vivid_tpu absent."""
+batch, the PNG writer and its thread, and the port running with JAX and
+vivid_tpu absent."""
 
 import dataclasses
+import io
 import os
 import subprocess
 import sys
 import textwrap
+import threading
+import time
 
 import jax
 import numpy as np
+import PIL.Image
 import pytest
 import torch
 
@@ -19,6 +24,8 @@ from vivid_tpu.data.encoders import StandardRGBEncoder as JEncoder
 from vivid_tpu.diffusion import sampler as jsampler
 from vivid_tpu.nn import precond as jprecond
 from vivid_tpu.train import snapshots as jsnapshots
+from vivid_tpu_torch import generate as generate_mod
+from vivid_tpu_torch.core.easydict import EasyDict
 from vivid_tpu_torch.data import collate, scenes
 from vivid_tpu_torch.data.encoders import StandardRGBEncoder
 from vivid_tpu_torch.diffusion import sampler
@@ -158,6 +165,157 @@ def test_generate_writes_triplets(env, monkeypatch):
     with pytest.raises(FileNotFoundError, match="metric_hypersim_vits.pth"):
         generate_images_nvs(net=env["snap"], datakwargs={"path": env["data"]},
                             depth_model="small", verbose=False, device="cpu")
+
+
+# -- the PNG writer thread ---------------------------------------------------------------
+
+class Stop(Exception):
+    pass
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    """A tiny 16px net (built in the port, no snapshot) and a scene tree
+    with enough scenes for three batches of two."""
+    cfg = PrecondConfig(img_resolution=16, **TINY)
+    net = EasyDict(net=NVPrecond(cfg, seed=3).eval().requires_grad_(False), cfg=cfg)
+    data = scenes.make_synthetic_dataset(str(tmp_path_factory.mktemp("writer") / "scenes"),
+                                         num_scenes=4, num_views=6, imsize=16)
+    return net, data
+
+
+def _iterate(small, outdir, seeds, **kw):
+    net, data = small
+    return iter(generate_images_nvs(net, outdir=outdir, seeds=seeds, max_batch_size=2,
+                                    datakwargs={"path": data}, num_steps=2, verbose=False,
+                                    device="cpu", **kw))
+
+
+def _writers():
+    return [t for t in threading.enumerate() if t.name.startswith("vivid-png")]
+
+
+@pytest.fixture
+def slow_writes(monkeypatch):
+    """PIL's PNG save made slow, so that writes are still in flight when the
+    sampling thread moves on."""
+    save = PIL.Image.Image.save
+
+    def slow(self, *args, **kwargs):
+        time.sleep(0.2)
+        return save(self, *args, **kwargs)
+    monkeypatch.setattr(PIL.Image.Image, "save", slow)
+
+
+def _png_bytes(array):
+    buf = io.BytesIO()
+    PIL.Image.fromarray(array, "RGB").save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _whole(outdir, batch):
+    """The batch's three files a seed are on disk, each the synchronous PIL
+    write of the yielded arrays, byte for byte."""
+    arrays = zip(np.clip(batch.src, 0, 255).astype(np.uint8),
+                 np.clip(batch.tgt, 0, 255).astype(np.uint8), batch.images)
+    for seed, (src, tgt, image) in zip(batch.seeds, arrays):
+        for prefix, array in (("src", src), ("tgt", tgt), ("sample", image)):
+            with open(os.path.join(outdir, f"{prefix}_{seed:06d}.png"), "rb") as f:
+                if f.read() != _png_bytes(array):
+                    return False
+    return True
+
+
+def test_writer_pngs_are_the_synchronous_writes_and_all_on_disk_at_the_end(small, tmp_path,
+                                                                            slow_writes):
+    outdir = str(tmp_path / "out")
+    got = []
+    for batch in _iterate(small, outdir, range(5)):
+        # a batch is yielded once the batch before it is on disk
+        assert all(_whole(outdir, b) for b in got)
+        assert len(_writers()) == 1
+        got.append(EasyDict(batch, images=batch.images.copy()))
+        batch.images[:] = 0        # a caller's change to the yielded arrays reaches no file
+    assert [len(b.seeds) for b in got] == [2, 2, 1]
+    assert len(os.listdir(outdir)) == 3 * 5
+    assert all(b.images.std() > 0 and _whole(outdir, b) for b in got)
+    assert _writers() == []
+
+
+def test_close_in_the_middle_of_a_run_leaves_every_yielded_batch_on_disk(small, tmp_path,
+                                                                           slow_writes):
+    outdir = str(tmp_path / "out")
+    it = _iterate(small, outdir, range(6))
+    first, second = next(it), next(it)
+    images = [first.images.copy(), second.images.copy()]
+    it.close()
+    assert _writers() == []
+    assert sorted(os.listdir(outdir)) == sorted(
+        f"{p}_{s:06d}.png" for s in range(4) for p in ("src", "tgt", "sample"))
+    first.images, second.images = images
+    assert _whole(outdir, first) and _whole(outdir, second)
+
+
+@pytest.mark.parametrize("where", ["next_batch", "close", "end"])
+def test_a_writer_error_is_raised_on_the_sampling_thread(small, tmp_path, where):
+    """`outdir` a regular file: the writer's makedirs fails, and the error
+    comes out of the generator at the next batch, at close or at its end."""
+    outdir = tmp_path / "taken"
+    outdir.write_text("")
+    it = _iterate(small, str(outdir), range(4 if where == "next_batch" else 2))
+    first = next(it)
+    assert first.images.shape == (2, 16, 16, 3)
+    with pytest.raises(FileExistsError):
+        if where == "next_batch":
+            next(it)
+        elif where == "close":
+            it.close()
+        else:
+            next(it)
+    assert _writers() == []
+    assert next(it, None) is None                # the generator has ended
+
+
+@pytest.mark.parametrize("writer_fails", [False, True])
+def test_a_sampling_error_leaves_the_batch_before_whole(small, tmp_path, slow_writes,
+                                                        writer_fails):
+    """Sampling fails in batch 1 while batch 0's PNGs are being written: the
+    sampling error comes out, after batch 0's PNGs are on disk; a writer
+    that failed too is chained to it, not raised in its place."""
+    net, _ = small
+    outdir = tmp_path / "out"
+    if writer_fails:
+        outdir.write_text("")
+    calls = []
+
+    def stop_in_the_second_batch(module, args):
+        calls.append(1)
+        if len(calls) > 3:                        # 2 steps: 3 evaluations a batch
+            raise Stop
+    handle = net.net.register_forward_pre_hook(stop_in_the_second_batch)
+    try:
+        it = _iterate(small, str(outdir), range(4))
+        first = next(it)
+        with pytest.raises(Stop) as raised:
+            next(it)
+    finally:
+        handle.remove()
+    assert _writers() == []
+    if writer_fails:
+        assert isinstance(raised.value.__context__, FileExistsError)
+        assert "PNG writer failed" in "".join(raised.value.__notes__)
+    else:
+        assert raised.value.__context__ is None
+        assert len(os.listdir(outdir)) == 6 and _whole(str(outdir), first)
+
+
+def test_no_writer_thread_without_outdir(small, monkeypatch):
+    started = []
+    monkeypatch.setattr(generate_mod, "ThreadPoolExecutor",
+                        lambda *a, **k: started.append(1))
+    for batch in _iterate(small, None, range(3)):
+        assert batch.images.shape[1:] == (16, 16, 3) and _writers() == []
+    assert started == []
 
 
 def test_port_runs_without_jax(tmp_path):

@@ -30,7 +30,7 @@ TINY = dict(img_resolution=16, model_channels=16, channel_mult=(1, 2), num_block
 PATH_RANGES = ("sampler.step", "sampler.eval:net", "sampler.eval:guide", "net.encoder",
                "net.denoiser")
 BATCH_PARTS = ["loader.wait", "generate.prepare", "generate.sample", "generate.decode",
-               "generate.png", "generate.barrier"]
+               "generate.png_wait", "generate.barrier"]     # the sampling thread's
 ALL_SPANS = SimpleNamespace(t_start=0.0)     # a run that reads every span held
 READERS = ("between_batches_ms.sample", "loader_wait_ms.sample", "first_batch_s.setup")
 
@@ -106,6 +106,46 @@ def test_the_decorator_makes_a_span_a_call_and_threads_keep_their_own_stacks():
     assert len([g for g in got if g[0] == "work"]) == 2
 
 
+def test_a_span_on_another_thread_takes_the_parent_it_names():
+    """`parent=` gives a span opened on an empty stack its parent and root;
+    the thread's own stack wins over it, and the span may end after its
+    parent."""
+    drain()
+    ready, release = threading.Event(), threading.Event()
+
+    def work(root):
+        with span("handed", parent=root, files=2) as handed:
+            ready.set()
+            release.wait(timeout=30)
+            with span("inside") as inside:
+                pass
+        with span("after", parent=root) as after:
+            with span("own", parent=root) as own:
+                pass
+        seen.extend([handed, inside, after, own, threading.get_ident()])
+
+    seen = []
+    with span("root") as root:
+        t = threading.Thread(target=work, args=(root,))
+        t.start()
+        assert ready.wait(timeout=30)
+    release.set()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    handed, inside, after, own, thread = seen
+    assert root.parent is None and root.root == root.id
+    assert handed.parent == root.id and handed.root == root.id and handed.attrs == {"files": 2}
+    assert handed.thread == thread != root.thread
+    assert inside.parent == handed.id and inside.root == root.id
+    assert after.parent == root.id and own.parent == after.id and own.root == root.id
+    assert root.end < handed.end                     # it outlived its parent
+    assert {s.id for s in drain()} == {s.id for s in (root, handed, inside, after, own)}
+    with span("free") as free:                       # this thread's stack is empty again
+        pass
+    assert free.parent is None and free.root == free.id
+    drain()
+
+
 def test_the_recorder_is_bounded_and_drain_empties_it(monkeypatch):
     monkeypatch.setattr(trace_mod, "_finished", trace_mod.collections.deque(maxlen=5))
     for i in range(8):
@@ -178,6 +218,7 @@ def test_each_batch_is_a_root_over_its_parts_in_order(data, tmp_path):
                                    seeds=range(3), max_batch_size=2,
                                    datakwargs={"path": data}, num_steps=2, verbose=False,
                                    device="cpu"))
+    done = time.perf_counter_ns()                # the generator's iteration has returned
     recorded = drain()
     roots = sorted((s for s in recorded if s.name == "generate.batch"), key=lambda s: s.start)
     assert [len(r.seeds) for r in got] == [2, 1]
@@ -186,15 +227,20 @@ def test_each_batch_is_a_root_over_its_parts_in_order(data, tmp_path):
     assert {r.attrs["num_steps"] for r in roots} == {2} and len({r.attrs["call"] for r in roots}) == 1
     for root, rows in zip(roots, (2, 1)):
         assert root.parent is None and root.root == root.id and root.error is None
-        parts = sorted((s for s in recorded if s.parent == root.id), key=lambda s: s.start)
+        parts = sorted((s for s in recorded if s.parent == root.id and s.thread == root.thread),
+                       key=lambda s: s.start)
         assert [s.name for s in parts] == BATCH_PARTS
         assert all(s.error is None for s in parts)
         assert all(a.end <= b.start for a, b in zip(parts, parts[1:]))
         assert root.start <= parts[0].start and parts[-1].end <= root.end
         named = {s.name: s for s in parts}
         assert named["generate.sample"].attrs == {"evaluations": 3}
-        assert named["generate.png"].attrs == {"files": 3 * rows}
         assert named["loader.wait"].attrs == {"rows": 2}
+        # the PNGs: written on the writer thread under the batch's root, after its decode
+        (png,) = [s for s in recorded if s.name == "generate.png" and s.root == root.id]
+        assert png.parent == root.id and png.thread != root.thread and png.error is None
+        assert png.attrs == {"files": 3 * rows, "batch_idx": root.attrs["batch_idx"]}
+        assert named["generate.decode"].end <= png.start <= png.end <= done
         # the sampler's steps and evaluations sit under the batch's sample span
         below = [s for s in recorded if s.root == root.id and s.parent not in (None, root.id)]
         steps = [s for s in below if s.name == "sampler.step"]

@@ -15,7 +15,11 @@ function) on the host's monotonic clock: its name, start and end
 (`time.perf_counter_ns()`), thread, id, the id of the span it opened in
 (one stack a thread) and the id of its root. The spans of one unit of work,
 one batch of samples or one training step, share the root's id, and counts
-ride on them as attributes. A span that ends by an exception carries the
+ride on them as attributes. Work handed to another thread names its span's
+parent (`span(..., parent=root)`): opened on an empty stack, the span takes
+that parent and its root, and may end after its root does (the sampling
+entry's `generate.png`, written on a writer thread while the next batch
+samples). A span that ends by an exception carries the
 exception's type name in `error`. Finished spans go into a bounded deque in
 memory (`MAX_SPANS`, the oldest dropped first): `spans()` lists them and
 `drain()` takes them out. Nothing is written to disk.
@@ -59,10 +63,10 @@ class Span:
     is entered once; as a decorator it makes a fresh one for each call."""
 
     __slots__ = ("name", "attrs", "start", "end", "id", "parent", "root", "thread", "error",
-                 "_range")
+                 "_outer", "_range")
 
-    def __init__(self, name: str, attrs: dict):
-        self.name, self.attrs = name, attrs
+    def __init__(self, name: str, attrs: dict, parent: Optional["Span"] = None):
+        self.name, self.attrs, self._outer = name, attrs, parent
         self.start = self.end = None          # ns, time.perf_counter_ns()
         self.id = self.parent = self.root = self.thread = None
         self.error: Optional[str] = None
@@ -71,13 +75,13 @@ class Span:
     def __call__(self, fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
-            with Span(self.name, dict(self.attrs)):
+            with Span(self.name, dict(self.attrs), self._outer):
                 return fn(*args, **kwargs)
         return wrapper
 
     def __enter__(self):
         stack = _stack()
-        outer = stack[-1] if stack else None
+        outer = stack[-1] if stack else self._outer
         self.id = next(_ids)
         self.parent = outer.id if outer is not None else None
         self.root = outer.root if outer is not None else self.id
@@ -113,10 +117,12 @@ class Span:
                 f"attrs={self.attrs}, error={self.error})")
 
 
-def span(name: str, **attrs) -> Span:
+def span(name: str, parent: Optional[Span] = None, **attrs) -> Span:
     """A span `name` with counts `attrs` (a context manager or a decorator);
-    the span's `attrs` may be added to while it is open."""
-    return Span(name, attrs)
+    the span's `attrs` may be added to while it is open. `parent`, an
+    entered span, is its parent where this thread has no open span (work
+    handed to another thread)."""
+    return Span(name, attrs, parent)
 
 
 def spans() -> List[Span]:

@@ -40,16 +40,28 @@ passed in stay split). Only the first rank of a group writes PNGs and hands
 images on; the others yield rows without images, as a rank without seeds
 does.
 
+PNGs are written on one writer thread a call, so that a batch's PNGs are
+written while the card samples the next batch. At most one batch is in
+the writer's hands: a batch is yielded only once the PNGs of the batch
+before it are on disk, and the iteration's end, `close()` or an exception
+waits for the last batch's. A writer's error is raised on the sampling
+thread, at the next batch or at the end; where sampling failed too, the
+sampling error is raised and the writer's is chained to it.
+
 Each batch is a root span `generate.batch` (`core/trace.py`; attributes
 `batch_idx`, `rows`, `num_steps` and `call`, the id of this call) over the
-spans of its parts: `loader.wait`, `generate.prepare` (inputs encoded, noise,
-conditioning, the denoisers bound), `generate.sample` (the sampler's host
-time; `generate.sr` for the cascade's SR stage), `generate.decode` (its copy
-to the host waits for the card), `generate.png` and `generate.barrier`.
+spans of its parts on the sampling thread: `loader.wait`, `generate.prepare`
+(inputs encoded, noise, conditioning, the denoisers bound), `generate.sample`
+(the sampler's host time; `generate.sr` for the cascade's SR stage),
+`generate.decode` (its copy to the host waits for the card),
+`generate.png_wait` (the wait for the batch before's PNGs; with `outdir`)
+and `generate.barrier`. The writer thread's `generate.png` (`files`,
+`batch_idx`) is under the same root and ends after it.
 """
 
 import itertools
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -172,16 +184,41 @@ def generate_images_nvs(
             loader = BatchLoader(
                 iter(dataset), collate_cls(base_size, sr_size=sr_size, seed=rng_seed),
                 batch_size=max_batch_size, prefetch=2, num_threads=2)
+            writer = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="vivid-png")
+                      if outdir is not None and tp_index == 0 else None)
+            written = None          # the writer's future of the last batch handed to it
+            failure = None
             try:
                 for batch_idx, indices in enumerate(batches):
                     with span("generate.batch", batch_idx=batch_idx, rows=len(indices),
-                              num_steps=num_steps, call=call):
-                        r = self._batch(loader, batch_idx, indices)
+                              num_steps=num_steps, call=call) as root:
+                        r, pngs = self._batch(loader, batch_idx, indices)
+                        if writer is not None:
+                            with span("generate.png_wait"):
+                                done, written = written, None
+                                if done is not None:
+                                    done.result()
+                            if pngs is not None:
+                                written = writer.submit(self._write, root, batch_idx, *pngs)
                         with span("generate.barrier"):
                             dist.barrier("gen-batch")
                     yield r
+            except BaseException as e:
+                failure = e
+                raise
             finally:
                 loader.close()
+                if writer is not None:
+                    try:
+                        if written is not None:
+                            written.result()
+                    except Exception as write_error:
+                        if failure is None or isinstance(failure, GeneratorExit):
+                            raise
+                        failure.__context__ = failure.__context__ or write_error
+                        failure.add_note(f"The PNG writer failed too: {write_error!r}")
+                    finally:
+                        writer.shutdown()
 
         def _batch(self, loader, batch_idx, indices):
             r = EasyDict(images=None, latents=None, src=None, tgt=None, labels=None,
@@ -189,7 +226,7 @@ def generate_images_nvs(
                          num_batches=len(batches), indices=indices,
                          seeds=[seeds[int(i)] for i in indices])
             if not r.seeds:
-                return r
+                return r, None
             raw = next(loader)
             with span("generate.prepare"):
                 n = min(len(r.seeds), int(raw["valid"].sum()))
@@ -230,25 +267,30 @@ def generate_images_nvs(
                         latents = self._sr_stage(raw, n, r, latents, gen)
             if tp_index != 0:   # the first rank of the group hands the images on
                 r.src = r.tgt = None
-                return r
+                return r, None
             r.latents = latents
             with span("generate.decode"):
                 r.images = encoder.decode(latents)
-            if outdir is not None:
-                with span("generate.png", files=3 * n):
-                    for seed, _src, _tgt, image in zip(
-                            r.seeds, np.clip(r.src, 0, 255).astype(np.uint8),
-                            np.clip(r.tgt, 0, 255).astype(np.uint8), r.images):
-                        image_dir = (os.path.join(outdir, f"{seed // 1000 * 1000:06d}")
-                                     if subdirs else outdir)
-                        os.makedirs(image_dir, exist_ok=True)
-                        PIL.Image.fromarray(_src, "RGB").save(
-                            os.path.join(image_dir, f"src_{seed:06d}.png"))
-                        PIL.Image.fromarray(_tgt, "RGB").save(
-                            os.path.join(image_dir, f"tgt_{seed:06d}.png"))
-                        PIL.Image.fromarray(image, "RGB").save(
-                            os.path.join(image_dir, f"sample_{seed:06d}.png"))
-            return r
+            if outdir is None:
+                return r, None
+            # The writer's own arrays: a caller that changes the yielded ones
+            # cannot change the files.
+            return r, (list(r.seeds), np.clip(r.src, 0, 255).astype(np.uint8),
+                       np.clip(r.tgt, 0, 255).astype(np.uint8), np.array(r.images))
+
+        def _write(self, root, batch_idx, seeds, src, tgt, images):
+            """A batch's PNGs, on the writer thread, under the batch's root span."""
+            with span("generate.png", parent=root, files=3 * len(seeds), batch_idx=batch_idx):
+                for seed, _src, _tgt, image in zip(seeds, src, tgt, images):
+                    image_dir = (os.path.join(outdir, f"{seed // 1000 * 1000:06d}")
+                                 if subdirs else outdir)
+                    os.makedirs(image_dir, exist_ok=True)
+                    PIL.Image.fromarray(_src, "RGB").save(
+                        os.path.join(image_dir, f"src_{seed:06d}.png"))
+                    PIL.Image.fromarray(_tgt, "RGB").save(
+                        os.path.join(image_dir, f"tgt_{seed:06d}.png"))
+                    PIL.Image.fromarray(image, "RGB").save(
+                        os.path.join(image_dir, f"sample_{seed:06d}.png"))
 
         def _sr_stage(self, raw, n, r, latents, gen):
             """Sample the SR model on the base latents upsampled to its
