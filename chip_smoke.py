@@ -200,6 +200,11 @@ TP_PACKED_SHAPES = [(1024, 1, 64, 2), (1024, 2, 64, 2), (1024, 3, 64, 2), (256, 
 TP_NOMAX_SHAPES = [(16384, 32768, 2, 32), (16384, 16384, 1, 64), (4096, 8192, 3, 32)]
 SR_PER_EVAL = {"flash_nomax": 8, "flash_fused_packed": 3, "flash_fused_packed_xattn": 3}
 SR_PER_EVAL_NOMAX = {"flash_nomax": 8, "flash_nomax_packed": 6}   # VIVID_NOMAX_PACKED=1
+# The blocks' fused elementwise kernels (kernels/mp_fused.py), held to their
+# plain versions in `_check_mp_fused` at these [B, H, W, C]: the 256px
+# model's four levels at 32 rows, then a 64px one's widest level.
+MP_SHAPES = [(32, 256, 256, 64), (32, 128, 128, 128), (32, 64, 64, 192), (32, 32, 32, 256),
+             (32, 8, 8, 512)]
 SHELL_CUBLAS_WORKSPACE = ":4096:8"   # cuBLAS's deterministic workspace, for the shell phase
 BATCH = 8
 TICK_IMAGES = 25   # the metrics tick's images in the smoke (the trainer's 100, cut for time)
@@ -218,6 +223,44 @@ TOL_DEPTH = 1e-4       # relative L2 of a DepthAnythingV2 depth map, fp32 on the
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def _mp_per_eval(*cfgs):
+    """Launches of the blocks' fused elementwise kernels in one evaluation,
+    autograd off, of each NVPrecond config (its denoiser and its encoder):
+    a norm an encoder block, a concatenation a decoder block after a skip, a
+    scale a block, a sum a block and one more a block that attends."""
+    from vivid_tpu_torch.nn.unet import build_plan
+    out = {}
+    for cfg in cfgs:
+        for ucfg in (cfg.unet_cfg, cfg.encoder_cfg):
+            enc, dec = build_plan(ucfg) if ucfg is not None else ((), ())
+            for e in [e for e in (*enc, *dec) if e.block is not None]:
+                for name, n in (("mp_norm_silu", e.block.flavor == "enc"),
+                                ("mp_cat_silu", e.name.startswith("dec/") and "_block" in e.name),
+                                ("mp_scale_silu", 1),
+                                ("mp_sum_clip", 1 + (e.block.num_heads > 0))):
+                    if n:
+                        out[name] = out.get(name, 0) + int(n)
+    return out
+
+
+def _cat_widths(ucfg):
+    """(resolution, Ca, Cb) of each concatenation before a decoder block of
+    the U-Net `ucfg`: the running activation's channels and the skip's."""
+    from vivid_tpu_torch.nn.unet import build_plan
+    enc, dec = build_plan(ucfg)
+    out, prev = [], enc[-1].out_channels
+    for e in dec:
+        if "_block" in e.name:
+            out.append((e.res, prev, e.in_channels - prev))
+        prev = e.out_channels
+    return out
+
+
+def _sr_per_eval(nomax=False):
+    """Kernel launches of one full-width vivid-sr evaluation, autograd off."""
+    return {**(SR_PER_EVAL_NOMAX if nomax else SR_PER_EVAL), **_mp_per_eval(_sr_config())}
 
 
 def say(tag, **kw):
@@ -926,6 +969,190 @@ def _check_fused_norm(torch, gen):
         del q, k, v
 
 
+def _check_mp_fused(torch, gen):
+    """The blocks' fused elementwise kernels (kernels/mp_fused.py, through
+    their entries with autograd off) against their plain versions, the
+    composites, on the card at MP_SHAPES in bf16 and once in fp32. Every
+    bf16 output within one ulp (`_bf16_ulps`) of the plain version's: the
+    norm's xn of `normalize`'s (its denominator stays fp32, the composite
+    rounds it), its mp_silu of `mp_silu` of the kernel's own xn (a SiLU
+    magnifies a one-ulp difference of its input several times: the gap to
+    the whole composite is printed beside); the other three round where the
+    composites round. fp32 outputs within 1e-6 of the largest plain value.
+    Two runs give the same bits; one launch a call. No instance spills to
+    local memory (plain SIMT kernels: no wgmma or TMA to look for). Times,
+    the kernel against the composite: one call by CUDA events (the host's
+    dispatch included, which the small shapes show) and the card's own time
+    (torch.profiler), from which the achieved rate; bound: the kernel's
+    bytes (each input read once, each output written once) over the memory
+    rate, printed only where those bytes exceed the L2 cache (a smaller
+    case stays in L2 across the repeated calls, and no HBM bound holds it);
+    `plain_bytes` counts the composite's passes, operator by operator.
+    Then the concatenation at every (Ca, Cb) that the decoders of vivid-sr,
+    vivid-base and vivid-uncond join (`_cat_widths`), at BATCH rows: parts
+    of unequal widths take their own branch of the kernel's indexing."""
+    from vivid_tpu_torch.kernels import flash, mp_fused
+    from vivid_tpu_torch.nn.mp import mp_silu
+    l2_bytes = torch.cuda.get_device_properties(0).L2_cache_size
+
+    kinds = ("norm_silu", "scale_silu", "sum_clip", "cat_silu")
+    for dtype in (torch.bfloat16, torch.float32):
+        for kind in kinds:
+            for ch in (64, 128, 192, 256, 320, 384, 448, 512, 1024):
+                if kind != "norm_silu" and ch > 64 or dtype == torch.float32 and ch > 512:
+                    continue
+                built = mp_fused.info(kind, dtype, ch)
+                check(built["local_bytes"] == 0, f"mp_{kind} {dtype} C={ch} spills: {built}")
+                say("kernel", name=f"mp_{kind}", dtype=str(dtype).split(".")[-1], channels=ch,
+                    **built)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    cases = [(shape, torch.bfloat16) for shape in MP_SHAPES] + [((32, 64, 64, 128), torch.float32)]
+    for (b, h, w, c), dtype in cases:
+        n, size = b * h * w * c, torch.finfo(dtype).bits // 8
+        x = (rand(b, h, w, c) * torch.exp(rand(b, h, w, 1))).to(dtype)
+        y, cvec = rand(b, h, w, c, scale=3.0).to(dtype), 1 + rand(b, c)
+        a, b2 = (rand(b, h, w, c, scale=100.0).to(dtype) for _ in range(2))
+        calls = {   # kind: (kernel, plain, kernel bytes, composite bytes)
+            "norm_silu": (lambda: mp_fused.norm_silu(x), lambda: mp_fused.norm_silu_ref(x),
+                          3 * n * size, 30 * n if size == 2 else 36 * n),
+            "scale_silu": (lambda: mp_fused.scale_silu(y, cvec),
+                           lambda: mp_fused.scale_silu_ref(y, cvec), 2 * n * size + 4 * b * c,
+                           6 * n * size),
+            "sum_clip": (lambda: mp_fused.mp_sum_clip(a, b2, 0.3, 256.0),
+                         lambda: mp_fused.mp_sum_clip_ref(a, b2, 0.3, 256.0), 3 * n * size,
+                         12 * n * size),
+            "cat_silu": (lambda: mp_fused.cat_silu(x, y, 0.5),
+                         lambda: mp_fused.cat_silu_ref(x, y, 0.5), 6 * n * size,
+                         16 * n * size),
+        }
+        label = f"'[{b}, {h}, {w}, {c}] {str(dtype).split('.')[-1]}'"
+        for kind, (kernel, plain, nbytes, plain_bytes) in calls.items():
+            with torch.no_grad():
+                before = dict(flash.launches)
+                got = kernel()
+                launched = {k: v - before[k] for k, v in flash.launches.items() if v != before[k]}
+                again = kernel()
+                want = plain()
+            got, again, want = ((t,) if torch.is_tensor(t) else t for t in (got, again, want))
+            torch.cuda.synchronize()
+            check(launched == {f"mp_{kind}": 1}, f"mp_{kind} {label}: launched {launched}")
+            check(all(torch.equal(g, a2) for g, a2 in zip(got, again)),
+                  f"mp_{kind} {label}: two runs differ")
+            if kind == "norm_silu":
+                with torch.no_grad():
+                    composite = want[1]
+                    want = (want[0], mp_silu(got[0]))
+            extra = {}
+            if dtype == torch.bfloat16:
+                gaps = [_bf16_ulps(g, w_).max().item() for g, w_ in zip(got, want)]
+                check(max(gaps) <= 1, f"mp_{kind} {label}: {gaps} bf16 ulps from the plain "
+                      "version (limit 1)")
+                extra["max_ulp"] = gaps
+                extra["share_off_by_one"] = [f"{(_bf16_ulps(g, w_) == 1).float().mean().item():.3e}"
+                                             for g, w_ in zip(got, want)]
+                if kind == "norm_silu":
+                    u = _bf16_ulps(got[1], composite)
+                    extra.update(silu_vs_composite_max_ulp=u.max().item(),
+                                 silu_vs_composite_over_1=f"{(u > 1).float().mean().item():.3e}")
+            else:
+                rel = max(((g - w_).abs().max() / w_.abs().max()).item()
+                          for g, w_ in zip(got, want))
+                check(rel <= 1e-6, f"mp_{kind} {label}: max error {rel} of the largest value")
+                extra["max_err_over_max"] = f"{rel:.3e}"
+            del got, again, want
+            with torch.no_grad():
+                ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+                dev_ms, plain_dev_ms = (
+                    sum(float(v) for v in _device_ms_by_kernel(torch, fn, key).values())
+                    for fn, key in ((kernel, "mp_"), (plain, "")))
+            if nbytes > l2_bytes:
+                extra.update(bound_ms=f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f}", bound_by="bytes",
+                             share_of_hbm=f"{nbytes / dev_ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.3f}")
+            else:
+                extra["l2_resident"] = True
+            say("kernel", name=f"mp_{kind}", case=label, **extra, ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", device_ms=f"{dev_ms:.4f}",
+                plain_device_ms=f"{plain_dev_ms:.4f}", bytes=nbytes, plain_bytes=plain_bytes,
+                tb_per_s=f"{nbytes / dev_ms / 1e9:.3f}",
+                plain_tb_per_s=f"{plain_bytes / plain_dev_ms / 1e9:.3f}")
+        del x, y, cvec, a, b2
+        torch.cuda.empty_cache()
+
+    widths = sorted({w for cfg in (_sr_config(), _full_width_config(False),
+                                   _full_width_config(True))
+                     for ucfg in (cfg.unet_cfg, cfg.encoder_cfg) if ucfg is not None
+                     for w in _cat_widths(ucfg)})
+    for res, ca, cb in widths:
+        a = rand(BATCH, res, res, ca).to(torch.bfloat16)
+        b2 = rand(BATCH, res, res, cb, scale=3.0).to(torch.bfloat16)
+        with torch.no_grad():
+            before = dict(flash.launches)
+            got = mp_fused.cat_silu(a, b2, 0.5)
+            launched = {k: v - before[k] for k, v in flash.launches.items() if v != before[k]}
+            want = mp_fused.cat_silu_ref(a, b2, 0.5)
+        label = f"'[{BATCH}, {res}, {res}, {ca}+{cb}] bfloat16'"
+        gaps = [_bf16_ulps(g, w_).max().item() for g, w_ in zip(got, want)]
+        check(launched == {"mp_cat_silu": 1}, f"mp_cat_silu {label}: launched {launched}")
+        check(max(gaps) <= 1, f"mp_cat_silu {label}: {gaps} bf16 ulps from the plain version "
+              "(limit 1)")
+        say("kernel", name="mp_cat_silu", case=label, max_ulp=gaps,
+            bitwise=all(torch.equal(g, w_) for g, w_ in zip(got, want)))
+        del a, b2, got, want
+
+
+def phase_mp_fused():
+    """`_check_mp_fused` alone."""
+    import torch
+    _check_mp_fused(torch, torch.Generator(device="cuda").manual_seed(12))
+
+
+def phase_launches(card):
+    """What the card runs in one evaluation with autograd off, full-width
+    vivid-sr and vivid-base guided by vivid-uncond (64px), batch 8: device
+    kernels counted by torch.profiler (memory copies and sets apart), their
+    busy ms, and the port's own launches (`flash.launches`). It reads
+    nothing that a port without the fused kernels lacks, so
+    `smoke_phase.py launches --port DIR` gives another checkout's counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vivid_tpu_torch.kernels import flash
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    sr, base, gnet = _full_width_sr(), _full_width(False), _full_width(True)
+    sigma = torch.ones(BATCH, device="cuda")
+    sr_args = (rand(BATCH, 1, 256, 256, 3).clamp(-1, 1), rand(BATCH, 256, 256, 3), sigma,
+               rand(BATCH, 1, 20))
+    sr_kw = dict(conditioning_image=rand(BATCH, 256, 256, 3).clamp(-1, 1),
+                 cond_noise=rand(BATCH, 256, 256, 3))
+    base_args = (rand(BATCH, 2, 64, 64, 3).clamp(-1, 1), rand(BATCH, 64, 64, 3), sigma,
+                 rand(BATCH, 2, 20))
+    evaluations = {"vivid-sr": lambda: sr(*sr_args, **sr_kw),
+                   "vivid-base_guided": lambda: (base(*base_args), gnet(*base_args))}
+    for label, evaluation in evaluations.items():
+        with torch.no_grad():
+            evaluation()
+            torch.cuda.synchronize()
+            before = dict(flash.launches)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                evaluation()
+                torch.cuda.synchronize()
+        port = {k: n - before[k] for k, n in flash.launches.items() if n != before[k]}
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))]
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        check(kernels, f"{label}: the profiler saw no kernel")
+        say("launches", evaluation=label, batch=BATCH, device_kernels=len(kernels),
+            device_busy_ms=f"{busy_ms:.3f}", port_launches=port, card=f"'{card}'")
+    del sr, base, gnet
+    torch.cuda.empty_cache()
+
+
 def _built(name, case):
     """What K8's, K6's, K5's, K1/K2's, K3/K4's, K7's, K9's and K10's kernels
     were built with, for their `kernel` lines: registers a thread at launch
@@ -1222,6 +1449,7 @@ def phase_kernels(table):
     _check_ring_faults(torch, torch.Generator(device="cuda").manual_seed(9))
     _check_fused_norm(torch, torch.Generator(device="cuda").manual_seed(10))
     _check_conv_faults(torch, torch.Generator(device="cuda").manual_seed(11))
+    _check_mp_fused(torch, torch.Generator(device="cuda").manual_seed(12))
     for case in (_kernel_cases(torch, gen) + _big_s_cases(torch, gen)
                  + _fused_lab_conv_cases(torch, gen) + _tp_cases(torch, gen)):
         name, label = case["name"], case["label"]
@@ -1397,6 +1625,7 @@ def main():
     card = phase_device()
     timed("build", phase_build)
     timed("kernels", phase_kernels, table)
+    timed("launches", phase_launches, card)
     timed("model", phase_model)
     timed("model_sr", phase_model_sr)
     timed("model_nomax", phase_model, nomax=True)
@@ -1457,6 +1686,12 @@ def timed(name, fn, *args, **kwargs):
     return out
 
 
+def _full_width_config(uncond, **flags):
+    from vivid_tpu_torch.nn.precond import PrecondConfig
+    return PrecondConfig(img_resolution=64, model_channels=128, extra_attn=1, uncond=uncond,
+                         use_bf16=True, remat=False, **flags)
+
+
 def _full_width(uncond, conditioned=True, train=False, **flags):
     """vivid-base / vivid-uncond at the published widths (64px, ch=128,
     extra_attn=1, bf16) with random weights from a seed. A fresh init has
@@ -1467,10 +1702,8 @@ def _full_width(uncond, conditioned=True, train=False, **flags):
     recomputed in a backward pass (remat off), as in the smoke's trainer runs.
     `flags` are more PrecondConfig fields (depth_input, warp_depth_coor)."""
     import torch
-    from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
-    cfg = PrecondConfig(img_resolution=64, model_channels=128, extra_attn=1,
-                        uncond=uncond, use_bf16=True, remat=False, **flags)
-    net = NVPrecond(cfg, device="cuda", seed=1 if uncond else 0)
+    from vivid_tpu_torch.nn.precond import NVPrecond
+    net = NVPrecond(_full_width_config(uncond, **flags), device="cuda", seed=1 if uncond else 0)
     with torch.no_grad():
         for name, p in net.named_parameters():
             if name.endswith("out_gain") or conditioned and name.endswith("emb_gain"):
@@ -1493,11 +1726,38 @@ def _ulp_noise(y, gen):
     return (y32 + sign * ulp).to(y.dtype)
 
 
+def _plain_chains(stack, noise_gen=None):
+    """Inside `stack`, the blocks' elementwise chains run their plain
+    versions (the composites) where they would launch kernels/mp_fused.py's
+    kernels. With `noise_gen`, the control of the one kernel that does not
+    give the composite's bits (`_check_mp_fused`): the pixel norm's xn moved
+    by one bf16 ulp (`_ulp_noise`), as the control moves the attention
+    outputs, and its mp_silu taken of that xn, as the kernel takes it of
+    its own."""
+    from unittest import mock
+    from vivid_tpu_torch.kernels import mp_fused
+    from vivid_tpu_torch.nn.mp import mp_silu
+
+    def noisy_norm_silu(x, eps):
+        xn = _ulp_noise(mp_fused.norm_silu_ref(x, eps)[0], noise_gen)
+        return xn, mp_silu(xn)
+
+    for wrapper, plain in (("_norm_silu_cuda", mp_fused.norm_silu_ref),
+                           ("_scale_silu_cuda", mp_fused.scale_silu_ref),
+                           ("_sum_clip_cuda", mp_fused.mp_sum_clip_ref),
+                           ("_cat_silu_cuda", mp_fused.cat_silu_ref)):
+        if noise_gen is not None and wrapper == "_norm_silu_cuda":
+            plain = noisy_norm_silu
+        stack.enter_context(mock.patch.object(mp_fused, wrapper, plain))
+
+
 def phase_model(nomax=False, flags=None):
     """D_x of one NVPrecond call through the kernels against the same call
-    through the plain versions. The network amplifies any rounding-level
-    change of the attention outputs, so the reading is held against a
-    control (the plain versions with one ulp of noise on every output) as
+    through the plain versions, the blocks' elementwise chains included
+    (their composites in place of kernels/mp_fused.py's kernels). The
+    network amplifies any rounding-level change of the attention outputs,
+    so the reading is held against a control (the plain versions with one
+    ulp of noise on every output, the pixel norm's too: `_plain_chains`) as
     well as against TOL_MODEL; planted faults must fail the same gate. With
     `nomax` the whole runs under VIVID_NOMAX_PACKED=1 (emb gains at 1 only):
     every attention goes through the no-max packed kernel, the plain version
@@ -1536,6 +1796,8 @@ def phase_model(nomax=False, flags=None):
             stack.enter_context(nomax_packed(nomax))
             for name, fn in zip(names, variants.get(variant, ())):
                 stack.enter_context(mock.patch.object(flash, name, fn))
+            if variant in ("plain", "control"):
+                _plain_chains(stack, noise_gen if variant == "control" else None)
             noise_gen.manual_seed(2)
             with torch.no_grad():
                 return net(src, dst, sigma, geo)
@@ -1559,7 +1821,8 @@ def phase_model(nomax=False, flags=None):
             faulty = _rel_l2(run(net, fault), want)
             torch.cuda.synchronize()
             on_path = names[2:] if nomax else (names[:1] if uncond else names[:2])
-            check(set(used) == set(on_path), f"{label}: the forward launched {used}")
+            on_path = set(on_path) | set(_mp_per_eval(net.cfg))
+            check(set(used) == on_path, f"{label}: the forward launched {used}")
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite D_x")
             err = _rel_l2(got, want)
             gate = TOL_CONTROL * control
@@ -1579,6 +1842,13 @@ def phase_model(nomax=False, flags=None):
             torch.cuda.empty_cache()
 
 
+def _sr_config(remat=False):
+    from vivid_tpu_torch.nn.precond import PrecondConfig
+    return PrecondConfig(img_resolution=256, super_res=True, num_sources=1, model_channels=64,
+                         extra_attn=1, source_label_dim=20, target_label_dim=20,
+                         noisy_sr=0.25, use_bf16=True, remat=remat)
+
+
 def _full_width_sr(train=False, remat=False):
     """vivid-sr as its preset builds it (256px, super_res, one source, ch=64,
     extra_attn=1, 20/20 labels, noisy_sr 0.25, bf16) with random weights from
@@ -1586,11 +1856,8 @@ def _full_width_sr(train=False, remat=False):
     leaves the net in training mode with every parameter asking for its
     gradient; `remat` is the recompute mode of its blocks."""
     import torch
-    from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
-    cfg = PrecondConfig(img_resolution=256, super_res=True, num_sources=1, model_channels=64,
-                        extra_attn=1, source_label_dim=20, target_label_dim=20,
-                        noisy_sr=0.25, use_bf16=True, remat=remat)
-    net = NVPrecond(cfg, device="cuda", seed=2)
+    from vivid_tpu_torch.nn.precond import NVPrecond
+    net = NVPrecond(_sr_config(remat), device="cuda", seed=2)
     with torch.no_grad():
         for name, p in net.named_parameters():
             if name.endswith(("out_gain", "emb_gain")):
@@ -1600,9 +1867,9 @@ def _full_width_sr(train=False, remat=False):
 
 def phase_model_sr(nomax=False):
     """`phase_model` for the 256px model: 57,550,915 parameters, and D_x of
-    one NVPrecond call at batch 8 through K6, K1 and K2 against the same
-    call through their plain versions, held to TOL_CONTROL times the one-ulp
-    control. The planted fault: the cross segment's keys dropped from K6
+    one NVPrecond call at batch 8 through K6, K1, K2 and the fused
+    elementwise chains against the same call through their plain versions,
+    held to TOL_CONTROL times the one-ulp control. The planted fault: the cross segment's keys dropped from K6
     wherever it is given more keys than queries. With `nomax` the whole runs
     under VIVID_NOMAX_PACKED=1: K7 takes the place of K1 and K2 at S = 1024."""
     import contextlib
@@ -1644,6 +1911,8 @@ def phase_model_sr(nomax=False):
             stack.enter_context(nomax_packed(nomax))
             for name, fn in zip(names, variants.get(variant, ())):
                 stack.enter_context(mock.patch.object(flash, name, fn))
+            if variant in ("plain", "control"):
+                _plain_chains(stack, noise_gen if variant == "control" else None)
             noise_gen.manual_seed(2)
             with torch.no_grad():
                 return net(src, dst, sigma, geo, conditioning_image=cond, cond_noise=cond_noise)
@@ -1655,7 +1924,7 @@ def phase_model_sr(nomax=False):
     control = _rel_l2(run("control"), want)
     faulty = _rel_l2(run("fault_no_cross_keys"), want)
     torch.cuda.synchronize()
-    per_eval = SR_PER_EVAL_NOMAX if nomax else SR_PER_EVAL
+    per_eval = _sr_per_eval(nomax)
     check(used == per_eval, f"vivid-sr: one forward launched {used}, want {per_eval}")
     check(bool(torch.isfinite(got).all()), "vivid-sr: non-finite D_x")
     err = _rel_l2(got, want)
@@ -1701,9 +1970,10 @@ def phase_slice(card):
         n_self = (len(attention_feature_spec(base.cfg.encoder_cfg))
                   + len(attention_feature_spec(gnet.cfg.unet_cfg)))
         n_cross = len(attention_feature_spec(base.cfg.unet_cfg))
+        mp = _mp_per_eval(base.cfg, gnet.cfg)
         per_eval_by_run = {
-            False: {"flash_fused_packed": n_self, "flash_fused_packed_xattn": n_cross},
-            True: {"flash_nomax_packed": n_self + n_cross}}
+            False: {"flash_fused_packed": n_self, "flash_fused_packed_xattn": n_cross, **mp},
+            True: {"flash_nomax_packed": n_self + n_cross, **mp}}
         evals = 2 * steps - 1
         for run in ("cold", "warm", "nomax_packed"):
             nomax = run == "nomax_packed"
@@ -1762,7 +2032,7 @@ def phase_slice(card):
             nomax = run == "cascade_nomax_packed"
             outdir = os.path.join(tmp, f"out_{run}")
             n_evals = 2 * n_steps - 1
-            per_sr_eval = SR_PER_EVAL_NOMAX if nomax else SR_PER_EVAL
+            per_sr_eval = _sr_per_eval(nomax)
             per_eval = per_eval_by_run[nomax]
             want = {name: per_sr_eval.get(name, 0) * n_evals for name in flash.launches}
             if run != "sr_only":
@@ -2070,7 +2340,9 @@ def phase_metrics(card, nets=None):
                       + len(attention_feature_spec(gnet.cfg.unet_cfg)))
             n_cross = len(attention_feature_spec(base.cfg.unet_cfg))
             want_l = {"flash_fused_packed": n_self * evals * n_batches,
-                      "flash_fused_packed_xattn": n_cross * evals * n_batches}
+                      "flash_fused_packed_xattn": n_cross * evals * n_batches,
+                      **{k: n * evals * n_batches
+                         for k, n in _mp_per_eval(base.cfg, gnet.cfg).items()}}
             frechet_s = []   # (dimension, seconds) of each Fréchet distance, host
 
             def timed_frechet(mu1, *args):
@@ -2146,7 +2418,7 @@ def phase_metrics(card, nets=None):
         rows = [_json.loads(l) for l in open(os.path.join(exp, "metrics.jsonl"))]
         status = [_json.loads(l) for l in open(os.path.join(exp, "stats.jsonl"))]
         per_eval = {"flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg)),
-                    "flash_fused_packed_xattn": n_cross}
+                    "flash_fused_packed_xattn": n_cross, **_mp_per_eval(base.cfg)}
         want_t = {k: n * evals * (-(-TICK_IMAGES // 25)) for k, n in per_eval.items()}
         check(tick_launches == [want_t], f"tick: launches {tick_launches}, want [{want_t}]")
         check(log.count("Metrics: {") == 1 and len(rows) == 1 and rows[0]["nimg"] == 96
@@ -2237,7 +2509,8 @@ def phase_compat(card, nets=None):
         base_cfg, gnet_cfg = nets[0].cfg, nets[1].cfg
         per_eval = {"flash_fused_packed": len(attention_feature_spec(base_cfg.encoder_cfg))
                     + len(attention_feature_spec(gnet_cfg.unet_cfg)),
-                    "flash_fused_packed_xattn": len(attention_feature_spec(base_cfg.unet_cfg))}
+                    "flash_fused_packed_xattn": len(attention_feature_spec(base_cfg.unet_cfg)),
+                    **_mp_per_eval(base_cfg, gnet_cfg)}
         evals = 2 * steps - 1
         out = {}
         for kind in ("reference", "v1"):
@@ -2385,7 +2658,8 @@ def phase_depth(card, gnet=None):
         steps, seeds = 8, list(range(8))   # of the sampler's 32 (a cut for time)
         per_eval = {"flash_fused_packed": len(attention_feature_spec(base.cfg.encoder_cfg))
                     + len(attention_feature_spec(gnet.cfg.unet_cfg)),
-                    "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg))}
+                    "flash_fused_packed_xattn": len(attention_feature_spec(base.cfg.unet_cfg)),
+                    **_mp_per_eval(base.cfg, gnet.cfg)}
         evals = 2 * steps - 1
         for name in flash.launches:
             flash.launches[name] = 0
@@ -3142,9 +3416,10 @@ def phase_shell(card, sr_model=None):
         check(a.state.cur_nimg == 4 * step and a.state.adam_step == 4,
               f"shell: run A ended at {a.state.cur_nimg} nimg, step {a.state.adam_step}")
         per_eval = {"flash_fused_packed": len(attention_feature_spec(cfg.encoder_cfg)),
-                    "flash_fused_packed_xattn": len(attention_feature_spec(cfg.unet_cfg))}
+                    "flash_fused_packed_xattn": len(attention_feature_spec(cfg.unet_cfg)),
+                    **_mp_per_eval(cfg)}
         want_base = {k: n * evals for k, n in per_eval.items()}
-        want_sr = {k: n * evals for k, n in SR_PER_EVAL.items()}
+        want_sr = {k: n * evals for k, n in _sr_per_eval().items()}
         check(len(sampled["base"]) == len(sampled["sr"]) == 1,
               f"shell: {len(sampled['base'])} grids sampled, want 1")
         (base_used, base_lat), (sr_used, sr_lat) = sampled["base"][0], sampled["sr"][0]
@@ -3731,10 +4006,13 @@ def _dist_two_ranks(rank, world, backend, data, tmp):
 
     def cut_step(sigma, eps):
         """One step of the cut batch in one process: (its stats, the global
-        loss of its clamped shares)."""
-        with torch.no_grad():
+        loss of its clamped shares). The clamp's statistics come from the
+        trainer's own forward, with autograd on: with it off the blocks take
+        the fused elementwise kernels (kernels/mp_fused.py), whose pixel norm
+        rounds apart from the composite that the ranks' step runs."""
+        with torch.enable_grad():
             losses = [loss_fn(one.net, batch["src"][c], batch["tgt"][c], batch["geometry"][c],
-                              sigma=sigma[c], eps=eps[c]) for c in shares]
+                              sigma=sigma[c], eps=eps[c]).detach() for c in shares]
         n, s, ss = sums(losses).unbind()
         m = s / n
         sd = torch.sqrt(torch.clamp(ss / n - m * m, min=0.0))
@@ -3901,8 +4179,11 @@ def _dist_two_ranks(rank, world, backend, data, tmp):
     evals = 2 * steps - 1
     digests = [None] * world
     torch.distributed.all_gather_object(digests, _digest(tp_lat))
-    want_used = {"flash_fused_packed": 34 * evals, "flash_fused_packed_xattn": 17 * evals}
-    problems = [f"launched {used}, want 34 / 17 per evaluation"] if used != want_used else []
+    mp = _mp_per_eval(_full_width_config(False), _full_width_config(True))
+    want_used = {"flash_fused_packed": 34 * evals, "flash_fused_packed_xattn": 17 * evals,
+                 **{k: n * evals for k, n in mp.items()}}
+    problems = ([f"launched {used}, want 34 / 17 and {mp} per evaluation"]
+                if used != want_used else [])
     if len(set(digests)) > 1:
         problems.append(f"the ranks sampled different latents: {digests}")
     if (tp_rows[0].images is None) != (rank != 0):

@@ -20,7 +20,7 @@ from vivid_tpu_torch.core.consistency import debug_nans
 from vivid_tpu_torch.core.summary import flops_analysis
 from vivid_tpu_torch.core.trace import span, trace
 from vivid_tpu_torch.data import scenes
-from vivid_tpu_torch.kernels import flash
+from vivid_tpu_torch.kernels import flash, mp_fused
 from vivid_tpu_torch.nn.precond import NVPrecond, PrecondConfig
 from vivid_tpu_torch.tools import fused_conv_lab, nomax_attn_lab
 from vivid_tpu_torch.train import loop
@@ -72,6 +72,7 @@ def _kernel_cases():
     q, k, v = _rand(b, h, 10, d), _rand(b, h, 14, d, seed=1), _rand(b, h, 14, d, seed=2)
     out, lse = flash.flash_attention_ref(q, k, v)
     x, w = _rand(1, 64, 6, 5), _rand(64, 64, 3, 3, seed=1)
+    a = _rand(2, 3, 4, 16, seed=4)
     return {
         "flash_fused_packed": (lambda: flash.flash_fused_packed_ref(qkv, h, 2),
                                flash._packed_ops(qkv, (), h, 2)),
@@ -94,15 +95,21 @@ def _kernel_cases():
                          2 * 1 * 6 * 5 * 9 * 64 * 64),
         "nomax_lab_attention": (lambda: nomax_attn_lab.nomax_attention_ref(q, k, v),
                                 flash._bhsd_ops(q, k, 2)),
+        # The blocks' elementwise chains: no products.
+        "mp_norm_silu": (lambda: mp_fused.norm_silu_ref(a), 0),
+        "mp_scale_silu": (lambda: mp_fused.scale_silu_ref(a, a[:, 0, 0]), 0),
+        "mp_sum_clip": (lambda: mp_fused.mp_sum_clip_ref(a, a, 0.3, 256.0), 0),
+        "mp_cat_silu": (lambda: mp_fused.cat_silu_ref(a, a, 0.5), 0),
     }
 
 
 @pytest.mark.parametrize("kernel", sorted(flash.launches))
 def test_kernel_tallies_count_what_the_plain_versions_count(kernel):
     """Each kernel's wrapper adds to `flash.flops` what FlopCounterMode
-    counts for its plain version (K5's norm pre-pass: nothing), so a count
-    through the kernels equals one through the plain versions. On the CPU
-    the wrappers take the plain versions and add nothing themselves."""
+    counts for its plain version (K5's norm pre-pass and the blocks'
+    elementwise chains: nothing), so a count through the kernels equals one
+    through the plain versions. On the CPU the wrappers take the plain
+    versions and add nothing themselves."""
     cases = _kernel_cases()
     if kernel == "flash_fused_norm":
         q = _rand(1, 2, 8, 32)
@@ -111,7 +118,8 @@ def test_kernel_tallies_count_what_the_plain_versions_count(kernel):
         return
     fn, tally = cases[kernel]
     got = flops_analysis(fn)
-    assert got["kernels"] == {} and got["flops"] == tally > 0
+    assert got["kernels"] == {} and got["flops"] == tally
+    assert tally > 0 or kernel.startswith("mp_")
 
 
 def _independent_count(net, args, monkeypatch):

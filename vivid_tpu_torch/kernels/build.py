@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("flash_packed.cu", "flash_packed_bwd.cu", "flash_nomax.cu", "flash_bwd.cu",
-           "flash_fused.cu", "flash_nomax_packed.cu", "flash_nomax_lab.cu", "conv3x3_silu.cu")
+           "flash_fused.cu", "flash_nomax_packed.cu", "flash_nomax_lab.cu", "conv3x3_silu.cu",
+           "mp_fused.cu")
 HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "flash_fwd.cuh", "flash_packed.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -172,4 +173,17 @@ def library() -> ctypes.CDLL:
     lib.vivid_conv3x3_silu_fwd.restype = i32
     lib.vivid_conv3x3_silu_info.argtypes = [i32, ptr]   # fuse_silu, info[9]
     lib.vivid_conv3x3_silu_info.restype = i32
+    i64 = ctypes.c_longlong
+    lib.vivid_mp_norm_silu.argtypes = [
+        ptr, ptr, ptr, i64, i32, i32, f32, ptr]   # x, xn, xs, rows, C, fp32, eps, stream
+    lib.vivid_mp_scale_silu.argtypes = [
+        ptr, ptr, ptr, i64, i64, i32, i32, ptr]   # y, c, out, rows, rows an image, C, fp32, stream
+    lib.vivid_mp_sum_clip.argtypes = [
+        ptr, ptr, ptr, i64, i32, f32, f32, f32, ptr]   # a, b, out, numel, fp32, t, norm, clip, stream
+    lib.vivid_mp_cat_silu.argtypes = [
+        ptr, ptr, ptr, ptr, i64, i32, i32, i32,   # a, b, cat, xs, rows, Ca, Cb, fp32
+        f32, f32, ptr]                            # wa, wb, stream
+    lib.vivid_mp_fused_info.argtypes = [i32, i32, i32, ptr]   # kernel, fp32, C, info[3]
+    for name in ("norm_silu", "scale_silu", "sum_clip", "cat_silu", "fused_info"):
+        getattr(lib, f"vivid_mp_{name}").restype = i32
     return lib

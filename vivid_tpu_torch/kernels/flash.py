@@ -76,7 +76,9 @@ launches = {"flash_fused_packed": 0, "flash_fused_packed_xattn": 0,
             "flash_nomax": 0, "flash_attention": 0, "flash_attention_bwd": 0,
             "flash_fused": 0, "flash_fused_norm": 0, "flash_nomax_packed": 0,
             # the kernels of vivid_tpu_torch/tools, counted here with the rest
-            "conv3x3_silu": 0, "nomax_lab_attention": 0}
+            "conv3x3_silu": 0, "nomax_lab_attention": 0,
+            # the blocks' elementwise chains (kernels/mp_fused.py)
+            "mp_norm_silu": 0, "mp_scale_silu": 0, "mp_sum_clip": 0, "mp_cat_silu": 0}
 flops = dict.fromkeys(launches, 0)
 REF_CHUNK_ELEMS = 1 << 28   # fp32 logits a big-S plain version holds at a time (1 GiB)
 BWD_ROWS = 64   # csrc/flash_bwd.cu and the packed kernels' pre-pass pad rows to 64-row tiles

@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from vivid_tpu_torch.geometry.epipolar import get_epipolar_attn, get_epipolar_dist
 from vivid_tpu_torch.kernels import attention
-from vivid_tpu_torch.nn.mp import MPConv, mp_silu, mp_sum, normalize, remat_name, resample
+from vivid_tpu_torch.kernels.mp_fused import mp_sum_clip, norm_silu, scale_silu
+from vivid_tpu_torch.nn.mp import MPConv, mp_silu, remat_name, resample
 
 RES_BALANCE = 0.3      # mp_sum weight of the residual branch
 ATTN_BALANCE = 0.3     # mp_sum weight of the attention branch
@@ -119,13 +120,18 @@ class Block(nn.Module):
         keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
         return keep.to(x.dtype) / (1.0 - p)
 
-    def forward(self, x, emb, features=None, dropout_mask=None, src_geometries=None):
+    def forward(self, x, emb, features=None, dropout_mask=None, src_geometries=None,
+                x_silu=None):
         """x [B, H, W, Cin]; emb [B, Cemb]; features (xattn blocks): the
         string "zeros" (unconditional model) or a list of cross sources
         [B, h, w, Cout]; dropout_mask from `dropout_mask`; src_geometries
-        (epipolar bias): one [B, 20] per cross source. Under tensor
-        parallelism (`self.tp`) each branch computes this rank's channels
-        and heads, and one all-reduce sums the branch's partial products."""
+        (epipolar bias): one [B, 20] per cross source; x_silu: mp_silu(x)
+        where the caller has it (a decoder block that resamples nothing,
+        after `cat_silu`). Under tensor parallelism (`self.tp`) each branch
+        computes this rank's channels and heads, and one all-reduce sums the
+        branch's partial products. The elementwise chains go through
+        kernels/mp_fused.py's entries: fused kernels on a card with autograd
+        off, the composites otherwise."""
         cfg, tp = self.cfg, self.tp
         if tp is not None and self.training:
             raise RuntimeError("tensor parallelism is for evaluation only; training "
@@ -134,12 +140,14 @@ class Block(nn.Module):
         if cfg.flavor == "enc":
             if self.conv_skip is not None:
                 x = self.conv_skip(x)
-            x = normalize(x, dim=-1)
+            x, x_silu = norm_silu(x)
+        elif x_silu is None:
+            x_silu = mp_silu(x)
 
         part = tp.local_channels if tp is not None else None
-        y = self.conv_res0(mp_silu(x), rows=part)
+        y = self.conv_res0(x_silu, rows=part)
         c = self.emb_linear(emb, gain=self.emb_gain, rows=part) + 1.0
-        y = mp_silu(y * c[:, None, None, :].to(y.dtype))
+        y = scale_silu(y, c)
         if dropout_mask is not None:
             y = y * dropout_mask
         y = self.conv_res1(y, cols=part)
@@ -147,9 +155,9 @@ class Block(nn.Module):
             y = tp.all_reduce(y)
         if cfg.flavor == "dec" and self.conv_skip is not None:
             x = self.conv_skip(x)
-        x = mp_sum(x, y, t=RES_BALANCE)
-
         heads = cfg.num_heads
+        x = mp_sum_clip(x, y, RES_BALANCE, None if heads else CLIP_ACT)
+
         if heads:
             b, h, w, ch = x.shape
             mine = None   # this rank's heads
@@ -183,5 +191,5 @@ class Block(nn.Module):
                 y = F.linear(y, w_proj)
             if tp is not None:
                 y = tp.all_reduce(y)
-            x = mp_sum(x, y.reshape(b, h, w, ch), t=ATTN_BALANCE)
-        return x.clamp(-CLIP_ACT, CLIP_ACT)
+            x = mp_sum_clip(x, y.reshape(b, h, w, ch), ATTN_BALANCE, CLIP_ACT)
+        return x

@@ -63,12 +63,15 @@ def mp_sum(a, b, t=0.5):
     return (a + t * (b - a)) / math.sqrt((1 - t) ** 2 + t ** 2)
 
 
+def cat_weights(na: int, nb: int, t: float = 0.5):
+    """The scales (wa, wb) of `mp_cat`'s two parts of na and nb channels."""
+    c = math.sqrt((na + nb) / ((1 - t) ** 2 + t ** 2))
+    return c / math.sqrt(na) * (1 - t), c / math.sqrt(nb) * t
+
+
 def mp_cat(a, b, dim=-1, t=0.5):
     """Magnitude-preserving concatenation (EDM2 Eq. 103)."""
-    na, nb = a.shape[dim], b.shape[dim]
-    c = math.sqrt((na + nb) / ((1 - t) ** 2 + t ** 2))
-    wa = c / math.sqrt(na) * (1 - t)
-    wb = c / math.sqrt(nb) * t
+    wa, wb = cat_weights(a.shape[dim], b.shape[dim], t)
     return torch.cat([wa * a, wb * b], dim=dim)
 
 

@@ -42,9 +42,9 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from vivid_tpu_torch.kernels import flash
+from vivid_tpu_torch.kernels import flash, mp_fused
 from vivid_tpu_torch.nn.blocks import Block, BlockConfig
-from vivid_tpu_torch.nn.mp import MPConv, MPFourier, current_remat_name, mp_cat, mp_silu, mp_sum
+from vivid_tpu_torch.nn.mp import MPConv, MPFourier, current_remat_name, mp_silu, mp_sum
 
 LABEL_BALANCE = 0.5    # mp_sum weight of the geometry embedding
 REMAT_HIRES_AREA = 128 * 128   # save_dots recomputes convs whose input area exceeds this
@@ -274,7 +274,7 @@ class UNet(nn.Module):
         feat_iter = iter(features) if features is not None and not zeros_mode else None
         collected = []
 
-        def run(e: PlanEntry, h):
+        def run(e: PlanEntry, h, h_silu=None):
             group, key = e.name.split("/")
             module = getattr(self, group)[key]
             if e.kind == "conv":
@@ -292,7 +292,7 @@ class UNet(nn.Module):
                     and (group == "dec" or cfg.kind == "encoder")):
                 h = _remat_call(cfg.remat, module, h, emb, feats, mask, src_geometries)
             else:
-                h = module(h, emb, feats, mask, src_geometries)
+                h = module(h, emb, feats, mask, src_geometries, h_silu)
             if cfg.kind == "encoder" and e.block.num_heads > 0:
                 collected.append(h)
             return h
@@ -303,9 +303,13 @@ class UNet(nn.Module):
             h = run(e, h)
             skips.append(h)
         for e in self.dec_plan:
+            h_silu = None
             if "_block" in e.name:
-                h = mp_cat(h, skips.pop(), dim=-1, t=CONCAT_BALANCE)
-            h = run(e, h)
+                # The kernel writes the block's mp_silu with the concatenation;
+                # under autograd (h_silu None) the block computes it, inside
+                # its recompute.
+                h, h_silu = mp_fused.cat_silu(h, skips.pop(), CONCAT_BALANCE)
+            h = run(e, h, h_silu)
         if cfg.kind == "encoder":
             return collected
         return self.out_conv(h, gain=self.out_gain)
